@@ -1,9 +1,10 @@
 """Command-line interface of the port: `python -m siga_tpu_torch <command>`.
 
-Option tables and parsing are `siga_tpu.cli`'s.  The port adds
-`overlap --device {cuda,cpu}` (default cuda; the CPU runs the plain PyTorch
-versions of the kernels and exists for the tests).  `assemble` is the shared
-jax-free command.  Commands outside the ported slice exit with a message.
+Option tables and parsing are `siga_tpu.cli`'s.  The port adds `--device
+{cuda,cpu}` to `index`, `overlap` and `rmdup` (default cuda; the CPU runs
+the plain PyTorch versions of the kernels and exists for the tests).
+`assemble` is the shared jax-free command.  Commands outside the ported
+slice exit with a message.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import List, Tuple
 
 from siga_tpu import cli as shared_cli
 
-PORTED = ("index", "overlap", "assemble")
+PORTED = ("index", "overlap", "rmdup", "assemble")
+ON_DEVICE = ("index", "overlap", "rmdup")
 
 
 def _split_device(argv: List[str]) -> Tuple[List[str], str]:
@@ -56,7 +58,7 @@ def main(argv: List[str] = None) -> int:
         return 1
     args = argv[1:]
     device = None
-    if command == "overlap":
+    if command in ON_DEVICE:
         args, device = _split_device(args)
     opts, args = shared_cli.parse_options(command, args)
     if device is not None:
@@ -67,15 +69,16 @@ def main(argv: List[str] = None) -> int:
     logconf.configure(opts.get("log4cxx"))
     if opts.get("help"):
         print(shared_cli.USAGE[command])
-        if command == "overlap":
-            print("      --device=cuda|cpu      stage-A device (default: cuda)")
-        elif command == "index":
-            print("(this port: -a host only, the default)")
+        if command in ON_DEVICE:
+            print("      --device=cuda|cpu      device of the suffix sort (index -a sais2) "
+                  "or the stage-A scan (default: cuda)")
         return 256
     if command == "index":
         from .commands import index_cmd as mod
     elif command == "overlap":
         from .commands import overlap_cmd as mod
+    elif command == "rmdup":
+        from .commands import rmdup_cmd as mod
     else:
         from siga_tpu.commands import assemble_cmd as mod
     return mod.run(opts, args)

@@ -1,8 +1,9 @@
 """`index` — build the BWT/FM-index of a read set (.sai/.bwt/.rsai/.rbwt).
 
-Port of `siga_tpu/commands/index_cmd.py` with one algorithm, `host` (the
-C++ seed-sort).  The device suffix sort (`-a sais2` in the JAX package) is
-ROADMAP item K6 and not ported yet; asking for it is an error.
+Port of `siga_tpu/commands/index_cmd.py`: reads stripped of quality and
+comment, the forward index -> .sai/.bwt, then each read reversed (plain
+reversal, not rc) -> .rsai/.rbwt.  `-a sais2` (the default) runs the suffix
+sort on `--device` (default cuda); `-a host` runs the shared C++ seed-sort.
 """
 from __future__ import annotations
 
@@ -14,7 +15,10 @@ from typing import List
 from siga_tpu.constants import BWT_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
 from siga_tpu.io import bwtio, fastx, sai as sai_mod
 
+from ..device import resolve_device
 from ..index import sa as sa_mod
+
+ALGORITHMS = ("sais2", "host")
 
 
 def _save(prefix_sai: str, prefix_bwt: str, bwt, perm, ns) -> None:
@@ -26,14 +30,13 @@ def run(opts: dict, arguments: List[str]) -> int:
     if len(arguments) != 1:
         print("usage: index [OPTION] ... READSFILE", file=sys.stderr)
         return 256
-    algorithm = str(opts.get("algorithm", "host"))
-    if algorithm != "host":
+    algorithm = str(opts.get("algorithm", "sais2"))
+    if algorithm not in ALGORITHMS:
         print(
-            f"index: algorithm {algorithm!r} is not ported yet (ROADMAP K6, "
-            "the device suffix sort); use -a host",
-            file=sys.stderr,
+            f"index: unknown algorithm {algorithm!r} (sais2 or host)", file=sys.stderr
         )
         return 1
+    device = resolve_device(opts.get("device", "cuda")) if algorithm == "sais2" else None
     input_path = arguments[0]
     output = opts.get("prefix") or fastx.stem(input_path)
     records = fastx.read_sequences(input_path, with_quality=False, with_comment=False)
@@ -41,14 +44,15 @@ def run(opts: dict, arguments: List[str]) -> int:
 
     t0 = time.time()
     if not opts.get("no-forward"):
-        bwt, perm, ns = sa_mod.build_index_arrays(seqs)
+        bwt, perm, ns = sa_mod.build_index_arrays(seqs, algorithm, device)
         _save(output + SAI_EXT, output + BWT_EXT, bwt, perm, ns)
     if not opts.get("no-reverse"):
-        bwt, perm, ns = sa_mod.build_index_arrays([s[::-1] for s in seqs])
+        bwt, perm, ns = sa_mod.build_index_arrays([s[::-1] for s in seqs], algorithm, device)
         _save(output + RSAI_EXT, output + RBWT_EXT, bwt, perm, ns)
     maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1073741824.0
+    where = f"-a {algorithm}" + (f" on {device}" if device is not None else "")
     print(
-        f"[index] wall: {time.time()-t0:.3f} sec, max rss: {maxrss:.3f} GB",
+        f"[index] wall: {time.time()-t0:.3f} sec, max rss: {maxrss:.3f} GB ({where})",
         file=sys.stderr,
     )
     return 0

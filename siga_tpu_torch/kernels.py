@@ -1,13 +1,15 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-Every `csrc/*.cu` compiles with nvcc for `sm_90a` into one shared library
-with a plain C interface under `_build/`, at first use; it is loaded with
-ctypes.  Each C entry point launches on the stream it is given and returns
+Every `csrc/*.cu` compiles with nvcc for `sm_90a` (one nvcc per source,
+all started together) and links into one shared library with a plain C
+interface under `_build/`, at first use; it is loaded with ctypes.  Each C
+entry point launches on the stream it is given and returns
 `cudaGetLastError()`, which `check` turns into an exception.  There is no
 fallback: a failed build or launch raises.
 
-`launches` counts, per kernel, the calls of its wrapper that launched it, so
-a run can show that its main path went through the kernel.
+`launches` counts, per kernel, the launches its wrapper made (each wrapper
+adds one where it launches), so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -25,16 +27,20 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 LIB_PATH = os.path.join(BUILD_DIR, "libsiga_tpu_torch_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-launches = {"scan_pair": 0, "sw_wavefront": 0}
+launches = {
+    "scan_pair": 0, "sw_wavefront": 0,
+    "gather_rows": 0, "take_along": 0, "gather_chain": 0, "scale2": 0,
+}
 
 _lock = threading.Lock()
 _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # plane, K2, pred, la_words, lens, length, nblocks, n, wpr, nfwd,
     # groups_code, lim_t, p1, t0, lanes, then outputs, stream
@@ -43,6 +49,16 @@ _SIGNATURES = {
     # queries, refs, B, M, N, match, mismatch, open, extend, best, qend,
     # rend, stream
     "siga_sw_wavefront": [_P] * 2 + [_I] * 7 + [_P] * 3 + [_P],
+    # plane, idx, R, Q, C, out, stream
+    "siga_gather_rows": [_P, _P, _I, _I, _I, _P, _P],
+    # table, index, A, B, Q, si0, si1, axis, out, stream
+    "siga_take_along": [_P, _P, _I, _I, _I, _L, _L, _I, _P, _P],
+    # table, sw, sx, W, NB, init, c, Lc, steps, L, out, stream
+    "siga_gather_chain_sum": [_P, _L, _L, _I, _I, _P, _P, _I, _I, _I, _P, _P],
+    # table, sw, sx, W, N, init, M, steps, out, stream
+    "siga_gather_chain_elem": [_P, _L, _L, _I, _I, _P, _I, _I, _P, _P],
+    # x, n, out, stream
+    "siga_scale2": [_P, _L, _P, _P],
 }
 
 
@@ -60,15 +76,38 @@ def build() -> str:
     ):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return proc.stderr
+    tag = f"{os.getpid()}.tmp"
+    objects = [
+        os.path.join(BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o") for src in sources
+    ]
+    procs = [
+        subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(sources, objects)
+    ]
+    errs = [proc.communicate()[1] for proc in procs]  # waits for each
+    try:
+        failed = [
+            f"{src} ({proc.returncode}):\n{err}"
+            for src, proc, err in zip(sources, procs, errs)
+            if proc.returncode != 0
+        ]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        proc = subprocess.run(
+            [nvcc(), "-shared", "-o", tmp, *objects], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(errs)
 
 
 def lib() -> ctypes.CDLL:

@@ -4,7 +4,8 @@ Port of `siga_tpu/ops/search.py` for one GPU.  Stage A (the backward search
 with '$'-probes over every read in four orientations) runs as the pair scan
 of `fm_device.py`; stages B/C (submaximal filtering, irreducible extraction)
 run in the shared C++ runtime, one chunk behind the scan in a worker thread.
-There is no Python stage B/C here: the runtime is required.
+There is no Python stage B/C here: the runtime is required.  rmdup
+(`batch_duplicate_hits`) needs only the scan's finals.
 """
 from __future__ import annotations
 
@@ -14,8 +15,15 @@ from typing import Iterator
 import numpy as np
 
 from siga_tpu import native
-from siga_tpu.index.fm import IntervalPair
-from siga_tpu.overlap.builder import Hit, OverlapBlock, OverlapBuilder
+from siga_tpu.index.fm import FMIndex, IntervalPair
+from siga_tpu.overlap.builder import (
+    AF_SUFFIX_PREFIX,
+    AF_SUFFIX_SUFFIX,
+    Hit,
+    OverlapBlock,
+    OverlapBuilder,
+    OverlapResult,
+)
 
 from ..device import native_lib
 from .fm_device import (
@@ -141,6 +149,81 @@ def _batch_overlap_ordered(
             pending = (start, future)
         if pending is not None:
             yield from hits(*pending)
+
+
+class _Containments:
+    """Containment/substring classification from the scan's compacted
+    candidates: substring flags (lext|rext) and probe-valid finals come from
+    the scan; only the final updateR('$') counts need one host occ pair over
+    the (few) candidates.  Port of `siga_tpu/ops/search.py::_Containments`."""
+
+    def __init__(
+        self,
+        cand_lanes: np.ndarray,
+        cand_rows: np.ndarray,
+        substr_flags: np.ndarray,
+        rindex: FMIndex,
+    ):
+        self.substring = substr_flags
+        self.cand_lanes = cand_lanes
+        self.rows = cand_rows
+        if len(cand_lanes):
+            frlo = cand_rows[:, 2]
+            psize = cand_rows[:, 5] - cand_rows[:, 4]
+            self.p_l = rindex.occ_all(frlo - 1)
+            self.p_u = rindex.occ_all(frlo + psize - 1)
+
+    def get(self, lane: int, seqlen: int, af: int, result: OverlapResult):
+        if self.substring[lane]:
+            result.substring = True
+            return None
+        i = int(np.searchsorted(self.cand_lanes, lane))
+        if i >= len(self.cand_lanes) or self.cand_lanes[i] != lane:
+            return None
+        flo, fhi, frlo, frhi, l0, u0 = (int(v) for v in self.rows[i])
+        raw = IntervalPair(flo, fhi, frlo, frhi)
+        # closed-form '$' probe of the full-length interval, then
+        # updateR('$') from the cached counts (pred['$'] == 0)
+        probe = IntervalPair(l0, u0 - 1, frlo, frlo + (u0 - l0) - 1)
+        if not probe.valid():
+            raise AssertionError(f"lane {lane}: invalid '$' probe {probe}")
+        diff0 = int(self.p_u[i, 0] - self.p_l[i, 0])
+        probe.hi = probe.lo + diff0 - 1
+        probe.rlo = int(self.p_l[i, 0])
+        probe.rhi = int(self.p_u[i, 0]) - 1
+        if not probe.valid():
+            raise AssertionError(f"lane {lane}: invalid updated probe {probe}")
+        return OverlapBlock(probe, raw, seqlen, af)
+
+
+def batch_duplicate_hits(builder: OverlapBuilder, records, device) -> Iterator[Hit]:
+    """rmdup's search, one Hit per read in input order: `duplicate()` is the
+    containment-only search (min_overlap = read length), i.e. only the
+    finals of the stage-A scan over lanes [seq] (forward index) and
+    [complement(seq)] (reverse index).  Port of
+    `siga_tpu/ops/search.py::batch_duplicate_hits` for one GPU."""
+    scanner = _cached_scanner(builder, device, (GROUP_ID,), (GROUP_COMP,))
+    chunk_reads = chunk_size(len(records))
+    for start in range(0, len(records), chunk_reads):
+        chunk = records[start : start + chunk_reads]
+        seqs = [r.seq for r in chunk]
+        maxlen = _bucket_len(max(len(s) for s in seqs))
+        # min_overlap above every read: no overlap blocks, only the finals
+        f_view, r_view = scanner.collect(
+            scanner.dispatch(seqs, len(chunk), maxlen, maxlen + 1)
+        )
+        f_contain = _Containments(*f_view[3:], builder.rfmi)
+        r_contain = _Containments(*r_view[3:], builder.fmi)
+        for k, rec in enumerate(chunk):
+            seqlen = len(rec.seq)
+            result = OverlapResult()
+            hit = Hit(idx=start + k)
+            for contain, af in ((f_contain, AF_SUFFIX_PREFIX), (r_contain, AF_SUFFIX_SUFFIX)):
+                block = contain.get(k, seqlen, af, result)
+                if block is not None:
+                    hit.blocks.append(block)
+            hit.substring = result.substring
+            yield hit
 
 
 class _LazyHit(Hit):

@@ -24,6 +24,9 @@ import siga_tpu_torch.ops.search
 import siga_tpu_torch.ops.sw
 import siga_tpu_torch.commands.index_cmd
 import siga_tpu_torch.commands.overlap_cmd
+import siga_tpu_torch.commands.rmdup_cmd
+import siga_tpu_torch.index.sa
+import siga_tpu_torch.probes.gather
 import siga_tpu.commands.assemble_cmd
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")], "jax imported"
 

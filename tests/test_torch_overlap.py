@@ -32,7 +32,7 @@ def _port(cwd, *args):
 def asm780(tmp_path_factory):
     td = tmp_path_factory.mktemp("torch_asm")
     shutil.copy(os.path.join(GOLDEN, "asm780-reads.fa"), td / "reads.rmdup.fa")
-    _port(td, "index", "-p", "reads.rmdup", "reads.rmdup.fa")
+    _port(td, "index", "--device", "cpu", "-p", "reads.rmdup", "reads.rmdup.fa")
     _port(td, "overlap", "--device", "cpu", "-m", "45", "-p", "reads.rmdup", "reads.rmdup.fa")
     _port(td, "assemble", "-m", "45", "-x", "0", "-p", "asm", "reads.rmdup.asqg.gz")
     return td
@@ -60,7 +60,7 @@ def test_host_index_matches_golden(tmp_path):
         (seqs, "fixed.sai", "fixed.bwt"),
         ([s[::-1] for s in seqs], "fixed.rsai", "fixed.rbwt"),
     ):
-        bwt_codes, perm, ns = torch_sa.build_index_arrays(reads)
+        bwt_codes, perm, ns = torch_sa.build_index_arrays(reads, "host")
         sai.save_sai(str(tmp_path / sai_name), perm, ns)
         bwtio.save_bwt(str(tmp_path / bwt_name), bwt_codes, ns)
         for name in (sai_name, bwt_name):
@@ -85,8 +85,8 @@ def test_engine_hits_match_host_engine(irreducible, rc):
     reads["rcx"] = revcomp(reads["r003"])
     reads["dup"] = reads["r005"]
     seqs = list(reads.values())
-    fwd = torch_sa.build_index_arrays(seqs)
-    rev = torch_sa.build_index_arrays([s[::-1] for s in seqs])
+    fwd = torch_sa.build_index_arrays(seqs, "host")
+    rev = torch_sa.build_index_arrays([s[::-1] for s in seqs], "host")
     builder = OverlapBuilder(
         FMIndex(fwd[0], fwd[2]), FMIndex(rev[0], rev[2]), irreducible=irreducible, rc=rc
     )
@@ -120,7 +120,7 @@ def test_containment_only_overlap_matches_jax(tmp_path):
     port, ref = tmp_path / "port", tmp_path / "jax"
     port.mkdir()
     (port / "reads.fa").write_text(_recipe_reads())
-    _port(port, "index", "-p", "reads", "reads.fa")
+    _port(port, "index", "--device", "cpu", "-p", "reads", "reads.fa")
     shutil.copytree(port, ref)
     _port(port, "overlap", "--device", "cpu", "-m", "200", "-p", "reads", "reads.fa")
     cwd = os.getcwd()
