@@ -35,7 +35,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      version bit for bit at every Pallas probe's own shape and on the pair
      plane (60,608 random rows, one overlap chunk's lanes), and G1's
      device-side range assert in a child process;
- 11. the kernels' JSON line, then the device line last.
+ 11. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
+     (its genome and generator), its eleven stages (PIPE_STAGES) through
+     `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
+     with a time limit, then `benchmark/contigs_mapping.py`: the corrected
+     read count and the contig facts must equal BASELINE.md's; each stage's
+     wall and kernel launches are printed;
+ 12. K1 against its plain version, bit for bit, at the pipeline's shapes
+     with the `--no-opposite-strand` lane groups: the first chunk of
+     `reads.ec.fa` at -m 85, and all contigs in one length-sorted chunk at
+     -m 10;
+ 13. `correct` of every 8th preprocessed read against the whole read set's
+     index (K7 must launch): its records must equal those reads' records in
+     the pipeline's `reads.ec.fa`;
+ 14. K7 against its plain version on that index's forward plane, bit for
+     bit, on 262,144 41-mers (drawn from the reads, one base substituted, an
+     N), 300 of them also against `FMIndex.occurrences`;
+ 15. `overlap` as two `--process-id` workers at once on the card plus
+     `--merge-only -t 2` (the port's launcher) against one `-t 2` process:
+     the ASQG must be equal;
+ 16. the kernels' JSON line (each kernel's launches summed over the paths
+     above, each path's counts read from its own run), then the device
+     line last.
 Imports nothing of JAX.
 """
 import gzip
@@ -54,12 +75,14 @@ import torch
 
 from siga_tpu.core import dna
 from siga_tpu.index.fm import FMIndex
+from siga_tpu.io import fastx
 from siga_tpu.io.fastx import DNASeq
 from siga_tpu.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch import cli, kernels
 from siga_tpu_torch.device import native_lib
 from siga_tpu_torch.index import sa as sa_mod
-from siga_tpu_torch.ops import fm_device, search, sw
+from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
+from siga_tpu_torch.parallel import multihost
 from siga_tpu_torch.probes import gather
 
 SEED = 1
@@ -73,6 +96,55 @@ RMDUP = ((fm_device.GROUP_ID,), (fm_device.GROUP_COMP,))
 INDEX_FILES = ("sai", "bwt", "rsai", "rbwt")
 PROBE_LANES = 60608  # lanes of one overlap chunk (15,152 reads x 4 orientations)
 PROBE_STEPS = 150
+REPO = os.path.dirname(os.path.abspath(__file__))
+CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
+STAGE_TIMEOUT = 600  # seconds; a stage that runs longer fails the run
+# benchmark/ecoli_scale.py 1.0 25 0.005 and its result (BASELINE.md:66-73)
+PIPE_GENOME = 1_000_000
+PIPE_COVERAGE = 25
+PIPE_ERR = 0.005
+PIPE_FACTS = {
+    "reads_corrected": 166_638, "contig_number": 213, "matched_contig": 213,
+    "unmatched_contig": 0, "N50": 8505, "N90": 2085, "MAX_contig": 39_173,
+    "genome_covered": 999_189,
+}
+# The stages of benchmark/ecoli_scale.py (the MiSeq recipe's parameters:
+# correction k = 41, minimum overlap 85, assembly overlap 111, branch trim
+# 150), each the argument list of one command, run where the reads lie.
+PIPE_STAGES = (
+    ("preprocess", ["preprocess", "--pe-mode=1", "--pe-orientation=ff", "--no-primer-check",
+                    "-o", "reads.pp.fastq", "{r1}", "{r2}"]),
+    ("index_pp", ["index", "--no-reverse", "-p", "reads.pp", "reads.pp.fastq"]),
+    ("correct", ["correct", "-k", "41", "-p", "reads.pp", "-o", "reads.ec.fa", "reads.pp.fastq"]),
+    ("index_ec", ["index", "-p", "reads.ec", "reads.ec.fa"]),
+    ("overlap", ["overlap", "-m", "85", "--no-opposite-strand", "-p", "reads.ec", "reads.ec.fa"]),
+    ("assemble_pe", ["assemble", "-m", "111", "--pe-mode=1", "--max-distance=100",
+                     "--min-branch-length", "150", "-p", "primary", "reads.ec.asqg.gz"]),
+    ("index_ctg", ["index", "-p", "primary-contigs", "primary-contigs.fa"]),
+    ("rmdup", ["rmdup", "-p", "primary-contigs", "primary-contigs.fa"]),
+    ("index_rmdup", ["index", "-p", "primary-contigs.rmdup", "primary-contigs.rmdup.fa"]),
+    ("overlap_ctg", ["overlap", "-m", "10", "--no-opposite-strand", "-p", "primary-contigs.rmdup",
+                     "primary-contigs.rmdup.fa"]),
+    ("assemble_final", ["assemble", "-m", "111", "--pe-mode=0", "--min-branch-length", "150",
+                        "-p", "final", "primary-contigs.rmdup.asqg.gz"]),
+)
+READS_MIN_OVERLAP = 85  # the overlap stage's -m
+CTG_MIN_OVERLAP = 10  # the overlap_ctg stage's -m
+K7_K = 41
+K7_QUERIES = 262_144
+
+
+def pipeline_stages(r1, r2, device=None):
+    """(stage name, argv) of every stage, in order, for the paired read files
+    r1 and r2.  With `device`, the port's device commands get `--device`."""
+    out = []
+    for name, argv in PIPE_STAGES:
+        argv = [a.format(r1=r1, r2=r2) for a in argv]
+        if device is not None and argv[0] in cli.ON_DEVICE:
+            argv[1:1] = ["--device", device]
+        out.append((name, argv))
+    return out
 
 
 def phase(name):
@@ -386,6 +458,55 @@ def check_scan_kernel(dev, builder, seqs):
     return err_all, ms, plain_ms
 
 
+def check_scan_pipeline(dev, workdir):
+    """K1 against its plain version at the pipeline's own shapes, with the
+    lane groups of `overlap --no-opposite-strand` (ID and REV): the first
+    chunk of reads.ec.fa at -m 85, and the one length-sorted chunk of all of
+    primary-contigs.rmdup.fa at -m 10 (lanes up to the longest contig).  The
+    chunks are cut as `search.batch_overlap_hits` cuts them.  The plain
+    version runs once a case, timed by CUDA events.  Returns the largest
+    error."""
+    err_all = 0
+    for name, prefix, mo in (("reads.ec.fa first chunk", "reads.ec", READS_MIN_OVERLAP),
+                             ("contigs", "primary-contigs.rmdup", CTG_MIN_OVERLAP)):
+        path = os.path.join(workdir, prefix)
+        sc = fm_device.DualScanner(
+            fm_device.DeviceFM(FMIndex.load(path + ".bwt"), dev),
+            fm_device.DeviceFM(FMIndex.load(path + ".rbwt"), dev),
+            (fm_device.GROUP_ID,), (fm_device.GROUP_REV,),
+        )
+        seqs = [r.seq for r in fastx.read_sequences(path + ".fa")]
+        lens = sorted(map(len, seqs))
+        if lens[-1] > 2 * max(lens[len(lens) // 2], 1):
+            seqs.sort(key=len)
+        chunk = seqs[: search.chunk_size(len(seqs))]
+        maxlen = search._bucket_len(max(map(len, chunk)))
+        la_w, lens_t = fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
+        lim_t = min(maxlen - 1, int(lens_t.max()) - 1)
+        args = (
+            sc.plane, sc.K2, sc.pred, sc.length, sc.nblocks,
+            torch.from_numpy(la_w).to(dev), torch.from_numpy(lens_t).to(dev),
+            lim_t, mo, sc.fwd_groups, sc.rev_groups,
+        )
+        got = fm_device.scan_pair(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        plain = fm_device.scan_pair_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain)
+        err_all = max(err_all, err)
+        ms = cuda_ms(lambda: fm_device.scan_pair(*args), 3)
+        print(f"K1 {name} (-m {mo}, groups ID/REV): {len(chunk)} of {len(seqs)} sequences, "
+              f"{2 * len(chunk)} lanes of {maxlen} symbols, lim_t {lim_t}, "
+              f"blocks {int(got[0][0])}, candidates {int(got[0][1])}, max_abs_err {err}; "
+              f"kernel {ms:.3f} ms, plain {start.elapsed_time(end):.3f} ms", flush=True)
+        del sc, args, got, plain
+    assert err_all == 0
+    return err_all
+
+
 def check_sw_kernel(dev):
     rng = random.Random(SEED)
     qs, rs = [], []
@@ -412,6 +533,177 @@ def check_sw_kernel(dev):
           f"plain {plain_ms:.3f} ms; 16 pairs equal the naive DP")
     assert err == 0
     return err, ms, plain_ms
+
+
+
+def port_cmd(argv, cwd, timeout=STAGE_TIMEOUT):
+    """`python -m siga_tpu_torch ARGV` in a fresh process in `cwd`: returns its
+    wall and the kernel launches it reports; raises when it fails or runs
+    past `timeout` seconds (the child is killed then)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "siga_tpu_torch", *argv], cwd=cwd, env=CHILD_ENV,
+        capture_output=True, text=True, timeout=timeout,
+    )
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(argv)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    ran, own = {}, None
+    for line in proc.stderr.splitlines():
+        if "] kernel launches: " in line:
+            ran = json.loads(line.split("] kernel launches: ", 1)[1])
+        elif line.startswith(f"[{argv[0]}] wall: "):
+            own = float(line.split()[2])
+    if own is not None:  # the command's own wall, from its start to its end
+        print(f"  {argv[0]}: process {wall:.3f} s, command {own:.3f} s", flush=True)
+    return wall, ran
+
+
+def count_records(path) -> int:
+    with open(path) as f:
+        return sum(line.startswith(">") for line in f)
+
+
+def run_pipeline(workdir):
+    """The ecoli_scale.py 1.0 25 0.005 read set, then its eleven stages
+    through the port's CLI on the card, each in a fresh process; the contig
+    facts against BASELINE.md.  Returns the launches of its device stages."""
+    n = PIPE_GENOME
+    genome = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        np.random.default_rng(42).integers(0, 4, n)
+    ].tobytes().decode()
+    with open(os.path.join(workdir, "ref.fa"), "w") as f:
+        f.write(">ref\n")
+        for i in range(0, n, 80):
+            f.write(genome[i : i + 80] + "\n")
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "benchmark", "paired_read_gen.py"), "ref.fa",
+         "150", str(PIPE_COVERAGE), "400", "20", "1", str(PIPE_ERR)],
+        cwd=workdir, check=True, capture_output=True, text=True, timeout=STAGE_TIMEOUT,
+    )
+    prefix = out.stdout.strip().splitlines()[-1]
+    print(f"generate {time.time() - t0:.3f} s: {prefix}_R1/_R2.fasta", flush=True)
+    launches = {name: 0 for name in kernels.launches}
+    walls = {}
+    for name, argv in pipeline_stages(f"{prefix}_R1.fasta", f"{prefix}_R2.fasta", "cuda"):
+        walls[name], ran = port_cmd(argv, workdir)
+        print(f"stage {name}: {walls[name]:.3f} s, launches {ran}   ({' '.join(argv)})", flush=True)
+        if name.startswith(("overlap", "rmdup")):
+            assert ran.get("scan_pair", 0) >= 1, (name, ran)
+        for k, v in ran.items():
+            launches[k] += v
+    print(f"pipeline wall {sum(walls.values()):.3f} s over {len(walls)} stages")
+    n_reads = count_records(os.path.join(workdir, "reads.ec.fa"))
+    with open(os.path.join(workdir, "final-contigs.fa")) as f:
+        stats = subprocess.run(
+            [sys.executable, os.path.join(REPO, "benchmark", "contigs_mapping.py"), "300", "ref.fa",
+             "fasta", "unmatched.fa"],
+            stdin=f, cwd=workdir, check=True, capture_output=True, text=True, timeout=STAGE_TIMEOUT,
+        ).stdout
+    facts = {"reads_corrected": n_reads}
+    for line in stats.splitlines():
+        key, _, value = line.partition(":")
+        if key in PIPE_FACTS and value.strip():
+            facts[key] = int(value.split()[0])
+    print(f"pipeline facts {json.dumps(facts)}")
+    assert facts == PIPE_FACTS, f"pipeline facts differ from BASELINE.md: {facts} vs {PIPE_FACTS}"
+    print("pipeline facts equal BASELINE.md (166,638 reads; 213/213/0; N50 8,505; N90 2,085; "
+          "MAX 39,173; 999,189 bp covered)")
+    return launches
+
+
+def check_correct_subset(workdir):
+    """`correct` of every 8th preprocessed read against the whole read set's
+    index: the read count differs from the index's, so the k-mers are counted
+    by K7 on the card.  Each read is corrected alone, and the index's counts
+    equal the read set's window counts, so the output must equal those reads'
+    records in the pipeline's reads.ec.fa."""
+    reads = fastx.read_sequences(os.path.join(workdir, "reads.pp.fastq"))
+    sub = reads[::8]
+    fastx.write_sequences(os.path.join(workdir, "reads.sub.fastq"), sub)
+    wall, ran = port_cmd(
+        ["correct", "--device", "cuda", "-k", "41", "-p", "reads.pp", "-o", "sub.ec.fa",
+         "reads.sub.fastq"], workdir)
+    print(f"correct of {len(sub)} reads against the {len(reads)}-read index (K7 on cuda): "
+          f"{wall:.3f} s, launches {ran}")
+    assert ran.get("kmer_count", 0) >= 1, ran
+    names = {r.name for r in sub}
+    assert len(names) == len(sub), "read names are not unique"
+    want = [r.format() for r in fastx.read_sequences(os.path.join(workdir, "reads.ec.fa"))
+            if r.name in names]
+    got = [r.format() for r in fastx.read_sequences(os.path.join(workdir, "sub.ec.fa"))]
+    assert got == want, f"sub.ec.fa ({len(got)} records) differs from reads.ec.fa's ({len(want)})"
+    print(f"sub.ec.fa: {len(got)} records, equal to those reads' records in reads.ec.fa")
+    return ran, reads
+
+
+def check_k7(dev, reads, rng, workdir):
+    """K7 against its plain version on the forward plane of the whole read
+    set's index: 41-mers drawn from the reads, the same with one base
+    substituted, and the same with an N."""
+    fmi = FMIndex.load(os.path.join(workdir, "reads.pp.bwt"))
+    dfm = fm_device.DeviceFM(fmi, dev)
+    k, third = K7_K, K7_QUERIES // 3
+    seqs = [r.seq for r in reads if len(r.seq) >= k]
+    kmers = []
+    for i in rng.integers(0, len(seqs), K7_QUERIES):
+        s = seqs[i]
+        j = int(rng.integers(0, len(s) - k + 1))
+        kmers.append(s[j : j + k])
+    for q in range(third, K7_QUERIES):
+        w, p = kmers[q], int(rng.integers(0, k))
+        c = "N" if q >= 2 * third else "ACGT"[("ACGT".index(w[p]) + int(rng.integers(1, 4))) % 4]
+        kmers[q] = w[:p] + c + w[p + 1 :]
+    codes = torch.from_numpy(kmer_count.encode_kmers(kmers)).to(dev)
+    got = kmer_count.count_kmers(dfm, codes)
+    plain = kmer_count.count_kmers_plain(dfm, codes)
+    err = max_abs_err([got], [plain])
+    sample = rng.integers(0, K7_QUERIES, 300)
+    host = [fmi.occurrences(kmers[q]) for q in sample]
+    assert got[torch.from_numpy(sample).to(dev)].cpu().tolist() == host, "K7 differs from FMIndex"
+    counts = got.cpu().numpy()
+    ms = cuda_ms(lambda: kmer_count.count_kmers(dfm, codes), 10)
+    plain_ms = cuda_ms(lambda: kmer_count.count_kmers_plain(dfm, codes), 2)
+    print(f"K7 {K7_QUERIES} {k}-mers on the forward plane ({dfm.length} chars): max_abs_err {err}; "
+          f"present {int((counts[:third] > 0).sum())}/{third}, substituted present "
+          f"{int((counts[third:2 * third] > 0).sum())}, with N present "
+          f"{int((counts[2 * third:] > 0).sum())}; 300 sampled equal FMIndex.occurrences; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    assert err == 0 and (counts[:third] > 0).all()
+    return err, ms, plain_ms
+
+
+def check_overlap_workers(workdir):
+    """Two `--process-id` workers at once on the card over reads.ec.fa (the
+    port's launcher), then `--merge-only -t 2`, against one process's
+    `overlap -t 2`: the ASQG must be equal."""
+    args = ["-m", "85", "--no-opposite-strand", "-p", "reads.ec"]
+    dirs = {}
+    for mode in ("workers", "single"):
+        d = dirs[mode] = os.path.join(workdir, mode)
+        os.mkdir(d)
+        for ext in ("fa", "bwt", "rbwt", "sai", "rsai"):
+            os.symlink(os.path.join(workdir, f"reads.ec.{ext}"), os.path.join(d, f"reads.ec.{ext}"))
+    t0 = time.time()
+    home = os.getcwd()
+    os.chdir(dirs["workers"])
+    try:
+        multihost.launch_overlap_2proc(
+            "reads.ec.fa", "reads.ec", 85, extra_args=["--no-opposite-strand", "--device", "cuda"])
+    finally:
+        os.chdir(home)
+    workers_s = time.time() - t0
+    single_s, ran = port_cmd(["overlap", "--device", "cuda", *args, "-t", "2", "reads.ec.fa"],
+                             dirs["single"])
+    assert ran.get("scan_pair", 0) >= 1, ran
+    asqg = []
+    for d in dirs.values():
+        with gzip.open(os.path.join(d, "reads.ec.asqg.gz")) as f:
+            asqg.append(f.read())
+    assert asqg[0] == asqg[1], "the workers' merged ASQG differs from the single process's"
+    print(f"overlap: 2 workers + merge {workers_s:.3f} s, one process -t 2 {single_s:.3f} s; "
+          f"ASQG equal ({asqg[0].count(b'\nED\t')} ED records)")
 
 
 def main() -> int:
@@ -466,6 +758,24 @@ def main() -> int:
         phase("gather probes against their plain versions")
         probes = check_probes(dev, search._cached_scanner(builder, dev, *FWD_REV).plane)
         check_probe_range_assert()
+        del builder, hits
+        torch.cuda.empty_cache()
+        pipe_dir = os.path.join(workdir, "pipeline")
+        os.mkdir(pipe_dir)
+        phase("pipeline: benchmark/ecoli_scale.py 1.0 25 0.005 through the port's CLI on the card")
+        for name, n in run_pipeline(pipe_dir).items():
+            launches[name] += n
+        phase("K1 against its plain version at the pipeline's shapes")
+        k1 = (max(k1[0], check_scan_pipeline(dev, pipe_dir)), *k1[1:])
+        torch.cuda.empty_cache()
+        phase("correct of every 8th read through K7, against the whole read set's index")
+        ran, pp_reads = check_correct_subset(pipe_dir)
+        for name, n in ran.items():
+            launches[name] += n
+        phase("K7 against its plain version")
+        k7 = check_k7(dev, pp_reads, np.random.default_rng(SEED), pipe_dir)
+        phase("overlap: two worker processes on the card + --merge-only, against one process")
+        check_overlap_workers(pipe_dir)
     finally:
         os.chdir(home)
         shutil.rmtree(workdir)
@@ -474,6 +784,7 @@ def main() -> int:
     rows = [
         ("scan_pair", "siga_tpu_torch/csrc/scan_pair.cu", "siga_tpu/ops/fm_device.py:858", k1),
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
+        ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:22", k7),
     ] + [
         (name, "siga_tpu_torch/csrc/gather_probe.cu", replaces, (err, ms, plain_ms))
         for name, (err, ms, plain_ms, replaces) in probes.items()

@@ -25,11 +25,12 @@
 // the sort-based compaction of the TPU program and sizes the output exactly.
 #include <cuda_runtime.h>
 
+#include "pair_occ.cuh"
+
 namespace {
 
-constexpr int kCols = 57;  // 8 cur | 8 prev | 8 cur '$' | 8 prev '$' | 25 ckpt
-constexpr int kSample = 128;
-constexpr unsigned kLo = 0x55555555u;
+using pair_occ::sel5;
+
 constexpr int kThreads = 128;
 
 enum Group { kId = 0, kRc = 1, kRev = 2, kComp = 3 };
@@ -42,28 +43,6 @@ struct ScanArgs {
   const int* lens;      // [n]
   int length, nblocks, n, wpr, nfwd, groups_code, lim_t, p1, t0, lanes;
 };
-
-__device__ __forceinline__ unsigned match2(unsigned w, unsigned pattern) {
-  const unsigned x = w ^ pattern;
-  return ~(x | (x >> 1)) & kLo;
-}
-
-// Even-bit masks of the positions holding each symbol ('$' from its mask).
-__device__ __forceinline__ void sym_masks(unsigned w, unsigned d, unsigned m[5]) {
-  m[0] = d;
-  m[1] = match2(w, 0u) & ~d;
-  m[2] = match2(w, kLo);
-  m[3] = match2(w, 0xAAAAAAAAu);
-  m[4] = match2(w, 0xFFFFFFFFu);
-}
-
-template <typename T>
-__device__ __forceinline__ T sel5(const T a[5], int c) {
-  T out = a[0];
-#pragma unroll
-  for (int r = 1; r < 5; ++r) out = (c == r) ? a[r] : out;
-  return out;
-}
 
 // sum over r < c of (u[r] - l[r])
 __device__ __forceinline__ int below5(const int u[5], const int l[5], int c) {
@@ -78,37 +57,7 @@ __device__ __forceinline__ int below5(const int u[5], const int l[5], int c) {
 template <bool PAIRS>
 __device__ __forceinline__ void occ(const ScanArgs& a, int tab, int i, int c1,
                                     int s[5], int p[5]) {
-  const int pos = i + 1;
-  const int block0 = pos / kSample;
-  const int tail = pos - block0 * kSample;
-  const int row_i = min(max(block0 + tab, 0), 2 * a.nblocks - 1);
-  const int* row = a.plane + static_cast<size_t>(row_i) * kCols;
-  const int* ck = row + 32;
-#pragma unroll
-  for (int c = 0; c < 5; ++c)
-    s[c] = __ldg(ck + c) + __ldg(ck + 5 + c) + __ldg(ck + 10 + c) +
-           __ldg(ck + 15 + c) + __ldg(ck + 20 + c);
-  if (PAIRS) {
-#pragma unroll
-    for (int q = 0; q < 5; ++q) p[q] = c1 > 0 ? __ldg(ck + q * 5 + c1) : 0;
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int valid = tail - 16 * k;
-    if (valid <= 0) break;
-    const unsigned wm = valid >= 16 ? 0xFFFFFFFFu : ((1u << (2 * valid)) - 1u);
-    unsigned cm[5];
-    sym_masks(__ldg(row + k), __ldg(row + 16 + k), cm);
-#pragma unroll
-    for (int c = 0; c < 5; ++c) s[c] += __popc(cm[c] & wm);
-    if (PAIRS && c1 > 0) {
-      const unsigned mc1 = sel5(cm, c1) & wm;
-      unsigned pm[5];
-      sym_masks(__ldg(row + 8 + k), __ldg(row + 24 + k), pm);
-#pragma unroll
-      for (int q = 0; q < 5; ++q) p[q] += __popc(pm[q] & mc1);
-    }
-  }
+  pair_occ::occ_row<PAIRS>(a.plane, 2 * a.nblocks, tab, i, c1, s, p);
 }
 
 // Symbol j (rank 1..4) of a left-aligned read; 0 outside [0, len).

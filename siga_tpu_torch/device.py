@@ -1,20 +1,21 @@
 """Device selection and the host-built native runtime.
 
 No function here picks a device on the caller's behalf: `resolve_device`
-returns what was asked for or raises.
+returns what was asked for or raises.  Importing this module imports no
+torch, so the shared commands of the CLI start without it.
 """
 from __future__ import annotations
 
 import fcntl
 import os
 
-import torch
-
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 
-def resolve_device(name) -> torch.device:
+def resolve_device(name) -> "torch.device":
     """`torch.device(name)`; raises when CUDA is asked for and absent."""
+    import torch
+
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not available")

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 ]
 
 launches = {
-    "scan_pair": 0, "sw_wavefront": 0,
+    "scan_pair": 0, "sw_wavefront": 0, "kmer_count": 0,
     "gather_rows": 0, "take_along": 0, "gather_chain": 0, "scale2": 0,
 }
 
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "siga_gather_chain_elem": [_P, _L, _L, _I, _I, _P, _I, _I, _P, _P],
     # x, n, out, stream
     "siga_scale2": [_P, _L, _P, _P],
+    # plane, K, pred, length, nblocks, kmers, Q, k, out, stream
+    "siga_kmer_count": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P],
 }
 
 
@@ -69,10 +71,11 @@ def nvcc() -> str:
 
 def build() -> str:
     """Compile `csrc/*.cu` into LIB_PATH (when missing or older than a
-    source); returns the compiler's report (registers, spills)."""
+    source or header); returns the compiler's report (registers, spills)."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = glob.glob(os.path.join(CSRC, "*.cuh"))
     if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= max(
-        os.path.getmtime(s) for s in sources
+        os.path.getmtime(s) for s in sources + headers
     ):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -50,13 +50,14 @@ class DeviceFM:
     """Pair plane of one FM-index on `device`.
 
     plane: int32 [nblocks, 57]; K: int32 [5, 5]; pred: the C array (host
-    int64 [5])."""
+    int64 [5]); pred_dev: the same as int32 on `device`, for the kernels."""
 
     def __init__(self, host: FMIndex, device):
         self.device = torch.device(device)
         self.length = host.length
         self.nblocks = host.length // SAMPLE + 1
         self.pred = np.asarray(host.pred, dtype=np.int64)
+        self.pred_dev = torch.as_tensor(self.pred, dtype=torch.int32, device=self.device)
         codes = torch.from_numpy(np.ascontiguousarray(host.codes)).to(self.device)
         self.plane, self.K = _build_pair_plane_dev(codes, self.pred, self.nblocks)
 
@@ -72,6 +73,7 @@ class DeviceFM:
         self.length = int(length)
         self.nblocks = int(nblocks)
         self.pred = np.asarray(pred, dtype=np.int64)
+        self.pred_dev = torch.as_tensor(self.pred, dtype=torch.int32, device=self.device)
         self.plane = torch.from_numpy(plane.astype(np.int32)).to(self.device)
         self.K = torch.from_numpy(np.asarray(K).astype(np.int32)).to(self.device)
         return self
@@ -556,7 +558,7 @@ class DualScanner:
         self.rev_groups = tuple(rev_groups)
         self.plane = torch.cat([dfwd.plane, drev.plane]).contiguous()
         self.K2 = torch.stack([dfwd.K, drev.K]).contiguous()
-        self.pred = torch.as_tensor(dfwd.pred, dtype=torch.int32, device=self.device)
+        self.pred = dfwd.pred_dev
 
     def dispatch(self, seqs: Sequence[str], n: int, maxlen: int, min_overlap: int):
         """Scan all orientation lanes of a chunk of at most n reads.

@@ -1,4 +1,5 @@
-"""The PyTorch port imports, and refuses a missing CUDA, with jax blocked."""
+"""The PyTorch port imports, dispatches every command, and refuses a missing
+CUDA, with jax blocked."""
 import os
 import re
 import subprocess
@@ -27,7 +28,19 @@ import siga_tpu_torch.commands.overlap_cmd
 import siga_tpu_torch.commands.rmdup_cmd
 import siga_tpu_torch.index.sa
 import siga_tpu_torch.probes.gather
+import siga_tpu_torch.ops.kmer_count
+import siga_tpu_torch.commands.correct_cmd
+import siga_tpu_torch.parallel.multihost
 import siga_tpu.commands.assemble_cmd
+
+# the CLI dispatches all ten commands (each module is imported before --help)
+import contextlib, io
+from siga_tpu_torch import cli
+assert len(cli.PORTED) == 10, cli.PORTED
+for command in cli.PORTED:
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert cli.main([command, "--help"]) == 256, command
+    assert "not yet ported" not in out.getvalue(), command
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")], "jax imported"
 
 import torch
