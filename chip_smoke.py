@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--keep-pipeline DIR]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card: nvidia-smi name and power limit; CUDA must be available;
@@ -19,8 +19,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      system CPU time), and the device pair plane against the C++ host
      packing;
   6. each kernel against its plain PyTorch version on the card, bit for bit:
-     the K1 scan on the first full 15,152-read chunk (odd lim_t), on a chunk
-     of 149 bp reads (even lim_t) and on the rmdup lane groups; K5 at
+     the K1 scan on the first full 15,152-read chunk (odd lim_t; timed,
+     with its bound; and split over several launches by a small slab
+     budget), on a
+     chunk of 149 bp reads (even lim_t) and on the rmdup lane groups; K5 at
      B=4096, query 150, ref 400, and 16 of those pairs against a naive DP;
   7. the hits of 256 sampled reads, from the command's hits file and from
      the engine, against the shared host engine (OverlapBuilder.overlap);
@@ -33,7 +35,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  10. the gather probes' CLI on the stacked pair plane, counts reset just
      before it (G1-G4 must launch), then each probe kernel against its plain
      version bit for bit at every Pallas probe's own shape and on the pair
-     plane (60,608 random rows, one overlap chunk's lanes), and G1's
+     plane (60,608 random rows, one overlap chunk's lanes), each with its
+     bound and, for G1, G2 and G4, the one PyTorch call that computes the
+     same (index_select, gather, x * 2); G3 with 32 chains of single-word
+     gathers gives the L2 round trip of one dependent step; and G1's
      device-side range assert in a child process;
  11. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
      (its genome and generator), its eleven stages (PIPE_STAGES) through
@@ -44,21 +49,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  12. K1 against its plain version, bit for bit, at the pipeline's shapes
      with the `--no-opposite-strand` lane groups: the first chunk of
      `reads.ec.fa` at -m 85, and all contigs in one length-sorted chunk at
-     -m 10;
+     -m 10; each timed beside its bounds;
  13. `correct` of every 8th preprocessed read against the whole read set's
      index (K7 must launch): its records must equal those reads' records in
-     the pipeline's `reads.ec.fa`;
+     the pipeline's `reads.ec.fa`; the k-mers a launch held on average;
  14. K7 against its plain version on that index's forward plane, bit for
-     bit, on 262,144 41-mers (drawn from the reads, one base substituted, an
-     N), 300 of them also against `FMIndex.occurrences`;
+     bit, on 262,144 41-mers (drawn from the reads, one
+     base substituted, an N), 300 of them also against
+     `FMIndex.occurrences`, timed with its bound; then at the `correct`
+     route's sizes, 3 and 110 41-mers: equal to plain, timed per launch on
+     the card and per `KmerCounter` call on the wall clock;
  15. `overlap` as two `--process-id` workers at once on the card plus
      `--merge-only -t 2` (the port's launcher) against one `-t 2` process:
      the ASQG must be equal;
  16. the kernels' JSON line (each kernel's launches summed over the paths
-     above, each path's counts read from its own run), then the device
-     line last.
-Imports nothing of JAX.
+     above, each path's counts read from its own run; its time at the
+     shape named above; `bound_ms` from this run's inputs, by bytes at
+     3.35 TB/s or operations at 67e12/s), then the device line last.
+With --keep-pipeline DIR the pipeline runs in DIR (a new directory) and
+stays there, for `python3 -m siga_tpu_torch.probes.kernel_ab`.
+Imports nothing of JAX and nothing of the JAX package `siga_tpu`.
 """
+import argparse
 import gzip
 import json
 import os
@@ -73,15 +85,15 @@ import time
 import numpy as np
 import torch
 
-from siga_tpu.core import dna
-from siga_tpu.index.fm import FMIndex
-from siga_tpu.io import fastx
-from siga_tpu.io.fastx import DNASeq
-from siga_tpu.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch import cli, kernels
+from siga_tpu_torch.core import dna
 from siga_tpu_torch.device import native_lib
 from siga_tpu_torch.index import sa as sa_mod
+from siga_tpu_torch.index.fm import FMIndex
+from siga_tpu_torch.io import fastx
+from siga_tpu_torch.io.fastx import DNASeq
 from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
+from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import multihost
 from siga_tpu_torch.probes import gather
 
@@ -133,6 +145,43 @@ READS_MIN_OVERLAP = 85  # the overlap stage's -m
 CTG_MIN_OVERLAP = 10  # the overlap_ctg stage's -m
 K7_K = 41
 K7_QUERIES = 262_144
+K7_ROUTE_SIZES = (3, 110)  # k-mers a call of `correct`'s K7 route holds: a weak base, a read
+# The bounds (H100 SXM datasheet peaks): device memory
+# rate, and the float32 rate outside the tensor cores as the rate of the
+# scalar integer operations of K5.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+SW_OPS_PER_CELL = 11  # E and F: 2 subtractions + 1 max each; H: 1 add + 3 max; best: 1 max
+ROW_BYTES = fm_device.PAIR_COLS * 4
+# the bytes of a pair-plane row that an occ query at a uniformly random
+# position needs: 25 checkpoints (100 B) + 4 bit planes x 4.44 words
+ROW_NEED_BYTES = 171
+
+
+def bytes_ms(n_bytes) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def live_supersteps(lens, lim_t, n_groups):
+    """Per lane (group-major, as K1 lays lanes out) the supersteps a read of
+    each length runs: those with t <= len - 2, at most (lim_t + 1) // 2."""
+    lens = np.asarray(lens, dtype=np.int64)
+    live = np.where(lens >= 2, (lens - 2) // 2 + 1, 0)
+    return np.tile(np.minimum(live, (lim_t + 1) // 2), n_groups)
+
+
+def scan_bound(lens, lim_t, n_groups, nblocks, wpr, emitted):
+    """K1's bound in bytes for one scan of these reads: the plane rows it
+    needs (two a live superstep, five a lane to open and close; each row
+    counted at most once, so at most the stacked plane), the packed reads in,
+    the emitted rows, counts and finals out.  Also returns the row reads the
+    scan needs with re-reads counted (the L2 traffic), in bytes."""
+    live = live_supersteps(lens, lim_t, n_groups)
+    lanes = live.size
+    row_reads = 2 * int(live.sum()) + 5 * lanes
+    plane = min(row_reads * ROW_NEED_BYTES, 2 * nblocks * ROW_BYTES)
+    io = len(lens) * (wpr + 1) * 4 + emitted * 16 + lanes * 24 + 2 * (-(-lanes // 32)) * 4
+    return bytes_ms(plane + io), row_reads * ROW_NEED_BYTES
 
 
 def pipeline_stages(r1, r2, device=None):
@@ -298,7 +347,7 @@ def run_rmdup(builder, seqs, rng):
     rmdup_s = time.time() - t0
     launches = dict(kernels.launches)
     n_chunks = -(-len(seqs) // search.chunk_size(len(seqs)))
-    assert launches["scan_pair"] >= n_chunks, (launches, n_chunks)
+    assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
     with open("reads.rmdup.fa") as f:
         kept = sum(line.startswith(">") for line in f)
     with open("reads.rmdup.dups.fa") as f:
@@ -336,34 +385,83 @@ def run_probe_path():
     return launches
 
 
+def probe_bytes(name, args) -> int:
+    """The bytes a probe call must move: each input element it needs read
+    once (a gather needs only the elements it gathers, at most the whole
+    table), each output written once."""
+    if name == "scale2":
+        return 2 * args[0].numel() * 4
+    if name == "gather_rows":
+        table, idx = args
+        out = idx.numel() * table.shape[1]
+        return (min(out, table.numel()) + idx.numel() + out) * 4
+    if name == "take_along":
+        table, index, axis = args
+        out = int(np.prod(gather._take_shape(table, index, axis)))
+        return (min(out, table.numel()) + index.numel() + out) * 4
+    table, init, c, steps, mode = args  # gather_chain
+    reads = steps * init.numel() * (table.shape[0] if mode == "sum" else 1)
+    return (min(reads, table.numel()) + 2 * init.numel() + (c.numel() if c is not None else 0)) * 4
+
+
+def probe_library(name, args):
+    """One PyTorch call that computes the same as the probe, or None."""
+    if name == "scale2":
+        return lambda: args[0] * 2
+    if name == "gather_rows":
+        return lambda: torch.index_select(args[0], 0, args[1])
+    if name == "take_along":
+        table, index, axis = args
+        index64 = index.to(torch.int64).expand(gather._take_shape(table, index, axis))
+        return lambda: torch.gather(table, axis, index64)
+    return None
+
+
 def check_probes(dev, plane):
-    """Each probe kernel against its plain version: at every Pallas probe's
-    own shape, and on the pair plane.  Returns {kernel: (err, ms, plain_ms,
-    replaces)} with the wrappers' times on the pair plane."""
+    """Each probe kernel against its plain version, with its bound and the
+    library call that computes the same: at every Pallas probe's own shape,
+    and on the pair plane.  Returns ({kernel: (JSON row fields on the pair
+    plane, replaces)}, ns of one dependent step of few G3 chains on the
+    plane)."""
     rng = np.random.default_rng(SEED)
     errs, replaces = {}, {}
 
-    def compare(name, args, reps):
+    def compare(name, args, reps, where):
         fn, plain = gather.WRAPPERS[name]
         err = max_abs_err([fn(*args)], [plain(*args)])
         ms = cuda_ms(lambda: fn(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), 2)
+        library = probe_library(name, args)
+        lib_ms = cuda_ms(library, 10) if library is not None else None
+        bound = bytes_ms(probe_bytes(name, args))
         errs[name] = max(errs.get(name, 0), err)
-        return err, ms, plain_ms
+        print(f"{name} {where}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.5f} ms (bytes), library call "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        return kernel_row(err, ms, plain_ms, bound, "bytes", lib_ms)
 
     for tpu_name, where, name, args in gather.probe_cases(rng):
-        err, ms, plain_ms = compare(name, gather.to_device(args, dev), 10)
-        print(f"{name} as {tpu_name} ({where}): max_abs_err {err}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        compare(name, gather.to_device(args, dev), 10, f"as {tpu_name} ({where})")
         replaces.setdefault(name, []).append(where)
+    R, _C = plane.shape
     out = {}
     for name, args in gather.plane_args(plane, PROBE_LANES, PROBE_STEPS, SEED).items():
-        err, ms, plain_ms = compare(name, args, 3 if name == "gather_chain" else 10)
-        print(f"{name} on the pair plane {tuple(plane.shape)}, {PROBE_LANES} lanes: "
-              f"max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[name] = (errs[name], ms, plain_ms, ", ".join(replaces[name]))
-    assert all(v[0] == 0 for v in out.values()), out
-    return out
+        row = compare(name, args, 3 if name == "gather_chain" else 10,
+                      f"on the pair plane {tuple(plane.shape)}, {PROBE_LANES} lanes")
+        row["max_abs_err"] = errs[name]
+        out[name] = (row, ", ".join(replaces[name]))
+    assert all(v[0]["max_abs_err"] == 0 for v in out.values()), out
+    # the L2 round trip a lane's chain pays a step: 32 chains of dependent
+    # single-word gathers (G3, mode elem) over one direction's plane
+    fwd = plane[: R // 2].reshape(1, -1)
+    init = torch.randint(0, fwd.shape[1], (1, 32), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(SEED))
+    steps = 2000
+    steps_ms = cuda_ms(lambda: gather.gather_chain(fwd, init, None, steps, "elem"), 3)
+    step_ns = steps_ms * 1e6 / steps
+    print(f"gather_chain (elem), 32 chains x {steps} dependent steps over the forward plane "
+          f"({fwd.numel() * 4} B): {steps_ms:.4f} ms, {step_ns:.1f} ns a step (the L2 round trip)")
+    return out, step_ns
 
 
 def check_probe_range_assert():
@@ -427,6 +525,9 @@ def check_hits(builder, hits, seqs, rng):
 
 
 def check_scan_kernel(dev, builder, seqs):
+    """K1 against its plain version, bit for bit, on three chunks; the first
+    one timed, with its bound.  Returns the kernel's row of the JSON line
+    (the first chunk)."""
     chunk = search.chunk_size(len(seqs))
     cases = [
         ("first chunk", seqs[:chunk], FWD_REV, MIN_OVERLAP),
@@ -444,28 +545,49 @@ def check_scan_kernel(dev, builder, seqs):
             torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev),
             lim_t, mo, sc.fwd_groups, sc.rev_groups,
         )
-        got = fm_device.scan_pair(*args)
-        err = max_abs_err(got, fm_device.scan_pair_plain(*args))
+        plain = fm_device.scan_pair_plain(*args)
+        err = max_abs_err(fm_device.scan_pair(*args), plain)
         err_all = max(err_all, err)
-        print(f"K1 {name}: lim_t {lim_t}, blocks {int(got[0][0])}, "
-              f"candidates {int(got[0][1])}, max_abs_err {err}")
+        print(f"K1 {name}: lim_t {lim_t}, blocks {int(plain[0][0])}, "
+              f"candidates {int(plain[0][1])}, max_abs_err {err}")
         if name == "first chunk":
+            # slabs that do not fit: the lanes split over several launches
+            lanes, cap = 4 * len(chunk_seqs), fm_device.emit_cap(lim_t, mo)
+            budget = lanes * cap * fm_device.SLAB_ROW_BYTES // 3
+            before = kernels.launches["scan_pair"]
+            err_split = max_abs_err(fm_device.scan_pair(*args, slab_bytes=budget), plain)
+            parts = kernels.launches["scan_pair"] - before
+            print(f"K1 first chunk with a slab budget of {budget} B: {parts} launches, "
+                  f"max_abs_err {err_split}")
+            assert parts == len(fm_device.lane_parts(lanes, cap, budget)) > 1 and err_split == 0
             ms = cuda_ms(lambda: fm_device.scan_pair(*args), 5)
             plain_ms = cuda_ms(lambda: fm_device.scan_pair_plain(*args), 2)
-            print(f"K1 first chunk ({len(chunk_seqs)} reads, {4 * len(chunk_seqs)} lanes): "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            bound, traffic = scan_bound(lens, lim_t, len(groups[0]) + len(groups[1]), sc.nblocks,
+                                        la_w.shape[1], int(plain[0][0]))
+            print(f"K1 first chunk ({len(chunk_seqs)} reads, {4 * len(chunk_seqs)} lanes): kernel "
+                  f"{ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bound:.4f} ms (bytes, each row "
+                  f"once), row reads with re-reads {traffic} B = {bytes_ms(traffic):.4f} ms at HBM "
+                  f"rate")
+            row = kernel_row(err, ms, plain_ms, bound, "bytes", None)
     assert err_all == 0
-    return err_all, ms, plain_ms
+    row["max_abs_err"] = err_all
+    return row
 
 
-def check_scan_pipeline(dev, workdir):
+def kernel_row(err, ms, plain_ms, bound, bound_by, library_ms):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def check_scan_pipeline(dev, workdir, step_ns):
     """K1 against its plain version at the pipeline's own shapes, with the
     lane groups of `overlap --no-opposite-strand` (ID and REV): the first
     chunk of reads.ec.fa at -m 85, and the one length-sorted chunk of all of
     primary-contigs.rmdup.fa at -m 10 (lanes up to the longest contig).  The
     chunks are cut as `search.batch_overlap_hits` cuts them.  The plain
-    version runs once a case, timed by CUDA events.  Returns the largest
-    error."""
+    version runs once a case, timed by CUDA events; the kernel is timed
+    beside its bounds (`step_ns`: one dependent step of G3
+    on the pair plane).  Returns the largest error."""
     err_all = 0
     for name, prefix, mo in (("reads.ec.fa first chunk", "reads.ec", READS_MIN_OVERLAP),
                              ("contigs", "primary-contigs.rmdup", CTG_MIN_OVERLAP)):
@@ -488,21 +610,25 @@ def check_scan_pipeline(dev, workdir):
             torch.from_numpy(la_w).to(dev), torch.from_numpy(lens_t).to(dev),
             lim_t, mo, sc.fwd_groups, sc.rev_groups,
         )
-        got = fm_device.scan_pair(*args)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
         plain = fm_device.scan_pair_plain(*args)
         end.record()
         torch.cuda.synchronize()
-        err = max_abs_err(got, plain)
+        err = max_abs_err(fm_device.scan_pair(*args), plain)
         err_all = max(err_all, err)
         ms = cuda_ms(lambda: fm_device.scan_pair(*args), 3)
+        live = live_supersteps(lens_t, lim_t, 2)
+        bound, traffic = scan_bound(lens_t, lim_t, 2, sc.nblocks, la_w.shape[1], int(plain[0][0]))
         print(f"K1 {name} (-m {mo}, groups ID/REV): {len(chunk)} of {len(seqs)} sequences, "
               f"{2 * len(chunk)} lanes of {maxlen} symbols, lim_t {lim_t}, "
-              f"blocks {int(got[0][0])}, candidates {int(got[0][1])}, max_abs_err {err}; "
-              f"kernel {ms:.3f} ms, plain {start.elapsed_time(end):.3f} ms", flush=True)
-        del sc, args, got, plain
+              f"blocks {int(plain[0][0])}, candidates {int(plain[0][1])}, max_abs_err {err}; kernel "
+              f"{ms:.4f} ms, plain {start.elapsed_time(end):.3f} ms; bound {bound:.4f} ms (bytes, each row "
+              f"once), row reads with re-reads {bytes_ms(traffic):.4f} ms at HBM rate, longest lane "
+              f"{int(live.max())} supersteps = {live.max() * step_ns / 1e6:.4f} ms of dependent "
+              f"steps at G3's {step_ns:.1f} ns", flush=True)
+        del sc, args, plain
     assert err_all == 0
     return err_all
 
@@ -529,16 +655,21 @@ def check_sw_kernel(dev):
         "K5 disagrees with the naive DP"
     ms = cuda_ms(lambda: sw.sw_wavefront(qt, rt, *SW_PARAMS), 10)
     plain_ms = cuda_ms(lambda: sw.sw_wavefront_plain(qt, rt, *SW_PARAMS), 2)
+    (B, M), N = qt.shape, rt.shape[1]
+    bound = max(SW_OPS_PER_CELL * B * M * N / SCALAR_OPS_PER_S * 1e3,
+                bytes_ms((B * M + B * N) * 4 + 3 * B * 4))
     print(f"K5 B=4096 q=150 r=400: max_abs_err {err}, kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; 16 pairs equal the naive DP")
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms (operations: {SW_OPS_PER_CELL} a cell "
+          f"at {SCALAR_OPS_PER_S:.3g}/s); 16 pairs equal the naive DP")
     assert err == 0
-    return err, ms, plain_ms
+    return kernel_row(err, ms, plain_ms, bound, "operations", None)
 
 
 
 def port_cmd(argv, cwd, timeout=STAGE_TIMEOUT):
     """`python -m siga_tpu_torch ARGV` in a fresh process in `cwd`: returns its
-    wall and the kernel launches it reports; raises when it fails or runs
+    wall, the kernel launches it reports and its own `[cmd] wall:` line;
+    raises when it fails or runs
     past `timeout` seconds (the child is killed then)."""
     t0 = time.time()
     proc = subprocess.run(
@@ -548,15 +679,15 @@ def port_cmd(argv, cwd, timeout=STAGE_TIMEOUT):
     wall = time.time() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(argv)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    ran, own = {}, None
+    ran, own = {}, ""
     for line in proc.stderr.splitlines():
         if "] kernel launches: " in line:
             ran = json.loads(line.split("] kernel launches: ", 1)[1])
         elif line.startswith(f"[{argv[0]}] wall: "):
-            own = float(line.split()[2])
-    if own is not None:  # the command's own wall, from its start to its end
-        print(f"  {argv[0]}: process {wall:.3f} s, command {own:.3f} s", flush=True)
-    return wall, ran
+            own = line
+    if own:  # the command's own wall, from its start to its end
+        print(f"  {argv[0]}: process {wall:.3f} s; {own}", flush=True)
+    return wall, ran, own
 
 
 def count_records(path) -> int:
@@ -587,7 +718,7 @@ def run_pipeline(workdir):
     launches = {name: 0 for name in kernels.launches}
     walls = {}
     for name, argv in pipeline_stages(f"{prefix}_R1.fasta", f"{prefix}_R2.fasta", "cuda"):
-        walls[name], ran = port_cmd(argv, workdir)
+        walls[name], ran, _own = port_cmd(argv, workdir)
         print(f"stage {name}: {walls[name]:.3f} s, launches {ran}   ({' '.join(argv)})", flush=True)
         if name.startswith(("overlap", "rmdup")):
             assert ran.get("scan_pair", 0) >= 1, (name, ran)
@@ -622,12 +753,15 @@ def check_correct_subset(workdir):
     reads = fastx.read_sequences(os.path.join(workdir, "reads.pp.fastq"))
     sub = reads[::8]
     fastx.write_sequences(os.path.join(workdir, "reads.sub.fastq"), sub)
-    wall, ran = port_cmd(
+    wall, ran, own = port_cmd(
         ["correct", "--device", "cuda", "-k", "41", "-p", "reads.pp", "-o", "sub.ec.fa",
          "reads.sub.fastq"], workdir)
     print(f"correct of {len(sub)} reads against the {len(reads)}-read index (K7 on cuda): "
           f"{wall:.3f} s, launches {ran}")
     assert ran.get("kmer_count", 0) >= 1, ran
+    n_kmers = int(own.split(" k-mers in ")[0].rsplit(" ", 1)[1])
+    print(f"K7 route: {n_kmers} k-mers in {ran['kmer_count']} launches, "
+          f"{n_kmers / ran['kmer_count']:.2f} k-mers a launch ({own.split(', ', 3)[-1]})")
     names = {r.name for r in sub}
     assert len(names) == len(sub), "read names are not unique"
     want = [r.format() for r in fastx.read_sequences(os.path.join(workdir, "reads.ec.fa"))
@@ -638,7 +772,7 @@ def check_correct_subset(workdir):
     return ran, reads
 
 
-def check_k7(dev, reads, rng, workdir):
+def check_k7(dev, reads, rng, workdir, step_ns):
     """K7 against its plain version on the forward plane of the whole read
     set's index: 41-mers drawn from the reads, the same with one base
     substituted, and the same with an N."""
@@ -656,8 +790,8 @@ def check_k7(dev, reads, rng, workdir):
         c = "N" if q >= 2 * third else "ACGT"[("ACGT".index(w[p]) + int(rng.integers(1, 4))) % 4]
         kmers[q] = w[:p] + c + w[p + 1 :]
     codes = torch.from_numpy(kmer_count.encode_kmers(kmers)).to(dev)
-    got = kmer_count.count_kmers(dfm, codes)
     plain = kmer_count.count_kmers_plain(dfm, codes)
+    got = kmer_count.count_kmers(dfm, codes)
     err = max_abs_err([got], [plain])
     sample = rng.integers(0, K7_QUERIES, 300)
     host = [fmi.occurrences(kmers[q]) for q in sample]
@@ -665,13 +799,39 @@ def check_k7(dev, reads, rng, workdir):
     counts = got.cpu().numpy()
     ms = cuda_ms(lambda: kmer_count.count_kmers(dfm, codes), 10)
     plain_ms = cuda_ms(lambda: kmer_count.count_kmers_plain(dfm, codes), 2)
-    print(f"K7 {K7_QUERIES} {k}-mers on the forward plane ({dfm.length} chars): max_abs_err {err}; "
-          f"present {int((counts[:third] > 0).sum())}/{third}, substituted present "
-          f"{int((counts[third:2 * third] > 0).sum())}, with N present "
-          f"{int((counts[2 * third:] > 0).sum())}; 300 sampled equal FMIndex.occurrences; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # bound: a present k-mer takes all (k - 1) / 2 pair steps, an absent one
+    # at least one; two rows a step, each row counted at most once
+    present = int((counts > 0).sum())
+    row_reads = 2 * (present * -(-(k - 1) // 2) + (K7_QUERIES - present)) + 1
+    bound = bytes_ms(min(row_reads * ROW_NEED_BYTES, dfm.nblocks * ROW_BYTES)
+                     + K7_QUERIES * (k + 4))
+    print(f"K7 {K7_QUERIES} {k}-mers on the forward plane ({dfm.length} chars): max_abs_err {err} "
+          f"present {int((counts[:third] > 0).sum())}/{third}, "
+          f"substituted "
+          f"present {int((counts[third:2 * third] > 0).sum())}, with N present "
+          f"{int((counts[2 * third:] > 0).sum())}; 300 sampled equal FMIndex.occurrences; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms (bytes, each row once), row reads "
+          f"with re-reads {bytes_ms(row_reads * ROW_NEED_BYTES):.4f} ms at HBM rate")
     assert err == 0 and (counts[:third] > 0).all()
-    return err, ms, plain_ms
+    # the `correct` route's own sizes: the device time of one launch, and the
+    # wall of one KmerCounter call (encode, copy in, launch, copy back)
+    counter = kmer_count.KmerCounter(dfm)
+    for size in K7_ROUTE_SIZES:
+        sub = codes[:size]
+        err_s = max_abs_err([kmer_count.count_kmers(dfm, sub)],
+                            [kmer_count.count_kmers_plain(dfm, sub)])
+        assert err_s == 0, size
+        t_small = cuda_ms(lambda: kmer_count.count_kmers(dfm, sub), 50)
+        counter(kmers[:size])
+        t0 = time.time()
+        for _ in range(200):
+            counter(kmers[:size])
+        wall_ms = (time.time() - t0) / 200 * 1e3
+        print(f"K7 {size} {k}-mers (the correct route's size): max_abs_err {err_s}; device "
+              f"{t_small:.4f} ms; KmerCounter call wall {wall_ms:.4f} ms; bound "
+              f"{-(-(k - 1) // 2) * step_ns / 1e6:.4f} ms ({-(-(k - 1) // 2)} dependent steps at "
+              f"G3's {step_ns:.1f} ns)")
+    return kernel_row(err, ms, plain_ms, bound, "bytes", None)
 
 
 def check_overlap_workers(workdir):
@@ -694,7 +854,7 @@ def check_overlap_workers(workdir):
     finally:
         os.chdir(home)
     workers_s = time.time() - t0
-    single_s, ran = port_cmd(["overlap", "--device", "cuda", *args, "-t", "2", "reads.ec.fa"],
+    single_s, ran, _own = port_cmd(["overlap", "--device", "cuda", *args, "-t", "2", "reads.ec.fa"],
                              dirs["single"])
     assert ran.get("scan_pair", 0) >= 1, ran
     asqg = []
@@ -706,7 +866,12 @@ def check_overlap_workers(workdir):
           f"ASQG equal ({asqg[0].count(b'\nED\t')} ED records)")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--keep-pipeline", metavar="DIR",
+                        help="run the pipeline in DIR (a new directory) and keep it")
+    args = parser.parse_args(argv)
+    keep = os.path.abspath(args.keep_pipeline) if args.keep_pipeline else None
     phase("card")
     print(card_line(), flush=True)
     if not torch.cuda.is_available():
@@ -718,6 +883,8 @@ def main() -> int:
     report = kernels.build()
     kernels.lib()
     print(f"nvcc_build_s {time.time() - t0:.3f}")
+    print(f"lane group: K1 and K7 run G = {kernels.lib().siga_lane_group()} threads a lane "
+          f"(csrc/pair_occ.cuh)")
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -737,7 +904,7 @@ def main() -> int:
         phase("main path: index (-a sais2 on cuda) -> overlap -> SW scoring of the edges")
         launches, index_s = run_main_path(dev, seqs, rng)
         n_chunks = -(-len(seqs) // search.chunk_size(len(seqs)))
-        assert launches["scan_pair"] >= n_chunks, (launches, n_chunks)
+        assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
         assert launches["sw_wavefront"] >= 1, launches
         phase("engine, warm")
         builder, hits = run_engine(dev, seqs)
@@ -756,24 +923,24 @@ def main() -> int:
             (k, v) for k, v in run_probe_path().items() if k not in ("scan_pair", "sw_wavefront")
         )
         phase("gather probes against their plain versions")
-        probes = check_probes(dev, search._cached_scanner(builder, dev, *FWD_REV).plane)
+        probes, step_ns = check_probes(dev, search._cached_scanner(builder, dev, *FWD_REV).plane)
         check_probe_range_assert()
         del builder, hits
         torch.cuda.empty_cache()
-        pipe_dir = os.path.join(workdir, "pipeline")
-        os.mkdir(pipe_dir)
+        pipe_dir = keep or os.path.join(workdir, "pipeline")
+        os.makedirs(pipe_dir)
         phase("pipeline: benchmark/ecoli_scale.py 1.0 25 0.005 through the port's CLI on the card")
         for name, n in run_pipeline(pipe_dir).items():
             launches[name] += n
         phase("K1 against its plain version at the pipeline's shapes")
-        k1 = (max(k1[0], check_scan_pipeline(dev, pipe_dir)), *k1[1:])
+        k1["max_abs_err"] = max(k1["max_abs_err"], check_scan_pipeline(dev, pipe_dir, step_ns))
         torch.cuda.empty_cache()
         phase("correct of every 8th read through K7, against the whole read set's index")
         ran, pp_reads = check_correct_subset(pipe_dir)
         for name, n in ran.items():
             launches[name] += n
         phase("K7 against its plain version")
-        k7 = check_k7(dev, pp_reads, np.random.default_rng(SEED), pipe_dir)
+        k7 = check_k7(dev, pp_reads, np.random.default_rng(SEED), pipe_dir, step_ns)
         phase("overlap: two worker processes on the card + --merge-only, against one process")
         check_overlap_workers(pipe_dir)
     finally:
@@ -786,13 +953,13 @@ def main() -> int:
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
         ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:22", k7),
     ] + [
-        (name, "siga_tpu_torch/csrc/gather_probe.cu", replaces, (err, ms, plain_ms))
-        for name, (err, ms, plain_ms, replaces) in probes.items()
+        (name, "siga_tpu_torch/csrc/gather_probe.cu", replaces, row)
+        for name, (row, replaces) in probes.items()
     ]
-    for name, source, replaces, (err, ms, plain_ms) in rows:
+    for name, source, replaces, row in rows:
         kernel_rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches[name], **row,
         })
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,11 @@ import sys
 import time
 from typing import List
 
-from siga_tpu.constants import BWT_EXT, EC_EXT, FA_EXT
-from siga_tpu.correct.batch import correct_reads_batch, correct_reads_streaming
-from siga_tpu.correct.kmer import correct_reads
-from siga_tpu.index.fm import FMIndex
-from siga_tpu.io import fastx
+from ..constants import BWT_EXT, EC_EXT, FA_EXT
+from ..correct.batch import correct_reads_batch, correct_reads_streaming
+from ..correct.kmer import correct_reads
+from ..index.fm import FMIndex
+from ..io import fastx
 
 from ..device import resolve_device
 
@@ -40,6 +40,7 @@ def run(opts: dict, arguments: List[str]) -> int:
         return 255
 
     t0 = time.time()
+    counter = None  # the device route's k-mer counter
     index = FMIndex.load(prefix + BWT_EXT)
     reads = fastx.read_sequences(input_path)
     params = dict(
@@ -79,6 +80,10 @@ def run(opts: dict, arguments: List[str]) -> int:
     with fastx.xopen(output, "wt") as out:
         for rec in corrected:
             out.write(rec.format())
+    if counter is not None:
+        rest = (counter.kmers - counter.first) / max(counter.calls - 1, 1)
+        route += (f", {counter.kmers} k-mers in {counter.calls} calls (the read set's "
+                  f"{counter.first} first, then {rest:.2f} a call)")
     print(
         f"[correct] wall: {time.time() - t0:.3f} sec, {len(reads)} reads, {route}",
         file=sys.stderr,

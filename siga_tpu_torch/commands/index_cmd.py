@@ -12,8 +12,8 @@ import sys
 import time
 from typing import List
 
-from siga_tpu.constants import BWT_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
-from siga_tpu.io import bwtio, fastx, sai as sai_mod
+from ..constants import BWT_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
+from ..io import bwtio, fastx, sai as sai_mod
 
 from ..device import resolve_device
 from ..index import sa as sa_mod

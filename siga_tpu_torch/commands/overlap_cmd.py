@@ -4,10 +4,13 @@ Port of `siga_tpu/commands/overlap_cmd.py`: ASQG header, per-read overlap
 blocks streamed to hits shard files ({prefix}-thread{i}.hits.gz), VT records
 in read order, then hits -> ED records through the .sai/.rsai permutations.
 `--engine=auto|tpu` runs stage A on `--device` (`ops/search.py`), any other
-engine the shared host engine (`OverlapBuilder.overlap`).  The multi-process
+engine the host engine (`OverlapBuilder.overlap`).  The multi-process
 modes: `--process-id I --num-processes N` writes only hits shard I, for the
 reads I mod N, and waits at a barrier (`parallel/multihost.py`);
-`--merge-only -t N` emits the ASQG from N shards (the shared `_merge_hits`).
+`--merge-only -t N` emits the ASQG from N shards (`_merge_hits`).
+`format_vertex_record`, `write_vertex_record`, `_merge_hits` and
+`_host_hits` are copies of the JAX package's, which must write the same
+bytes.
 """
 from __future__ import annotations
 
@@ -15,13 +18,11 @@ import sys
 import time
 from typing import List
 
-from siga_tpu import native
-from siga_tpu.commands.overlap_cmd import _host_hits, _merge_hits, format_vertex_record
-from siga_tpu.constants import ASQG_EXT, BWT_EXT, GZIP_EXT, HITS_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
-from siga_tpu.index.fm import FMIndex
-from siga_tpu.io import asqg, fastx, sai as sai_mod
-from siga_tpu.overlap.builder import BatchHitConverter, Hit, OverlapBuilder
-
+from .. import native
+from ..constants import ASQG_EXT, BWT_EXT, GZIP_EXT, HITS_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
+from ..index.fm import FMIndex
+from ..io import asqg, fastx, sai as sai_mod
+from ..overlap.builder import BatchHitConverter, Hit, OverlapBuilder
 from ..device import native_lib, resolve_device
 from ..ops.search import _blocks_to_array, batch_overlap_hits
 from ..parallel import multihost
@@ -30,6 +31,116 @@ ED_BATCH = 4096
 # hit arrays kept in memory for the ED pass while their blocks fit; above it
 # the pass re-reads the hits files (which stay the stage checkpoint either way)
 MEM_BLOCK_BUDGET = 4_000_000
+
+
+def format_vertex_record(rec: fastx.DNASeq, substring: bool) -> str:
+    """Fast path of write_vertex_record for comment-less reads (the common
+    case); byte-identical to VertexRecord.format."""
+    if rec.comment:
+        record = asqg.VertexRecord(
+            id=rec.name, seq=rec.seq, substring=1 if substring else 0
+        )
+        for token in rec.comment.split(" "):
+            for tag, attr in (
+                (asqg.BARCODE_TAG, "barcode"),
+                (asqg.COVERAGE_TAG, "coverage"),
+                (asqg.EXTENSION_TAG, "ext"),
+            ):
+                if token.startswith(tag):
+                    kv = asqg.parse_tag(token)
+                    if kv:
+                        setattr(record, attr, kv[1])
+        return record.format()
+    return f"VT\t{rec.name}\t{rec.seq}\tSS:i:{1 if substring else 0}"
+
+
+def write_vertex_record(out, rec: fastx.DNASeq, substring: bool) -> None:
+    record = asqg.VertexRecord(id=rec.name, seq=rec.seq, substring=1 if substring else 0)
+    if rec.comment:
+        for token in rec.comment.split(" "):
+            if token.startswith(asqg.BARCODE_TAG):
+                kv = asqg.parse_tag(token)
+                if kv:
+                    record.barcode = kv[1]
+            elif token.startswith(asqg.COVERAGE_TAG):
+                kv = asqg.parse_tag(token)
+                if kv:
+                    record.coverage = kv[1]
+            elif token.startswith(asqg.EXTENSION_TAG):
+                kv = asqg.parse_tag(token)
+                if kv:
+                    record.ext = kv[1]
+    out.write(record.format() + "\n")
+
+
+def _merge_hits(
+    input_path, prefix, output_path, min_overlap, shards,
+) -> bool:
+    """Merge step of the multi-process overlap: re-read the N hits shard
+    files and emit the ASQG (header + VT in read order + ED shard-sequential)
+    — byte-identical to a single-process `-t N` run.
+
+    Streaming (BASELINE config 5 data plane): shards are traversed twice —
+    once for the per-read substring flags (idx + flag only), once batched
+    through the ED converter — and the read set streams through the VT pass
+    (only names/lengths are retained), so merge RSS stays flat in shard
+    count, shard size, and read-set size."""
+    hit_paths = [
+        f"{prefix}-thread{i}{HITS_EXT}{GZIP_EXT}" for i in range(max(1, shards))
+    ]
+    substring = bytearray()
+    for path in hit_paths:
+        with fastx.xopen(path, "rt") as f:
+            for line in f:
+                # flags pass: only the first two tokens matter
+                parts = line.split(" ", 2)
+                if len(parts) >= 2:
+                    idx = int(parts[0])
+                    if idx >= len(substring):
+                        substring.extend(b"\0" * (idx + 1 - len(substring)))
+                    substring[idx] = 1 if parts[1] == "1" else 0
+
+    out = fastx.xopen(output_path, "wt")
+    header = asqg.HeaderRecord(overlap=min_overlap, containment=1, infile=input_path)
+    out.write(header.format() + "\n")
+    names: List[str] = []
+    lengths: List[int] = []
+    for idx, rec in enumerate(fastx.iter_sequences(input_path)):
+        sub = bool(substring[idx]) if idx < len(substring) else False
+        write_vertex_record(out, rec, sub)
+        names.append(rec.name)
+        lengths.append(len(rec.seq))
+
+    sa_perm, _ = sai_mod.load_sai(prefix + SAI_EXT)
+    rsa_perm, _ = sai_mod.load_sai(prefix + RSAI_EXT)
+    converter = BatchHitConverter(sa_perm, rsa_perm, names, lengths)
+    batch = []
+    for path in hit_paths:
+        with fastx.xopen(path, "rt") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                idx, _sub, arr = Hit.parse_array(line)
+                batch.append((idx, arr))
+                if len(batch) >= 4096:
+                    eds = converter.convert_lines(batch)
+                    if eds:
+                        out.write("\n".join(eds) + "\n")
+                    batch = []
+    eds = converter.convert_lines(batch)
+    if eds:
+        out.write("\n".join(eds) + "\n")
+    out.close()
+    return True
+
+
+def _host_hits(builder: OverlapBuilder, records, min_overlap: int):
+    for idx, rec in enumerate(records):
+        hit = Hit(idx=idx)
+        result = builder.overlap(rec.seq, min_overlap, hit.blocks)
+        hit.substring = result.substring
+        yield hit
 
 
 def _load_builder(prefix: str, irreducible: bool, rc: bool) -> OverlapBuilder:

@@ -17,10 +17,10 @@ import sys
 import time
 from typing import List
 
-from siga_tpu.constants import BWT_EXT, GZIP_EXT, HITS_EXT, RBWT_EXT, RMDUP_EXT, RSAI_EXT, SAI_EXT
-from siga_tpu.index.fm import FMIndex
-from siga_tpu.io import fastx, sai as sai_mod
-from siga_tpu.overlap.builder import Hit, HitConverter, OverlapBuilder
+from ..constants import BWT_EXT, GZIP_EXT, HITS_EXT, RBWT_EXT, RMDUP_EXT, RSAI_EXT, SAI_EXT
+from ..index.fm import FMIndex
+from ..io import fastx, sai as sai_mod
+from ..overlap.builder import Hit, HitConverter, OverlapBuilder
 
 from ..device import native_lib, resolve_device
 from ..ops.search import batch_duplicate_hits

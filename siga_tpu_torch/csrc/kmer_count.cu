@@ -3,22 +3,30 @@
 // Replaces siga_tpu/ops/kmer_count.py::_count_scan (an XLA program on the
 // TPU: k-1 lockstep backward-search steps over every k-mer of a batch);
 // siga_tpu_torch/ops/kmer_count.py::count_kmers_plain is the same function in
-// plain PyTorch.  One thread per k-mer keeps its interval (lo, hi) in
-// registers.  The last symbol opens the interval, lo = C[c] and
-// hi = lo + occ_c(length - 1) - 1.  Then the thread prepends two symbols per
-// step, as K1's supersteps do: one pair-plane row read at lo - 1 and one at
-// hi give the pair counts, and K[c2][c1] + occ2((c2, c1), .) is the interval
-// two symbols on.  A lone last symbol, and any step that would take a rank-0
-// symbol ('$', or N, which encodes to rank 0), goes one symbol on through the
-// row's single-symbol counts instead, since the pair counts do not serve
-// c1 = 0.  A thread stops once its interval is empty: an empty interval stays
-// empty, and the count is max(hi - lo + 1, 0).
+// plain PyTorch.  Each k-mer keeps its interval (lo, hi).  The last symbol
+// opens it, lo = C[c] and hi = lo + occ_c(length - 1) - 1.  Then it prepends
+// two symbols per step, as K1's supersteps do: the pair-plane rows at lo - 1
+// and at hi give the pair counts, and K[c2][c1] + occ2((c2, c1), .) is the
+// interval two symbols on.  A lone last symbol, and any step that would take
+// a rank-0 symbol ('$', or N, which encodes to rank 0), goes one symbol on
+// through the rows' single-symbol counts instead, since the pair counts do
+// not serve c1 = 0.  A k-mer stops once its interval is empty: an empty
+// interval stays empty, and the count is max(hi - lo + 1, 0).
 //
-// What bounds it: dependent row reads, as in K1.  Each step's row addresses
-// depend on the last step's counts, so a k-mer is a chain of about k/2 pairs
-// of 228-byte row reads, and throughput comes from many k-mers in flight.
-// A k-mer absent from the index usually empties within a dozen symbols and
-// its thread stops there.
+// What bounds it: dependent row reads, as in K1.  A k-mer is a chain of
+// about k/2 steps of two row reads each.  At 262,144 41-mers the rows they
+// all read bound it; `correct` launches it on a few to ~110 k-mers at a
+// time (a weak base's candidates, a read's k-mers), where one chain of ~20
+// L2 round trips does.  The first design (one thread per k-mer) read
+// each row as ~57 scalar loads from one thread.  This one serves a k-mer with
+// a group of 8 threads (pair_occ::kGroup) and K1's group occ
+// (csrc/pair_occ.cuh): coalesced row slices, both rows' loads issued before
+// either is summed, only s[c1] and p[c2] summed over the group by shuffles;
+// the early stop and the single steps depend on group-uniform values.
+// Times on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; chip_smoke.py and
+// probes/kernel_ab.py), bit-equal to the first design: 262,144 41-mers
+// 0.509-0.555 ms (the first design 0.735-0.740 ms in the same calls); 3 and
+// 110 41-mers 0.016-0.017 ms a launch (the first design 0.035 and 0.058 ms).
 #include <cassert>
 #include <cuda_runtime.h>
 
@@ -26,57 +34,66 @@
 
 namespace {
 
-using pair_occ::occ_row;
+using pair_occ::kGroup;
+using pair_occ::RowSlice;
 using pair_occ::sel5;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;
 
 __global__ void __launch_bounds__(kThreads)
 kmer_count_kernel(const int* plane, const int* K, const int* pred, int length,
                   int nblocks, const unsigned char* kmers, int Q, int k, int* out) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = gtid & (kGroup - 1);
+  const int q = gtid / kGroup;
+  if (q >= Q) return;  // whole groups leave together
+  const unsigned gmask = pair_occ::group_mask();
   const unsigned char* w = kmers + static_cast<size_t>(q) * k;
   int pr[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) pr[c] = __ldg(pred + c);
 
-  int ls[5], lp[5], us[5], up[5];
+  RowSlice r0, r1;
+  int us[5];
   const int c0 = __ldg(w + k - 1);
   assert(c0 <= 4);
   int lo = sel5(pr, c0);
-  occ_row<false>(plane, nblocks, 0, length - 1, 0, us, up);
+  r0.load(plane, nblocks, 0, length - 1, j, false);
+  pair_occ::singles(r0, j, gmask, us);
   int hi = lo + sel5(us, c0) - 1;
 
-  int j = k - 2;  // the next symbol to prepend
-  while (j >= 0 && lo <= hi) {
-    const int c1 = __ldg(w + j);
-    const int c2 = j > 0 ? __ldg(w + j - 1) : 0;
+  int i = k - 2;  // the next symbol to prepend
+  while (i >= 0 && lo <= hi) {
+    const int c1 = __ldg(w + i);
+    const int c2 = i > 0 ? __ldg(w + i - 1) : 0;
     assert(c1 <= 4 && c2 <= 4);
-    if (c1 > 0 && c2 > 0) {
-      occ_row<true>(plane, nblocks, 0, lo - 1, c1, ls, lp);
-      occ_row<true>(plane, nblocks, 0, hi, c1, us, up);
+    const bool pair = c1 > 0 && c2 > 0;
+    r0.load(plane, nblocks, 0, lo - 1, j, pair);
+    r1.load(plane, nblocks, 0, hi, j, pair);
+    const pair_occ::StepCounts L = pair_occ::step_counts<false>(r0, j, c1, c2, gmask);
+    const pair_occ::StepCounts U = pair_occ::step_counts<false>(r1, j, c1, c2, gmask);
+    if (pair) {
       const int kv = __ldg(K + c2 * 5 + c1);
-      lo = kv + sel5(lp, c2);
-      hi = kv + sel5(up, c2) - 1;
-      j -= 2;
+      lo = kv + L.p_c2;
+      hi = kv + U.p_c2 - 1;
+      i -= 2;
     } else {
-      occ_row<false>(plane, nblocks, 0, lo - 1, 0, ls, lp);
-      occ_row<false>(plane, nblocks, 0, hi, 0, us, up);
-      lo = sel5(pr, c1) + sel5(ls, c1);
-      hi = sel5(pr, c1) + sel5(us, c1) - 1;
-      j -= 1;
+      lo = sel5(pr, c1) + L.s_c1;
+      hi = sel5(pr, c1) + U.s_c1 - 1;
+      i -= 1;
     }
   }
-  out[q] = max(hi - lo + 1, 0);
+  if (j == 0) out[q] = max(hi - lo + 1, 0);
 }
 
 }  // namespace
 
+// Counts of Q k-mers (uint8 ranks [Q, k]), kGroup threads a k-mer.
 extern "C" int siga_kmer_count(const void* plane, const void* K, const void* pred,
                                int length, int nblocks, const void* kmers, int Q,
                                int k, void* out, void* stream) {
-  const int grid = (Q + kThreads - 1) / kThreads;
+  const long long threads = static_cast<long long>(Q) * kGroup;
+  const int grid = static_cast<int>((threads + kThreads - 1) / kThreads);
   kmer_count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(plane), static_cast<const int*>(K),
       static_cast<const int*>(pred), length, nblocks,

@@ -23,8 +23,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from siga_tpu import native
-from siga_tpu.core import dna
+from .. import native
+from ..core import dna
 
 from ..device import native_lib, resolve_device
 

@@ -43,9 +43,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # plane, K2, pred, la_words, lens, length, nblocks, n, wpr, nfwd,
-    # groups_code, lim_t, p1, t0, lanes, then outputs, stream
-    "siga_scan_pair_count": [_P] * 5 + [_I] * 10 + [_P] * 4 + [_P],
-    "siga_scan_pair_emit": [_P] * 5 + [_I] * 10 + [_P] * 2 + [_P],
+    # groups_code, lim_t, p1, t0, lanes, lane_base, nl, cap, then
+    # lane_counts, fall, candmask, subwords, slab, stream
+    "siga_scan_pair": [_P] * 5 + [_I] * 13 + [_P] * 5 + [_P],
+    # threads a lane of siga_scan_pair and a k-mer of siga_kmer_count
+    "siga_lane_group": [],
     # queries, refs, B, M, N, match, mismatch, open, extend, best, qend,
     # rend, stream
     "siga_sw_wavefront": [_P] * 2 + [_I] * 7 + [_P] * 3 + [_P],

@@ -9,8 +9,11 @@ steps are one row read:  lo'' = K[c2][c1] + occ2((c2, c1), lo - 1).
 
 The scan (`scan_pair`) is the hand-written CUDA kernel K1
 (`csrc/scan_pair.cu`) on a CUDA tensor and its plain PyTorch version
-`scan_pair_plain` on a CPU tensor.  The plain helpers below work in int64
-with explicit 32-bit masks: PyTorch has no popcount and no shifts on uint32.
+`scan_pair_plain` on a CPU tensor.  K1 writes each lane's emitted rows into
+a slab of its own in one pass; `compact_slab` and `scan_in_parts` (plain
+torch, reached by the CPU tests) put them in the plain version's order.
+The plain helpers below work in int64 with explicit 32-bit masks: PyTorch
+has no popcount and no shifts on uint32.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from siga_tpu.index.fm import SAMPLE, FMIndex
+from ..index.fm import SAMPLE, FMIndex
 
 from .. import kernels
 from ..device import native_lib
@@ -446,12 +449,83 @@ def _check_scan_inputs(plane2, K2, pred, nblocks, la_words, lens):
             raise ValueError(f"{name}: shape {tuple(x.shape)} != {shape}")
 
 
+SLAB_ROW_BYTES = 16  # one emitted [lo, rlo, size, trel] int32 row
+
+
+def emit_cap(lim_t: int, min_overlap: int) -> int:
+    """Rows a lane can emit: at most one per step t in [p1, lim_t - 1]."""
+    p1, _t0 = _scan_params(lim_t, min_overlap)
+    return max(lim_t - p1, 0)
+
+
+def lane_parts(lanes: int, cap: int, budget_bytes: int):
+    """[l0, l1) lane ranges whose slabs of `cap` rows each fit in
+    `budget_bytes`: all lanes at once where they fit, else parts whose l0
+    is a multiple of 32 (a mask word)."""
+    if lanes * cap * SLAB_ROW_BYTES <= budget_bytes:
+        return [(0, lanes)]
+    per = max(budget_bytes // (cap * SLAB_ROW_BYTES) // 32 * 32, 32)
+    return [(l0, min(l0 + per, lanes)) for l0 in range(0, lanes, per)]
+
+
+def _owners(ends: torch.Tensor, total: int):
+    """k = 0 .. total-1 and, for each, the run that holds it, where `ends`
+    is the inclusive cumsum of the runs' lengths."""
+    k = torch.arange(total, device=ends.device)
+    return k, torch.searchsorted(ends, k, right=True)
+
+
+def compact_slab(slab: torch.Tensor, lane_counts: torch.Tensor, extra=()):
+    """The rows of per-lane slabs (int32 [lanes, cap, 4], lane l's first
+    lane_counts[l] rows valid) in the scan's output order, lane-major and t
+    ascending: [sum(lane_counts), 4], by a cumsum of the counts and one
+    gather; raises when a count exceeds the slab.  Also returns the values
+    of the 0-d int64 tensors `extra`, read in the same synchronisation as
+    the row count."""
+    lanes, cap = slab.shape[0], slab.shape[1]
+    counts = lane_counts.to(torch.int64)
+    ends = torch.cumsum(counts, 0)
+    head = [ends[-1], counts.max()] if lanes else [counts.sum(), counts.sum()]
+    total, most, *values = torch.stack([*head, *extra]).tolist()
+    if most > cap:
+        raise RuntimeError(f"scan_pair: a lane emitted {most} rows, its slab holds {cap}")
+    # row k of lane l sits at slab row l * cap + (k - start of l); its four
+    # words are gathered one by one (torch's gather of [*, 4] int32 rows ran
+    # far slower on the H100)
+    k, lane = _owners(ends, total)
+    row = k + lane * cap - (ends - counts).index_select(0, lane)
+    words = row[:, None] * 4 + torch.arange(4, device=slab.device)
+    return torch.take(slab, words.reshape(-1)).reshape(-1, 4), values
+
+
+def scan_in_parts(lanes: int, cap: int, budget_bytes: int, launch, lane_counts, extra=lambda: ()):
+    """Scan `lanes` lanes in as many launches as their slabs need:
+    `launch(l0, l1)` scans lanes [l0, l1) and returns their slab (it also
+    fills lane_counts[l0:l1]).  Returns the compacted rows of all parts, in
+    order, and the values of the 0-d tensors that `extra()` gives once every
+    part has run (read with the last part's row count)."""
+    parts = lane_parts(lanes, cap, budget_bytes)
+    rows = []
+    for i, (l0, l1) in enumerate(parts):
+        last = i == len(parts) - 1
+        part, values = compact_slab(launch(l0, l1), lane_counts[l0:l1], extra() if last else ())
+        rows.append(part)
+    return (torch.cat(rows) if len(rows) > 1 else rows[0]), values
+
+
 def scan_pair(
     plane2, K2, pred, length: int, nblocks: int, la_words, lens,
     lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+    slab_bytes: int | None = None,
 ):
     """The stage-A pair scan: the CUDA kernel K1 on CUDA tensors,
-    `scan_pair_plain` on CPU tensors; same arguments and outputs."""
+    `scan_pair_plain` on CPU tensors; same arguments and outputs.
+
+    On CUDA one launch scans all lanes in one pass into per-lane slabs that
+    `compact_slab` orders; where the slabs would not fit in `slab_bytes`
+    (default a third of the free device memory) the lanes are split over
+    several launches of the same kernel.  One synchronisation reads the
+    sizes of the outputs."""
     dev = plane2.device
     if dev.type == "cpu":
         return scan_pair_plain(
@@ -464,42 +538,46 @@ def scan_pair(
     n, wpr = la_words.shape
     groups = tuple(fwd_groups) + tuple(rev_groups)
     L = n * len(groups)
+    if L == 0:
+        raise ValueError("scan_pair: no lanes")
     p1, t0 = _scan_params(lim_t, min_overlap)
+    cap = emit_cap(lim_t, min_overlap)
     lane_counts = torch.empty(L, dtype=torch.int32, device=dev)
     fall = torch.empty((5, L), dtype=torch.int32, device=dev)
     nw = -(-L // 32)
-    candmask = torch.empty(nw, dtype=torch.int32, device=dev)
-    subwords = torch.empty(nw, dtype=torch.int32, device=dev)
+    candmask = torch.zeros(nw, dtype=torch.int32, device=dev)  # the kernel ORs bits in
+    subwords = torch.zeros(nw, dtype=torch.int32, device=dev)
     groups_code = sum(g << (2 * k) for k, g in enumerate(groups))
-    args = (
-        plane2.data_ptr(), K2.data_ptr(), pred.data_ptr(),
-        la_words.data_ptr(), lens.data_ptr(),
-        length, nblocks, n, wpr, len(fwd_groups), groups_code,
-        lim_t, p1, t0, L,
-    )
-    if L == 0:
-        raise ValueError("scan_pair: no lanes")
     lib = kernels.lib()
     stream = kernels.stream_ptr(dev)
-    kernels.check(
-        lib.siga_scan_pair_count(
-            *args, lane_counts.data_ptr(), fall.data_ptr(),
-            candmask.data_ptr(), subwords.data_ptr(), stream,
-        ),
-        "scan_pair count pass",
-    )
-    ends = torch.cumsum(lane_counts, dim=0)
-    offsets = ends - lane_counts
-    total = int(ends[-1])
-    emit = torch.empty((total, 4), dtype=torch.int32, device=dev)
-    if total:
+    if slab_bytes is None:
+        slab_bytes = torch.cuda.mem_get_info(dev)[0] // 3
+
+    def launch(l0, l1):
+        slab = torch.empty((l1 - l0, cap, 4), dtype=torch.int32, device=dev)
         kernels.check(
-            lib.siga_scan_pair_emit(*args, offsets.data_ptr(), emit.data_ptr(), stream),
-            "scan_pair emit pass",
+            lib.siga_scan_pair(
+                plane2.data_ptr(), K2.data_ptr(), pred.data_ptr(),
+                la_words.data_ptr(), lens.data_ptr(),
+                length, nblocks, n, wpr, len(fwd_groups), groups_code,
+                lim_t, p1, t0, L, l0, l1 - l0, cap,
+                lane_counts.data_ptr(), fall.data_ptr(), candmask.data_ptr(),
+                subwords.data_ptr(), slab.data_ptr(), stream,
+            ),
+            "scan_pair",
         )
-    kernels.launches["scan_pair"] += 1
-    candT = fall[:, _unpack_bits32(candmask, L)]
-    counts = torch.tensor([total, candT.shape[1]], dtype=torch.int32, device=dev)
+        kernels.launches["scan_pair"] += 1
+        return slab
+
+    cand_ends = []  # the candidate bits' cumsum, once every part has run
+
+    def cand_count():
+        cand_ends.append(torch.cumsum(_unpack_bits32(candmask, L), 0))
+        return (cand_ends[0][-1],)
+
+    emit, (n_cand,) = scan_in_parts(L, cap, slab_bytes, launch, lane_counts, cand_count)
+    candT = fall.index_select(1, _owners(cand_ends[0], n_cand)[1])
+    counts = torch.stack([lane_counts.sum(), cand_ends[0][-1]]).to(torch.int32)
     return counts, lane_counts, emit[:, :3].T, emit[:, 3], candmask, candT, subwords
 
 

@@ -5,7 +5,7 @@ Port of `siga_tpu/ops/kmer_count.py`, the device analog of
 (`csrc/kmer_count.cu`) on a CUDA index and its plain PyTorch version
 `count_kmers_plain` on a CPU index.  Both read the port's one device index,
 the pair plane of `DeviceFM`; there is no second, single-step plane.  The
-corrector (`siga_tpu.correct.kmer.KmerCorrector`) takes a `KmerCounter` as
+corrector (`correct/kmer.py::KmerCorrector`) takes a `KmerCounter` as
 its batched counter.
 """
 from __future__ import annotations
@@ -16,8 +16,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from siga_tpu.core import dna
-from siga_tpu.index.fm import SAMPLE
+from ..core import dna
+from ..index.fm import SAMPLE
 
 from .. import kernels
 from .fm_device import DeviceFM
@@ -139,15 +139,23 @@ def encode_kmers(kmers: Sequence[str]) -> np.ndarray:
 
 class KmerCounter:
     """Callable batching counter, list[str] -> list[int], on the device of
-    `dfm`: at most `batch` k-mers a launch, one copy back per call."""
+    `dfm`: at most `batch` k-mers a launch, one copy back per call.  Keeps
+    the number of calls, the k-mers counted and the first call's k-mers."""
 
     def __init__(self, dfm: DeviceFM, batch: int = 8192):
         self.dfm = dfm
         self.batch = batch
+        self.calls = 0
+        self.kmers = 0
+        self.first = 0
 
     def __call__(self, kmers: Sequence[str]) -> List[int]:
         if not kmers:
             return []
+        if not self.calls:
+            self.first = len(kmers)
+        self.calls += 1
+        self.kmers += len(kmers)
         codes = torch.from_numpy(encode_kmers(kmers)).to(self.dfm.device)
         counts = [
             count_kmers(self.dfm, codes[s : s + self.batch])

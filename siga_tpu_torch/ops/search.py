@@ -14,9 +14,9 @@ from typing import Iterator
 
 import numpy as np
 
-from siga_tpu import native
-from siga_tpu.index.fm import FMIndex, IntervalPair
-from siga_tpu.overlap.builder import (
+from .. import native
+from ..index.fm import FMIndex, IntervalPair
+from ..overlap.builder import (
     AF_SUFFIX_PREFIX,
     AF_SUFFIX_SUFFIX,
     Hit,

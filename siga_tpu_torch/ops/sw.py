@@ -13,7 +13,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from siga_tpu.core import dna
+from ..core import dna
 
 from .. import kernels
 from ..device import resolve_device

@@ -344,8 +344,8 @@ def measure_plane(plane: torch.Tensor, lanes: int, steps: int, seed: int, reps: 
 def stacked_plane(prefix: str, device) -> torch.Tensor:
     """The overlap scan's stacked pair plane (forward rows, then reverse rows)
     of the index PREFIX.bwt / PREFIX.rbwt."""
-    from siga_tpu.constants import BWT_EXT, RBWT_EXT
-    from siga_tpu.index.fm import FMIndex
+    from ..constants import BWT_EXT, RBWT_EXT
+    from ..index.fm import FMIndex
 
     from ..ops.fm_device import DeviceFM, DualScanner
 
