@@ -17,7 +17,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      score 2k); every read must have its VT record;
   5. the overlap engine alone, warm (its wall and the process's user and
      system CPU time), and the device pair plane against the C++ host
-     packing;
+     packing; the cost of `pack_reads_2bit`'s ACGT guard on one chunk;
   6. each kernel against its plain PyTorch version on the card, bit for bit:
      the K1 scan on the first full 15,152-read chunk (odd lim_t; timed,
      with its bound; and split over several launches by a small slab
@@ -28,7 +28,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the engine, against the shared host engine (OverlapBuilder.overlap);
   8. `index -a host` (the C++ seed-sort) on the same reads: all four files
      byte-equal to the device build's; then the device index's layers
-     timed alone for one direction (text build, sort, sort + BWT + perm);
+     timed alone for one direction (text build, sort, sort + BWT + perm)
+     beside K6's bound;
   9. `rmdup` on the card, counts reset just before it: K1 must launch, the
      hits of 256 sampled reads equal the host engine's
      (OverlapBuilder.duplicate), and kept + duplicates = reads;
@@ -37,9 +38,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      version bit for bit at every Pallas probe's own shape and on the pair
      plane (60,608 random rows, one overlap chunk's lanes), each with its
      bound and, for G1, G2 and G4, the one PyTorch call that computes the
-     same (index_select, gather, x * 2); G3 with 32 chains of single-word
-     gathers gives the L2 round trip of one dependent step; and G1's
-     device-side range assert in a child process;
+     same (index_select, gather, x * 2), G2 and G4 timed in turn with it
+     over 5 rounds (median, min-max, share of the bound); G2 and G4 at the
+     edge shapes of `gather.edge_cases` (tails, x[1:], one row or output,
+     rows wider than shared memory, every form, broadcast indexes); G3 with
+     32 chains of single-word gathers gives the L2 round trip of one
+     dependent step; and G1's device-side range assert in a child process;
  11. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
      (its genome and generator), its eleven stages (PIPE_STAGES) through
      `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
@@ -59,10 +63,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `FMIndex.occurrences`, timed with its bound; then at the `correct`
      route's sizes, 3 and 110 41-mers: equal to plain, timed per launch on
      the card and per `KmerCounter` call on the wall clock;
- 15. `overlap` as two `--process-id` workers at once on the card plus
+ 15. the plane build (K2) for one direction of the main path's index: its
+     device time from a torch.profiler trace of one build (its kernels'
+     and copies' device spans summed), its wall by CUDA events, and its
+     bound; last of the timings, so that the trace touches no other;
+ 16. `overlap` as two `--process-id` workers at once on the card plus
      `--merge-only -t 2` (the port's launcher) against one `-t 2` process:
      the ASQG must be equal;
- 16. the kernels' JSON line (each kernel's launches summed over the paths
+ 17. the kernels' JSON line (each kernel's launches summed over the paths
      above, each path's counts read from its own run; its time at the
      shape named above; `bound_ms` from this run's inputs, by bytes at
      3.35 TB/s or operations at 67e12/s), then the device line last.
@@ -96,6 +104,7 @@ from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
 from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import multihost
 from siga_tpu_torch.probes import gather
+from siga_tpu_torch.probes.kernel_ab import library_call
 
 SEED = 1
 GENOME = 1_000_000
@@ -108,6 +117,7 @@ RMDUP = ((fm_device.GROUP_ID,), (fm_device.GROUP_COMP,))
 INDEX_FILES = ("sai", "bwt", "rsai", "rbwt")
 PROBE_LANES = 60608  # lanes of one overlap chunk (15,152 reads x 4 orientations)
 PROBE_STEPS = 150
+PROBE_ROUNDS = 5  # G2 and G4 timed in turn with their library call, this many rounds
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
@@ -331,11 +341,15 @@ def time_index_layers(dev, seqs):
     sort_s = time.time() - t0
     del order
     t0 = time.time()
-    sa_mod.bwt_perm_device(codes, dev)
+    _bwt, perm = sa_mod.bwt_perm_device(codes, dev)
     bwt_perm_s = time.time() - t0
+    # K6's bound: the rank text read once; the suffix array (int32 suffices
+    # below 2**31 characters), the BWT codes and the .sai permutation written
+    # once.  Loose: a sort moves its keys more than once.
+    k6_bytes = codes.size * (1 + 4 + 1) + perm.size * 4
     print(f"index layers, one direction of {codes.size} chars, warm: concat_reads {concat_s:.3f} s, "
           f"suffix_array_device {sort_s:.3f} s, bwt_perm_device (sort + BWT + perm to the host) "
-          f"{bwt_perm_s:.3f} s")
+          f"{bwt_perm_s:.3f} s; K6 bound {bytes_ms(k6_bytes):.4f} ms ({k6_bytes} B, bytes)")
 
 
 def run_rmdup(builder, seqs, rng):
@@ -404,50 +418,63 @@ def probe_bytes(name, args) -> int:
     return (min(reads, table.numel()) + 2 * init.numel() + (c.numel() if c is not None else 0)) * 4
 
 
-def probe_library(name, args):
-    """One PyTorch call that computes the same as the probe, or None."""
-    if name == "scale2":
-        return lambda: args[0] * 2
-    if name == "gather_rows":
-        return lambda: torch.index_select(args[0], 0, args[1])
-    if name == "take_along":
-        table, index, axis = args
-        index64 = index.to(torch.int64).expand(gather._take_shape(table, index, axis))
-        return lambda: torch.gather(table, axis, index64)
-    return None
+def spread(times) -> str:
+    return f"median {np.median(times):.4f} ms (min-max {min(times):.4f}-{max(times):.4f})"
+
+
+def alternate(fns, reps, rounds=PROBE_ROUNDS):
+    """ms of each fn in `rounds` rounds, the fns timed in turn within each."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(cuda_ms(fn, reps))
+    return times
 
 
 def check_probes(dev, plane):
     """Each probe kernel against its plain version, with its bound and the
     library call that computes the same: at every Pallas probe's own shape,
-    and on the pair plane.  Returns ({kernel: (JSON row fields on the pair
-    plane, replaces)}, ns of one dependent step of few G3 chains on the
-    plane)."""
+    and on the pair plane.  G2 and G4 are timed in turn with their library
+    call (PROBE_ROUNDS rounds; medians).  Returns ({kernel: (JSON row fields
+    on the pair plane, replaces)}, ns of one dependent step of few G3
+    chains on the plane)."""
     rng = np.random.default_rng(SEED)
     errs, replaces = {}, {}
 
     def compare(name, args, reps, where):
         fn, plain = gather.WRAPPERS[name]
         err = max_abs_err([fn(*args)], [plain(*args)])
-        ms = cuda_ms(lambda: fn(*args), reps)
-        plain_ms = cuda_ms(lambda: plain(*args), 2)
-        library = probe_library(name, args)
-        lib_ms = cuda_ms(library, 10) if library is not None else None
         bound = bytes_ms(probe_bytes(name, args))
+        library = library_call(name, args)
+        if name in ("take_along", "scale2"):
+            k_ms, l_ms = alternate([lambda: fn(*args), library], reps)
+            ms, lib_ms = float(np.median(k_ms)), float(np.median(l_ms))
+            timing = (f"kernel {spread(k_ms)}, {bound / ms:.1%} of the bound; library call "
+                      f"{spread(l_ms)}; kernel/library {ms / lib_ms:.3f}")
+        else:
+            ms = cuda_ms(lambda: fn(*args), reps)
+            lib_ms = cuda_ms(library, 10) if library is not None else None
+            timing = (f"kernel {ms:.4f} ms, library call "
+                      f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        plain_ms = cuda_ms(lambda: plain(*args), 2)
         errs[name] = max(errs.get(name, 0), err)
-        print(f"{name} {where}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.5f} ms (bytes), library call "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        print(f"{name} {where}: max_abs_err {err}, {timing}, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.5f} ms (bytes)")
         return kernel_row(err, ms, plain_ms, bound, "bytes", lib_ms)
 
     for tpu_name, where, name, args in gather.probe_cases(rng):
-        compare(name, gather.to_device(args, dev), 10, f"as {tpu_name} ({where})")
+        args = gather.to_device(args, dev)
+        form = f", {take_form(*args)}" if name == "take_along" else ""
+        compare(name, args, 10, f"as {tpu_name} ({where}{form})")
         replaces.setdefault(name, []).append(where)
+    for name, e in check_probe_edges(dev).items():
+        errs[name] = max(errs[name], e)
     R, _C = plane.shape
     out = {}
     for name, args in gather.plane_args(plane, PROBE_LANES, PROBE_STEPS, SEED).items():
+        form = f", {take_form(*args)}" if name == "take_along" else ""
         row = compare(name, args, 3 if name == "gather_chain" else 10,
-                      f"on the pair plane {tuple(plane.shape)}, {PROBE_LANES} lanes")
+                      f"on the pair plane {tuple(plane.shape)}, {PROBE_LANES} lanes{form}")
         row["max_abs_err"] = errs[name]
         out[name] = (row, ", ".join(replaces[name]))
     assert all(v[0]["max_abs_err"] == 0 for v in out.values()), out
@@ -462,6 +489,28 @@ def check_probes(dev, plane):
     print(f"gather_chain (elem), 32 chains x {steps} dependent steps over the forward plane "
           f"({fwd.numel() * 4} B): {steps_ms:.4f} ms, {step_ns:.1f} ns a step (the L2 round trip)")
     return out, step_ns
+
+
+def take_form(table, index, axis) -> str:
+    """G2's form and block shape for these arguments on this card."""
+    A, B, Q, _si0, _si1 = gather.take_along_geometry(table, index, axis)
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    form, tile = gather.take_along_plan(A, B, Q, axis, sms)
+    return f"form {gather.FORMS[form]}, tile {tile}"
+
+
+def check_probe_edges(dev):
+    """G2 and G4 against their plain versions at the edge shapes of
+    `gather.edge_cases`, bit for bit.  Returns {kernel: largest error}."""
+    errs = {"take_along": 0, "scale2": 0}
+    for label, name, args in gather.edge_cases(np.random.default_rng(SEED), dev):
+        fn, plain = gather.WRAPPERS[name]
+        e = max_abs_err([fn(*args)], [plain(*args)])
+        extra = f", {take_form(*args)}" if name == "take_along" else ""
+        print(f"edge {label}{extra}: max_abs_err {e}")
+        errs[name] = max(errs[name], e)
+    assert not any(errs.values()), errs
+    return errs
 
 
 def check_probe_range_assert():
@@ -500,9 +549,68 @@ def run_engine(dev, seqs):
     engine_s = time.time() - t0
     ru1 = resource.getrusage(resource.RUSAGE_SELF)
     print(f"plane_build_s {plane_s:.3f} (forward plane equals the C++ host packing)")
+    time_read_guard(seqs)
     print(f"engine_s {engine_s:.3f} engine_reads_per_s {len(seqs) / engine_s:.1f}; process cpu "
           f"user {ru1.ru_utime - ru0.ru_utime:.3f} s, system {ru1.ru_stime - ru0.ru_stime:.3f} s")
     return builder, hits
+
+
+def time_plane_build(dev):
+    """K2 (`_build_pair_plane_dev`) for the forward index of the main path's
+    reads, its BWT codes already on the card, beside its bound: the codes
+    read once, the plane and K written once.  Its device time is the sum of
+    the device spans of its kernels and copies in a torch.profiler trace of
+    one build; the CUDA-event span around a build is its wall, host work and
+    the card's idle gaps at the bincounts' synchronisations included."""
+    fmi = FMIndex.load("reads.bwt")
+    codes = torch.from_numpy(np.ascontiguousarray(fmi.codes)).to(dev)
+    pred = np.asarray(fmi.pred, dtype=np.int64)
+    nblocks = fmi.length // fm_device.SAMPLE + 1
+
+    def build():
+        return fm_device._build_pair_plane_dev(codes, pred, nblocks)
+
+    build()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        build()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        build()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = (f"{sum(e.time_range.elapsed_us() for e in on_card) / 1e3:.4f} ms in "
+              f"{len(on_card)} device operations" if on_card
+              else "not measured (the trace holds no device operation)")
+    k2_bytes = codes.numel() * codes.element_size() + nblocks * ROW_BYTES + 25 * 4
+    print(f"K2 plane build, one direction ({codes.numel()} codes, {nblocks} rows): device time "
+          f"(torch.profiler) {device}; wall (CUDA events) {', '.join(f'{t:.3f}' for t in times)} "
+          f"ms; bound {bytes_ms(k2_bytes):.4f} ms ({k2_bytes} B, bytes)")
+
+
+def time_read_guard(seqs):
+    """The cost on the host CPU of `pack_reads_2bit`'s ACGT guard on one
+    overlap chunk of reads, beside the whole packing."""
+    chunk = seqs[: search.chunk_size(len(seqs))]
+    joined = "".join(chunk).encode()
+    maxlen = search._bucket_len(max(map(len, chunk)))
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fm_device.require_acgt(joined)
+    guard_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
+    pack_ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"read guard on one chunk of {len(chunk)} reads ({len(joined)} B), host CPU: "
+          f"require_acgt {guard_ms:.3f} ms of pack_reads_2bit's {pack_ms:.3f} ms")
 
 
 def check_hits(builder, hits, seqs, rng):
@@ -941,6 +1049,8 @@ def main(argv=None) -> int:
             launches[name] += n
         phase("K7 against its plain version")
         k7 = check_k7(dev, pp_reads, np.random.default_rng(SEED), pipe_dir, step_ns)
+        phase("K2: the plane build by torch.profiler and CUDA events")
+        time_plane_build(dev)
         phase("overlap: two worker processes on the card + --merge-only, against one process")
         check_overlap_workers(pipe_dir)
     finally:
@@ -951,7 +1061,7 @@ def main(argv=None) -> int:
     rows = [
         ("scan_pair", "siga_tpu_torch/csrc/scan_pair.cu", "siga_tpu/ops/fm_device.py:858", k1),
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
-        ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:22", k7),
+        ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:23", k7),
     ] + [
         (name, "siga_tpu_torch/csrc/gather_probe.cu", replaces, row)
         for name, (row, replaces) in probes.items()

@@ -14,10 +14,21 @@
 // G2 take_along: torch/JAX take_along_axis on a 2-D table, axis 0 or 1, with a
 //   full or broadcast (stride-0) index.  Replaces k_lane (probe_gather.py:147),
 //   k_a, k_b, k_c (probe3.py:121, 138, 155) and k2 (pallas_gather.py:72).
-//   Bound: the random reads.  For axis 1 a block copies its table row into
-//   shared memory when the row fits (8192 int32 is 32 KB), so the random reads
-//   hit shared memory and device memory is read once, in order; a wider row
-//   is read in place by smaller blocks, enough of them to fill the card.
+//   Bound: the random reads (each fetches a 32-byte sector for 4 bytes) and
+//   the output writes.  The wrapper (`gather.take_along_plan`) picks the form
+//   and the block's shape; the grid follows from them here:
+//   - axis 1, shared (k_lane, k2): a 1024-thread block copies its table row
+//     into shared memory, eight loads a thread in flight, then serves a tile
+//     of at least a quarter of the row's width from it: the row costs B / 8
+//     sectors in order instead of one sector an output.  Only where the row
+//     fits and the tiles give at least a block for every two SMs;
+//   - axis 1, direct (k_a, k_c, the transposed pair plane, rows wider than
+//     shared memory): one output a thread, the table word read in place,
+//     as many blocks as the outputs need.  A thread that walked the rows for
+//     one index column, its index read once, was slower than this form at
+//     every probe shape tried: independent loads hide their latency better
+//     than a thread's chain of rows;
+//   - axis 0 (k_b): one output a thread of a grid-stride loop.
 // G3 gather_chain: the dependent recurrences of k_scan (probe_gather.py:201,
 //   mode sum: state = (state + sum_w table[w, (state + t) % NB] + c[t % |c|])
 //   % NB) and k_d (probe3.py:173, mode elem: state = (state + table[w, state]
@@ -26,7 +37,19 @@
 //   step's row loads in batches of 32 before it adds them); the time per step
 //   with all lanes in flight is the floor for K1's chain of row reads.
 // G4 scale2: out = 2 * x, the build-and-launch check of probe2.py:67.  Bound:
-//   streaming bandwidth.
+//   streaming bandwidth, each byte read once and written once.  A thread
+//   moves one 16-byte int4 vector and exits; the grid covers the vectors
+//   and the hardware deals blocks to SMs as they free up.  A grid capped at
+//   8 blocks an SM striding over the data was slower on the pair plane, and
+//   2-8 vectors in flight a thread no faster (PERF.md).  The wrapper
+//   (`gather.scale2`) places out at x's offset within 16 bytes and
+//   `gather.scale2_plan` splits the elements: a scalar head up to the first
+//   16-byte boundary, the vectors, then a scalar tail; the scalars go one a
+//   thread to the first threads.  Every load and store carries the
+//   streaming hint (ld/st.global.cs), since no byte is read twice.  On the
+//   90 MB pair plane (H100 80GB HBM3, 700 W; chip_smoke.py, PERF.md) the
+//   kernel took 0.0617 and 0.0620 ms with the hints against 0.0621 and
+//   0.0625 ms without them, in the same rounds of two runs.
 //
 // Arithmetic is int32 with wrap-around, as JAX's is, and `%` is the floor
 // modulo of jnp.remainder / torch.remainder (non-negative for a positive
@@ -35,6 +58,8 @@
 // index stops the kernel and raises at the next synchronisation instead of
 // reading outside the table; the wrappers never wait on the card for it.
 #include <cassert>
+#include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -43,16 +68,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileShared = 8192;         // output columns per block, G2 axis 1
-constexpr int kTileGlobal = 1024;
+constexpr int kSharedThreads = 1024;      // G2 blocks that copy a row to shared memory
 constexpr int kBatch = 32;                // G3 row loads in flight per thread
+constexpr int kCopyInFlight = 8;          // G2 row-copy loads in flight per thread
 constexpr int kSmemDefault = 48 * 1024;   // above it, opt in per kernel
-constexpr int kSmemMax = 227 * 1024;
 
-int grid_for(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
+// G2 forms, as gather.py's take_along_plan numbers them
+enum TakeForm { kAxis0 = 0, kShared = 1, kDirect = 2 };
 
 __device__ __forceinline__ int floor_mod(int x, int m) {
   const int r = x % m;
@@ -77,27 +99,45 @@ __global__ void gather_rows_kernel(const int* __restrict__ plane,
   }
 }
 
-// axis 1: out[i, j] = table[i, index[i * si0 + j * si1]]; one block per
-// (row i, tile of kTile output columns)
-template <bool kShared, int kTile>
+// axis 1: out[i, j] = table[i, index[i * si0 + j * si1]] (si0 = 0: one index
+// row for every table row); block b serves row b / tiles, columns
+// [(b % tiles) * tile, +tile).  kSharedRow: the row is first copied to shared
+// memory (B words) and read there.
+template <bool kSharedRow>
 __global__ void take_along1_kernel(const int* __restrict__ table,
                                    const int* __restrict__ index, int B, int Q,
-                                   long long si0, long long si1,
-                                   int* __restrict__ out) {
+                                   long long si0, long long si1, int tile,
+                                   int tiles, int* __restrict__ out) {
   extern __shared__ int row_smem[];
-  const int i = blockIdx.y;
+  const int i = blockIdx.x / tiles;
+  const int j0 = blockIdx.x % tiles * tile;
+  const int j1 = min(j0 + tile, Q);
   const int* row = table + static_cast<long long>(i) * B;
-  if (kShared) {
-    for (int k = threadIdx.x; k < B; k += blockDim.x) row_smem[k] = row[k];
+  if (kSharedRow) {
+    // kCopyInFlight loads a thread before their stores, so that the copy
+    // waits for about one memory round trip, not one a word
+    for (int k0 = 0; k0 < B; k0 += kCopyInFlight * blockDim.x) {
+      int v[kCopyInFlight];
+#pragma unroll
+      for (int r = 0; r < kCopyInFlight; ++r) {
+        const int k = k0 + threadIdx.x + r * blockDim.x;
+        if (k < B) v[r] = row[k];
+      }
+#pragma unroll
+      for (int r = 0; r < kCopyInFlight; ++r) {
+        const int k = k0 + threadIdx.x + r * blockDim.x;
+        if (k < B) row_smem[k] = v[r];
+      }
+    }
     __syncthreads();
     row = row_smem;
   }
-  const int j0 = blockIdx.x * kTile;
-  const int j1 = min(j0 + kTile, Q);
+  const int* ix = index + i * si0;
+  int* o = out + static_cast<long long>(i) * Q;
   for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
-    const int k = index[i * si0 + j * si1];
+    const int k = ix[j * si1];
     assert(0 <= k && k < B);
-    out[static_cast<long long>(i) * Q + j] = row[k];
+    o[j] = row[k];
   }
 }
 
@@ -159,12 +199,26 @@ __global__ void chain_elem_kernel(const int* __restrict__ table, long long sw,
   out[e] = state;
 }
 
+__device__ __forceinline__ int twice(int v) {
+  return static_cast<int>(static_cast<unsigned>(v) * 2u);
+}
+
+// Thread g doubles vector g of [head, head + 4 * nvec) (x + head and out +
+// head are 16-byte aligned) and the g-th element of the rest, [0, head) then
+// [head + 4 * nvec, n).
 __global__ void scale2_kernel(const int* __restrict__ x, long long n,
+                              long long head, long long nvec,
                               int* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < n; e += stride) {
-    out[e] = static_cast<int>(static_cast<unsigned>(x[e]) * 2u);
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g < nvec) {
+    const int4 a = __ldcs(reinterpret_cast<const int4*>(x + head) + g);
+    __stcs(reinterpret_cast<int4*>(out + head) + g,
+           make_int4(twice(a.x), twice(a.y), twice(a.z), twice(a.w)));
+  }
+  const long long body = 4 * nvec;
+  if (g < n - body) {
+    const long long e = g < head ? g : g + body;
+    out[e] = twice(x[e]);
   }
 }
 
@@ -180,35 +234,48 @@ extern "C" int siga_gather_rows(const void* plane, const void* idx, int R, int Q
   return static_cast<int>(cudaGetLastError());
 }
 
+// `form` and `tile` come from gather.py's take_along_plan: tile is the threads
+// a block (kAxis0, kDirect) or the output columns a block (kShared).  Axis 1
+// takes a block for each (table row, tile of columns); axis 0 a grid-stride
+// loop of at most kMaxBlocks blocks.
 extern "C" int siga_take_along(const void* table, const void* index, int A, int B,
                                int Q, long long si0, long long si1, int axis,
-                               void* out, void* stream) {
+                               int form, int tile, void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(table);
   const int* ix = static_cast<const int*>(index);
   int* o = static_cast<int*>(out);
-  if (axis == 0) {
-    const long long total = static_cast<long long>(Q) * B;
-    take_along0_kernel<<<grid_for(total), kThreads, 0, s>>>(t, ix, A, B, total,
-                                                            si0, si1, o);
-    return static_cast<int>(cudaGetLastError());
+  const int tiles = Q > 0 && tile > 0 ? (Q - 1) / tile + 1 : 0;
+  const long long row_blocks = static_cast<long long>(A) * tiles;
+  if ((form == kAxis0) != (axis == 0) || A < 1 || B < 1 || Q < 1 || tile < 1 ||
+      (form != kShared && tile > kSharedThreads) || row_blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (A > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = static_cast<long long>(B) * sizeof(int);
-  if (smem <= kSmemMax) {
-    if (smem > kSmemDefault) {
-      const cudaError_t rc = cudaFuncSetAttribute(
-          take_along1_kernel<true, kTileShared>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (rc != cudaSuccess) return static_cast<int>(rc);
+  switch (form) {
+    case kAxis0: {
+      const long long total = static_cast<long long>(Q) * B;
+      const long long blocks = (total + tile - 1) / tile;
+      const unsigned grid = static_cast<unsigned>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+      take_along0_kernel<<<grid, tile, 0, s>>>(t, ix, A, B, total, si0, si1, o);
+      break;
     }
-    const dim3 grid((Q + kTileShared - 1) / kTileShared, A);
-    take_along1_kernel<true, kTileShared><<<grid, kThreads * 4, smem, s>>>(
-        t, ix, B, Q, si0, si1, o);
-  } else {
-    const dim3 grid((Q + kTileGlobal - 1) / kTileGlobal, A);
-    take_along1_kernel<false, kTileGlobal><<<grid, kThreads, 0, s>>>(
-        t, ix, B, Q, si0, si1, o);
+    case kShared: {
+      const int smem = B * static_cast<int>(sizeof(int));
+      if (smem > kSmemDefault) {
+        const cudaError_t rc = cudaFuncSetAttribute(
+            take_along1_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (rc != cudaSuccess) return static_cast<int>(rc);
+      }
+      take_along1_kernel<true><<<static_cast<unsigned>(row_blocks), kSharedThreads, smem, s>>>(
+          t, ix, B, Q, si0, si1, tile, tiles, o);
+      break;
+    }
+    case kDirect:
+      take_along1_kernel<false><<<static_cast<unsigned>(row_blocks), tile, 0, s>>>(
+          t, ix, B, Q, si0, si1, tile, tiles, o);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -237,8 +304,21 @@ extern "C" int siga_gather_chain_elem(const void* table, long long sw, long long
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int siga_scale2(const void* x, long long n, void* out, void* stream) {
-  scale2_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), n, static_cast<int*>(out));
+// `head` and `nvec` come from gather.py's scale2_plan; when there are
+// vectors, x + head and out + head must be 16-byte aligned.  A thread for
+// each vector and for each scalar.
+extern "C" int siga_scale2(const void* x, long long n, long long head,
+                           long long nvec, void* out, void* stream) {
+  const int* xi = static_cast<const int*>(x);
+  int* o = static_cast<int*>(out);
+  const long long rest = n - 4 * nvec;
+  const bool aligned = nvec == 0 || (reinterpret_cast<uintptr_t>(xi + head) % 16 == 0 &&
+                                     reinterpret_cast<uintptr_t>(o + head) % 16 == 0);
+  const long long blocks = ((nvec > rest ? nvec : rest) + kThreads - 1) / kThreads;
+  if (n < 1 || head < 0 || nvec < 0 || head > rest || !aligned || blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  scale2_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(xi, n, head, nvec, o);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,14 +53,14 @@ _SIGNATURES = {
     "siga_sw_wavefront": [_P] * 2 + [_I] * 7 + [_P] * 3 + [_P],
     # plane, idx, R, Q, C, out, stream
     "siga_gather_rows": [_P, _P, _I, _I, _I, _P, _P],
-    # table, index, A, B, Q, si0, si1, axis, out, stream
-    "siga_take_along": [_P, _P, _I, _I, _I, _L, _L, _I, _P, _P],
+    # table, index, A, B, Q, si0, si1, axis, form, tile, out, stream
+    "siga_take_along": [_P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P, _P],
     # table, sw, sx, W, NB, init, c, Lc, steps, L, out, stream
     "siga_gather_chain_sum": [_P, _L, _L, _I, _I, _P, _P, _I, _I, _I, _P, _P],
     # table, sw, sx, W, N, init, M, steps, out, stream
     "siga_gather_chain_elem": [_P, _L, _L, _I, _I, _P, _I, _I, _P, _P],
-    # x, n, out, stream
-    "siga_scale2": [_P, _L, _P, _P],
+    # x, n, head, nvec, out, stream
+    "siga_scale2": [_P, _L, _L, _L, _P, _P],
     # plane, K, pred, length, nblocks, kmers, Q, k, out, stream
     "siga_kmer_count": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P],
 }

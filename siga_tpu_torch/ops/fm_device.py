@@ -37,6 +37,7 @@ GROUP_ID = 0    # seq itself (suffix search in the forward index)
 GROUP_RC = 1    # reverse_complement(seq) (forward index)
 GROUP_REV = 2   # reverse(seq) (reverse index)
 GROUP_COMP = 3  # complement(seq) (reverse index)
+NON_ACGT = "read contains non-ACGT symbols; run `siga preprocess` first"
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -581,6 +582,14 @@ def scan_pair(
     return counts, lane_counts, emit[:, :3].T, emit[:, 3], candmask, candT, subwords
 
 
+def require_acgt(text: bytes) -> None:
+    """Raise unless every byte is one of A, C, G, T.  The native packer would
+    take lowercase acgt as bases, while the index (`dna.encode`) reads those
+    bytes as '$', so such reads must not reach it."""
+    if text.translate(None, b"ACGT"):
+        raise ValueError(NON_ACGT)
+
+
 def pack_reads_2bit(seqs: Sequence[str], n: int, maxlen: int):
     """2-bit left-aligned packing of a chunk of reads by the C++ runtime.
 
@@ -589,14 +598,15 @@ def pack_reads_2bit(seqs: Sequence[str], n: int, maxlen: int):
     1.  Raises on a symbol outside ACGT."""
     lib = native_lib()
     joined = "".join(seqs).encode()
+    require_acgt(joined)
     buf = np.frombuffer(joined, dtype=np.uint8)
     offsets = np.zeros(len(seqs) + 1, dtype=np.int64)
     np.cumsum(
         np.fromiter((len(s) for s in seqs), dtype=np.int64, count=len(seqs)),
         out=offsets[1:],
     )
-    if offsets[-1] != buf.size or (len(seqs) and int(np.diff(offsets).max()) > maxlen):
-        raise ValueError("reads must be ASCII and at most maxlen long")
+    if len(seqs) and int(np.diff(offsets).max()) > maxlen:
+        raise ValueError(f"reads must be at most {maxlen} long")
     la_w = np.empty((n, maxlen // 16), dtype=np.int32)
     lens = np.empty(n, dtype=np.int32)
     rc = lib.siga_pack_reads_2bit(
@@ -609,9 +619,7 @@ def pack_reads_2bit(seqs: Sequence[str], n: int, maxlen: int):
         lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
     if rc != 0:
-        raise ValueError(
-            "read contains non-ACGT symbols; run `siga preprocess` first"
-        )
+        raise ValueError(NON_ACGT)
     return la_w, lens
 
 

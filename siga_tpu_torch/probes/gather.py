@@ -110,24 +110,71 @@ def take_along_plain(table: torch.Tensor, index: torch.Tensor, axis: int) -> tor
     return torch.gather(table, axis, index.to(torch.int64).expand(shape))
 
 
+# G2's forms (csrc/gather_probe.cu numbers them alike)
+AXIS0, SHARED, DIRECT = range(3)
+FORMS = ("axis 0", "shared", "direct")
+TAKE_THREADS = 256
+SHARED_THREADS = 1024  # a block of the shared form
+SMEM_MAX = 227 * 1024  # shared memory a block can use on Hopper
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def take_along_plan(A: int, B: int, Q: int, axis: int, sms: int):
+    """G2's form and block shape for take_along on a table [A, B] with Q
+    outputs a row (axis 1) or Q output rows (axis 0), on a card of `sms`
+    SMs: (form, tile), tile the threads a block (DIRECT, AXIS0) or the
+    output columns a block (SHARED).  On axis 1 the kernel takes a block for
+    each (table row, tile of columns).
+
+    SHARED copies a table row to shared memory (B / 8 sectors read in order)
+    and serves a tile of at least B / 4 outputs from it, where one random
+    read an output would fetch a sector each.  It is chosen when the row
+    fits, the row has at least B / 4 outputs, and the tiles give at least a
+    block for every two SMs: fewer 1024-thread blocks leave the card idle.
+    DIRECT reads in place, one output a thread.  The two forced in turn,
+    shared against direct, in two runs of chip_smoke.py on an H100 80GB HBM3
+    at 700 W (PERF.md): k2 (128 shared blocks) 0.0049-0.0050 against
+    0.0063-0.0065 ms, k_lane (96) 0.0036-0.0038 against 0.0038-0.0039, k_c
+    (32) 0.0036-0.0037 against 0.0030, k_a (8) 0.0029-0.0030 against
+    0.0023-0.0024."""
+    if axis == 0:
+        return AXIS0, TAKE_THREADS
+    tile = _cdiv(max(B // 4, 1), SHARED_THREADS) * SHARED_THREADS
+    if B * 4 <= SMEM_MAX and 4 * Q >= B and 2 * A * _cdiv(Q, tile) >= sms:
+        return SHARED, tile
+    return DIRECT, min(TAKE_THREADS, _cdiv(Q, 32) * 32)
+
+
+def take_along_geometry(table: torch.Tensor, index: torch.Tensor, axis: int):
+    """(A, B, Q, si0, si1) of take_along(table [A, B], index, axis): Q outputs
+    a row (axis 1) or output rows (axis 0), and the index's strides, 0 along
+    a broadcast dimension."""
+    A, B = table.shape
+    Q = _take_shape(table, index, axis)[axis]
+    si0 = index.shape[1] if index.shape[0] > 1 else 0
+    si1 = 1 if index.shape[1] > 1 else 0
+    return A, B, Q, si0, si1
+
+
 def take_along(table: torch.Tensor, index: torch.Tensor, axis: int) -> torch.Tensor:
     """G2: `take_along_plain` as the CUDA kernel on CUDA tensors; an index
     outside the table's extent along `axis` raises."""
     dev = table.device
     shape = _take_shape(table, index, axis)
+    _check("table", table, dev, 2)
+    _check("index", index, dev, 2)
     if dev.type == "cpu":
         _check_range("take_along index", index, table.shape[axis])
         return take_along_plain(table, index, axis)
-    _check("table", table, dev, 2)
-    _check("index", index, dev, 2)
-    A, B = table.shape
-    # stride 0 along a broadcast dimension
-    si0 = index.shape[1] if index.shape[0] > 1 else 0
-    si1 = 1 if index.shape[1] > 1 else 0
-    Q = shape[1] if axis == 1 else shape[0]
+    A, B, Q, si0, si1 = take_along_geometry(table, index, axis)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    form, tile = take_along_plan(A, B, Q, axis, sms)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     _launch("take_along", kernels.lib().siga_take_along(
-        table.data_ptr(), index.data_ptr(), A, B, Q, si0, si1, axis,
+        table.data_ptr(), index.data_ptr(), A, B, Q, si0, si1, axis, form, tile,
         out.data_ptr(), kernels.stream_ptr(dev),
     ))
     return out
@@ -204,16 +251,40 @@ def scale2_plain(x: torch.Tensor) -> torch.Tensor:
     return _wrap32(x.to(torch.int64) * 2).to(torch.int32)
 
 
+def scale2_plan(x_addr: int, buf_addr: int, n: int):
+    """G4's layout of n int32 elements at byte address x_addr: (shift, head,
+    nvec).  The output is buf[shift : shift + n] of a buffer of n + 3
+    elements at buf_addr, so that it starts at x's offset within 16 bytes (a
+    view such as x[1:] lies 4 bytes past a boundary).  Elements [head, head +
+    4 nvec) of both are then 16-byte vectors, head reaching the first
+    boundary; [0, head) and [head + 4 nvec, n) go one at a time."""
+    if x_addr % 4 or buf_addr % 4:
+        raise ValueError("scale2: int32 addresses must be 4-byte aligned")
+    shift = (x_addr - buf_addr) % 16 // 4
+    head = min(n, -x_addr % 16 // 4)
+    return shift, head, (n - head) // 4
+
+
+def scale2_out(x: torch.Tensor):
+    """A new output for G4 on x, contiguous and of x's shape, at x's offset
+    within 16 bytes, and G4's split: (out, head, nvec)."""
+    n = x.numel()
+    buf = torch.empty(n + 3, dtype=torch.int32, device=x.device)
+    shift, head, nvec = scale2_plan(x.data_ptr(), buf.data_ptr(), n)
+    return buf[shift: shift + n].view(x.shape), head, nvec
+
+
 def scale2(x: torch.Tensor) -> torch.Tensor:
-    """G4: `scale2_plain` as the CUDA kernel on CUDA tensors."""
+    """G4: `scale2_plain` as the CUDA kernel on CUDA tensors (into
+    `scale2_out(x)`)."""
+    if x.dtype != torch.int32 or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError(f"scale2: want a contiguous non-empty int32 tensor on {x.device}")
     dev = x.device
     if dev.type == "cpu":
         return scale2_plain(x)
-    if x.dtype != torch.int32 or not x.is_contiguous() or x.numel() == 0:
-        raise ValueError(f"scale2: want a contiguous non-empty int32 tensor on {dev}")
-    out = torch.empty_like(x)
+    out, head, nvec = scale2_out(x)
     _launch("scale2", kernels.lib().siga_scale2(
-        x.data_ptr(), x.numel(), out.data_ptr(), kernels.stream_ptr(dev)
+        x.data_ptr(), x.numel(), head, nvec, out.data_ptr(), kernels.stream_ptr(dev),
     ))
     return out
 
@@ -258,6 +329,44 @@ def probe_cases(rng: np.random.Generator, scale: int = 1):
         ("k4", "benchmark/probes/pallas_gather.py:148", "gather_rows", (tiled, idx)),
         ("k5", "benchmark/probes/pallas_gather.py:172", "gather_rows",
          (plane, idx[: 2048 // scale])),
+    ]
+
+
+def edge_cases(rng: np.random.Generator, device):
+    """G2 and G4 at the shapes where a tiling or an alignment split can go
+    wrong: [(label, wrapper name, args as tensors on `device`)].  G4: n of 1,
+    3, 4, 5, 1,023 and 4 * 2**20 + 3, and the view x[1:], 4 bytes off the
+    16-byte boundary.  G2: one table row, one output, output counts that
+    fill no tile, rows wider than shared memory, the shared-memory form,
+    both axes, and an index broadcast along each of its dimensions."""
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32))
+
+    def full(shape):
+        return ints(-2**31, 2**31, shape)
+
+    cases = [(f"scale2 n={n}", "scale2", (full(n),)) for n in (1, 3, 4, 5, 1023, 4 * 2**20 + 3)]
+    cases.append(("scale2 x[1:] of 4,097", "scale2", (full(4097).to(device)[1:],)))
+    wide = 60_001  # int32 words a row: more than shared memory holds (58,112)
+    take = [
+        ("A=1, axis 1", full((1, 300)), ints(0, 300, (1, 777)), 1),
+        ("A=1, axis 0", full((1, 50)), ints(0, 1, (7, 50)), 0),
+        ("Q=1, axis 1 (index [A, 1])", full((5, 40)), ints(0, 40, (5, 1)), 1),
+        ("Q=1, axis 0 (index [1, B])", full((6, 33)), ints(0, 6, (1, 33)), 0),
+        ("index [1, 1], axis 1", full((4, 9)), ints(0, 9, (1, 1)), 1),
+        ("broadcast index [1, Q] off the tiles", full((37, 500)), ints(0, 500, (1, 8193)), 1),
+        ("full index off the tiles", full((9, 777)), ints(0, 777, (9, 1025)), 1),
+        ("axis 0, index [Q, 1] broadcast", full((8, 40)), ints(0, 8, (30, 1)), 0),
+        ("axis 0 off the tiles", full((13, 301)), ints(0, 13, (17, 301)), 0),
+        ("row wider than shared memory, full index", full((3, wide)), ints(0, wide, (3, 1000)), 1),
+        ("row wider than shared memory, broadcast", full((2, wide)), ints(0, wide, (1, 5000)), 1),
+        ("shared-memory form", full((140, 512)), ints(0, 512, (140, 520)), 1),
+    ]
+    cases += [(f"take_along {label}", "take_along", (t, i, axis)) for label, t, i, axis in take]
+    return [
+        (label, name, tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args))
+        for label, name, args in cases
     ]
 
 

@@ -1,9 +1,9 @@
-"""Time K1 and K7 of two checkouts of the repo against each other on one
-card, at the error pipeline's own shapes.
+"""Time K1 and K7, or the gather probes G2 and G4, of two checkouts of the
+repo against each other on one card, at the error pipeline's own shapes.
 
     python3 chip_smoke.py --keep-pipeline DIR
     python3 -m siga_tpu_torch.probes.kernel_ab --trees OTHER,. --pipeline DIR \
-        [--order 0,1,1,0] [--out FILE]
+        [--probes] [--order 0,1,1,0] [--out FILE]
 
 DIR holds the `benchmark/ecoli_scale.py 1.0 25 0.005` pipeline as
 `chip_smoke.py --keep-pipeline` leaves it.  This process takes the cases'
@@ -17,6 +17,11 @@ into DIR/kernel_ab/ as plain text, one sequence a line:
     41-mers drawn from reads.pp.fastq, half of them with one base
     substituted, and the wall of one `KmerCounter` call of 110 and of 3
     k-mers (the `correct` route's sizes).
+With --probes the cases are instead G2 (`gather.take_along`) and G4
+(`gather.scale2`) at every Pallas probe shape of `gather.probe_cases` and
+on the stacked pair plane of DIR/reads.ec (the `overlap` stage's index,
+with `gather.plane_args`' 60,608 random rows), each timed beside its
+library call (`torch.gather`, `x * 2`) in the same worker.
 Each entry of --order runs a fresh worker process on the checkout it names
 (this file is run as a script with that checkout first on sys.path, so an
 older checkout needs no copy of it).  The worker builds that checkout's
@@ -39,6 +44,9 @@ import time
 import numpy as np
 
 KMER_SEED = 3
+PROBE_SEED = 1
+PROBE_LANES = 60608  # one overlap chunk's lanes
+PROBE_KERNELS = ("take_along", "scale2")
 K, KMERS, ROUTE_SIZES = 41, 262_144, (110, 3)
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
 K1_CASES = {"K1 reads.ec.fa chunk": ("reads.ec", 85), "K1 contigs": ("primary-contigs.rmdup", 10)}
@@ -89,22 +97,69 @@ def _digest(outputs) -> str:
     return h.hexdigest()[:16]
 
 
+def library_call(name, args):
+    """One PyTorch call that computes the same as the gather probe `name` on
+    `args`, or None; a yardstick only (no path of the port calls it)."""
+    import torch
+
+    if name == "scale2":
+        return lambda: args[0] * 2
+    if name == "gather_rows":
+        return lambda: torch.index_select(args[0], 0, args[1])
+    if name == "take_along":
+        table, index, axis = args
+        shape = list(index.shape)
+        shape[1 - axis] = table.shape[1 - axis]
+        index64 = index.to(torch.int64).expand(shape)
+        return lambda: torch.gather(table, axis, index64)
+    return None
+
+
+def _start(tree: str):
+    """Build the checkout's kernels; the worker's result record."""
+    from siga_tpu_torch import kernels
+
+    pkg = os.path.dirname(os.path.abspath(kernels.__file__))
+    assert os.path.samefile(os.path.dirname(pkg), tree), (pkg, tree)
+    t0 = time.time()
+    report = kernels.build()
+    kernels.lib()
+    return {"tree": tree, "build_s": time.time() - t0, "times": {}, "digests": {},
+            "ptxas": [l.strip() for l in report.splitlines() if "registers" in l or "spill" in l]}
+
+
+def probe_worker(tree: str, pipeline: str) -> dict:
+    """Times of G2 and G4 through the wrappers of the checkout at `tree`,
+    and of their library calls."""
+    import torch
+
+    from siga_tpu_torch.probes import gather
+
+    dev = torch.device("cuda")
+    out = _start(tree)
+    rng = np.random.default_rng(PROBE_SEED)
+    cases = [(f"{name} as {tpu}", name, gather.to_device(args, dev))
+             for tpu, _where, name, args in gather.probe_cases(rng) if name in PROBE_KERNELS]
+    plane = gather.stacked_plane(os.path.join(pipeline, "reads.ec"), dev)
+    plane_args = gather.plane_args(plane, PROBE_LANES, 1, PROBE_SEED)
+    cases += [(f"{name} on the pair plane", name, plane_args[name]) for name in PROBE_KERNELS]
+    for label, name, args in cases:
+        fn = gather.WRAPPERS[name][0]
+        out["digests"][label] = _digest([fn(*args)])
+        out["times"][label] = gather.cuda_ms(lambda: fn(*args), 20)
+        out["times"][label + ", library call"] = gather.cuda_ms(library_call(name, args), 20)
+    return out
+
+
 def worker(tree: str, pipeline: str) -> dict:
     """Times of K1 and K7 through the wrappers of the checkout at `tree`."""
     import torch
 
-    from siga_tpu_torch import kernels
     from siga_tpu_torch.ops import fm_device, kmer_count, search
     from siga_tpu_torch.probes.gather import cuda_ms
 
-    pkg = os.path.dirname(os.path.abspath(kernels.__file__))
-    assert os.path.samefile(os.path.dirname(pkg), tree), (pkg, tree)
     dev = torch.device("cuda")
-    t0 = time.time()
-    report = kernels.build()
-    kernels.lib()
-    out = {"tree": tree, "build_s": time.time() - t0, "times": {}, "digests": {},
-           "ptxas": [l.strip() for l in report.splitlines() if "registers" in l or "spill" in l]}
+    out = _start(tree)
     inputs = os.path.join(pipeline, "kernel_ab")
     FMIndex = fm_device.FMIndex  # the checkout's own FM-index class
 
@@ -150,21 +205,25 @@ def main(argv=None) -> int:
     parser.add_argument("--order", default="0,1,1,0", help="indices into --trees, one worker each")
     parser.add_argument("--pipeline", required=True,
                         help="a pipeline directory left by chip_smoke.py --keep-pipeline")
+    parser.add_argument("--probes", action="store_true",
+                        help="time the gather probes G2 and G4 instead of K1 and K7")
     parser.add_argument("--out", help="also write the JSON line here")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     pipeline = os.path.abspath(args.pipeline)
     if args.worker:
-        print("KERNEL_AB " + json.dumps(worker(args.worker, pipeline)), flush=True)
+        run = (probe_worker if args.probes else worker)(args.worker, pipeline)
+        print("KERNEL_AB " + json.dumps(run), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
-    make_inputs(pipeline)
+    if not args.probes:
+        make_inputs(pipeline)
     runs = []
     for k in (int(i) for i in args.order.split(",")):
         env = {**os.environ, "PYTHONPATH": trees[k]}
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", trees[k],
-             "--trees", args.trees, "--pipeline", pipeline],
+             "--trees", args.trees, "--pipeline", pipeline, *(["--probes"] if args.probes else [])],
             cwd=trees[k], env=env, capture_output=True, text=True, timeout=1800,
         )
         if proc.returncode != 0:

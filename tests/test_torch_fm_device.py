@@ -5,6 +5,10 @@ Same inputs through `siga_tpu.ops.fm_device` (XLA on the CPU) and
 checked against on the GPU).  Every compared value is an integer: equality
 is exact.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +20,8 @@ from siga_tpu_torch.ops import fm_device as tfm
 from siga_tpu_torch.ops import sw as tsw
 
 from test_pair_scan import _reads
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _indexes(reads):
@@ -127,3 +133,32 @@ def test_pack_reads_rejects_bad_input():
         tfm.pack_reads_2bit(["ACNT"], 1, 16)
     with pytest.raises(ValueError):
         tfm.pack_reads_2bit(["A" * 17], 1, 16)
+
+
+@pytest.mark.parametrize("read", ["acgtacgt", "ACGTaCGT", "ACGTACGt", "ACGgACGT", "ACGTACcT"])
+def test_pack_reads_refuses_lowercase(read):
+    """The native packer takes lowercase acgt as bases while the index reads
+    those bytes as '$': the wrapper refuses them before the native call."""
+    with pytest.raises(ValueError, match="non-ACGT symbols; run `siga preprocess` first"):
+        tfm.pack_reads_2bit(["ACGTACGT", read], 2, 16)
+
+
+def test_overlap_refuses_lowercase_reads(tmp_path):
+    """`overlap` of reads that skipped `preprocess` (lowercase bases) exits
+    non-zero with the packer's message, instead of writing wrong overlaps."""
+    rng = np.random.default_rng(12)
+    genome = "".join("ACGT"[c] for c in rng.integers(0, 4, 400))
+    reads = [genome[s : s + 80] for s in range(0, 300, 20)]
+    reads[3] = reads[3][:40] + reads[3][40:].lower()
+    (tmp_path / "reads.fa").write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
+    env = {**os.environ, "PYTHONPATH": REPO}
+
+    def port(*args):
+        return subprocess.run([sys.executable, "-m", "siga_tpu_torch", *args], cwd=tmp_path,
+                              capture_output=True, text=True, timeout=300, env=env)
+
+    proc = port("index", "--device", "cpu", "-p", "reads", "reads.fa")
+    assert proc.returncode == 0, proc.stderr
+    proc = port("overlap", "--device", "cpu", "-m", "30", "-p", "reads", "reads.fa")
+    assert proc.returncode != 0
+    assert "read contains non-ACGT symbols; run `siga preprocess` first" in proc.stderr

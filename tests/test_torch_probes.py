@@ -135,3 +135,146 @@ def test_wrapper_rejects_an_index_out_of_range(wrapper, bad):
     }[wrapper]
     with pytest.raises(ValueError, match="want \\[0, 40\\)"):
         gather.WRAPPERS[wrapper][0](*args)
+
+
+EDGES = {c[0]: c for c in gather.edge_cases(np.random.default_rng(1), "cpu")}
+
+
+def _jax_edge(name, args):
+    if name == "scale2":
+        return np.asarray(jnp.asarray(args[0].numpy()) * 2)
+    table, index, axis = (a.numpy() if isinstance(a, torch.Tensor) else a for a in args)
+    shape = gather._take_shape(args[0], args[1], axis)
+    return np.asarray(jnp.take_along_axis(jnp.asarray(table),
+                                          jnp.broadcast_to(jnp.asarray(index), shape), axis=axis))
+
+
+@pytest.mark.parametrize("label", sorted(EDGES))
+def test_edge_case_matches_jax(label):
+    """G2 and G4 at the edge shapes that chip_smoke.py holds the kernels to
+    on the card: the wrapper (plain version on the CPU) equals jax.numpy."""
+    _label, name, args = EDGES[label]
+    got = gather.WRAPPERS[name][0](*args)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _jax_edge(name, args))
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_scale2_out_shares_the_offset_of_x(k):
+    """G4's output for the view x[k:] is contiguous, of its shape, and at its
+    offset within 16 bytes, so that both take the vector body together."""
+    x = torch.arange(4 * 64 + 5, dtype=torch.int32)[k:]
+    out, head, nvec = gather.scale2_out(x)
+    assert out.is_contiguous() and out.shape == x.shape and out.dtype == torch.int32
+    assert (out.data_ptr() - x.data_ptr()) % 16 == 0
+    assert (head, nvec) == gather.scale2_plan(x.data_ptr(), x.data_ptr(), x.numel())[1:]
+
+
+@pytest.mark.parametrize("bad", [
+    torch.zeros(0, dtype=torch.int32),
+    torch.zeros(8, dtype=torch.int64),
+    torch.zeros((4, 4), dtype=torch.int32).T,
+])
+def test_scale2_refuses_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError, match="scale2"):
+        gather.scale2(bad)
+
+
+@pytest.mark.parametrize("x_off", [0, 4, 8, 12])
+@pytest.mark.parametrize("buf_off", [0, 4, 12])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 7, 1023, 4 * 2**20 + 3])
+def test_scale2_plan_splits_on_16_byte_boundaries(x_off, buf_off, n):
+    """The output, cut from a buffer 3 elements longer, starts at x's offset
+    within 16 bytes; the vector body starts on a 16-byte boundary of both
+    and covers all but fewer than 4 elements past the head."""
+    x_addr, buf_addr = 4096 + x_off, 8192 + buf_off
+    shift, head, nvec = gather.scale2_plan(x_addr, buf_addr, n)
+    out_addr = buf_addr + 4 * shift
+    assert 0 <= shift <= 3 and (out_addr - x_addr) % 16 == 0
+    assert head == min(n, (16 - x_off) % 16 // 4)
+    assert 0 <= n - head - 4 * nvec < 4
+    if nvec:
+        assert (x_addr + 4 * head) % 16 == 0 and (out_addr + 4 * head) % 16 == 0
+
+
+@pytest.mark.parametrize("n", [8 * 128, 393_230 * 57, 4 * 2**20 + 3])
+def test_scale2_plan_on_aligned_tensors(n):
+    """Aligned x and buffer (as torch.empty gives them): no shift, no head,
+    every whole vector in the body ([8, 128] and the pair plane: all)."""
+    assert gather.scale2_plan(0, 512, n) == (0, 0, n // 4)
+
+
+def test_scale2_plan_refuses_a_misaligned_word():
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        gather.scale2_plan(4098, 512, 10)
+
+
+def _take_plan(table, index, axis, sms=132):
+    """G2's plan, the grid csrc/gather_probe.cu launches for it (its blocks
+    and threads a block), and the outputs."""
+    A, B, Q, _si0, _si1 = gather.take_along_geometry(table, index, axis)
+    form, tile = gather.take_along_plan(A, B, Q, axis, sms)
+    if form == gather.AXIS0:
+        blocks, threads = min(132 * 16, -(-Q * B // tile)), tile
+    else:
+        blocks = A * -(-Q // tile)
+        threads = gather.SHARED_THREADS if form == gather.SHARED else tile
+    return form, tile, blocks, threads, Q * (A if axis == 1 else B)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in gather.probe_cases(np.random.default_rng(0))
+                                  if c[2] == "take_along"] + ["pair plane"])
+def test_take_along_plan_fills_the_card(case):
+    """At every Pallas probe shape (uncut) and on the transposed pair plane,
+    G2's grid holds a thread for each of 256 threads on each of the 132 SMs
+    wherever the outputs allow; the row copy to shared memory is chosen at
+    k_lane and k2 (at least a block for every two SMs), not at k_c (32
+    blocks) nor for the plane (its rows do not fit)."""
+    if case == "pair plane":
+        args = (torch.empty((57, 393_230), dtype=torch.int32),
+                torch.empty((1, 60_608), dtype=torch.int32), 1)
+    else:
+        cases = {c[0]: c for c in gather.probe_cases(np.random.default_rng(0))}
+        args = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                     for a in cases[case][3])
+    form, _tile, blocks, threads, outputs = _take_plan(*args)
+    assert blocks * threads >= min(132 * 256, outputs)
+    expected = {"k_lane": gather.SHARED, "k2": gather.SHARED, "pair plane": gather.DIRECT,
+                "k_a": gather.DIRECT, "k_b": gather.AXIS0, "k_c": gather.DIRECT}
+    assert form == expected[case]
+
+
+FORM_OF_EDGE = {
+    "take_along shared-memory form": gather.SHARED,
+    "take_along broadcast index [1, Q] off the tiles": gather.SHARED,
+    "take_along row wider than shared memory, full index": gather.DIRECT,
+    "take_along row wider than shared memory, broadcast": gather.DIRECT,
+    "take_along full index off the tiles": gather.DIRECT,
+}
+
+
+@pytest.mark.parametrize("label", sorted(l for l in EDGES if l.startswith("take_along")))
+def test_take_along_plan_covers_every_output(label):
+    """Each form's grid reaches every output: shared and direct blocks cover
+    every tile of every row (a shared tile is a multiple of its 1,024
+    threads and at least a quarter of the row; a direct block at most 256
+    threads), axis 0 has a block of 256 threads."""
+    table, index, axis = EDGES[label][2]
+    A, B = table.shape
+    form, tile, blocks, threads, outputs = _take_plan(table, index, axis)
+    Q = outputs // (A if axis == 1 else B)
+    if form == gather.SHARED:
+        assert tile % gather.SHARED_THREADS == 0 and 4 * tile >= B and 4 * B <= gather.SMEM_MAX
+    if form in (gather.SHARED, gather.DIRECT):
+        assert axis == 1 and blocks * tile >= A * Q and blocks % A == 0
+        assert form == gather.SHARED or tile <= gather.TAKE_THREADS
+    else:
+        assert form == gather.AXIS0 and axis == 0 and blocks >= 1
+        assert threads == gather.TAKE_THREADS
+    assert FORM_OF_EDGE.get(label, form) == form
+
+
+def test_take_along_refuses_a_non_contiguous_index():
+    table = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    with pytest.raises(ValueError, match="want a contiguous tensor"):
+        gather.take_along(table, torch.zeros((4, 3), dtype=torch.int32).T, 1)
