@@ -12,29 +12,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. the main path, with the kernels' launch counts reset just before it:
      `index` (the device suffix sort, -a sais2 on cuda, the default; its
      peak device memory against the sort's estimate) -> `overlap -m 45`
-     through siga_tpu_torch.cli, then the found edges scored with
-     Smith-Waterman through BatchAligner (an exact overlap of length k must
-     score 2k); every read must have its VT record;
+     through siga_tpu_torch.cli (the plane build K2 must launch once a
+     direction), then the found edges scored with Smith-Waterman through
+     BatchAligner (an exact overlap of length k must score 2k); every read
+     must have its VT record;
   5. the overlap engine alone, warm (its wall and the process's user and
-     system CPU time), and the device pair plane against the C++ host
-     packing; the cost of `pack_reads_2bit`'s ACGT guard on one chunk;
+     system CPU time), and the stacked pair plane and K of both directions
+     (built by K2) against the C++ host packing; the cost of
+     `pack_reads_2bit`'s ACGT guard on one chunk;
   6. each kernel against its plain PyTorch version on the card, bit for bit:
      the K1 scan on the first full 15,152-read chunk (odd lim_t; timed,
      with its bound; and split over several launches by a small slab
      budget), on a
      chunk of 149 bp reads (even lim_t) and on the rmdup lane groups; K5 at
      B=4096, query 150, ref 400, and 16 of those pairs against a naive DP;
+     K2's plane and K on both directions of the main path's index and of
+     every read set of `plane_edge_reads` (the CPU tests' texts, indexed
+     on the card);
   7. the hits of 256 sampled reads, from the command's hits file and from
      the engine, against the shared host engine (OverlapBuilder.overlap);
   8. `index -a host` (the C++ seed-sort) on the same reads: all four files
      byte-equal to the device build's; then the device index's layers
      timed alone for one direction (text build, sort, sort + BWT + perm)
-     beside K6's bound;
-  9. `rmdup` on the card, counts reset just before it: K1 must launch, the
+     beside K6's bound, and a torch.profiler trace of the sort: its device
+     time, operations, torch.sort's share and its five costliest operations;
+  9. `rmdup` on the card, counts reset just before it: K1 must launch (and
+     K2 once a direction), the
      hits of 256 sampled reads equal the host engine's
      (OverlapBuilder.duplicate), and kept + duplicates = reads;
  10. the gather probes' CLI on the stacked pair plane, counts reset just
-     before it (G1-G4 must launch), then each probe kernel against its plain
+     before it (G1-G4 must launch, K2 once a direction), then each probe
+     kernel against its plain
      version bit for bit at every Pallas probe's own shape and on the pair
      plane (60,608 random rows, one overlap chunk's lanes), each with its
      bound and, for G1, G2 and G4, the one PyTorch call that computes the
@@ -49,13 +57,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
      with a time limit, then `benchmark/contigs_mapping.py`: the corrected
      read count and the contig facts must equal BASELINE.md's; each stage's
-     wall and kernel launches are printed;
+     wall and kernel launches are printed (K1 must launch in every overlap
+     and rmdup stage, and K2 at least twice);
  12. K1 against its plain version, bit for bit, at the pipeline's shapes
      with the `--no-opposite-strand` lane groups: the first chunk of
      `reads.ec.fa` at -m 85, and all contigs in one length-sorted chunk at
      -m 10; each timed beside its bounds;
  13. `correct` of every 8th preprocessed read against the whole read set's
-     index (K7 must launch): its records must equal those reads' records in
+     index (K7 and K2 must launch): its records must equal those reads' records in
      the pipeline's `reads.ec.fa`; the k-mers a launch held on average;
  14. K7 against its plain version on that index's forward plane, bit for
      bit, on 262,144 41-mers (drawn from the reads, one
@@ -63,10 +72,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      `FMIndex.occurrences`, timed with its bound; then at the `correct`
      route's sizes, 3 and 110 41-mers: equal to plain, timed per launch on
      the card and per `KmerCounter` call on the wall clock;
- 15. the plane build (K2) for one direction of the main path's index: its
-     device time from a torch.profiler trace of one build (its kernels'
-     and copies' device spans summed), its wall by CUDA events, and its
-     bound; last of the timings, so that the trace touches no other;
+ 15. the plane build (K2) for one direction of the main path's index, in a
+     process of its own, the kernel against its plain version: each one's
+     device time and operations
+     from a torch.profiler trace of one build (device spans summed), its wall
+     by CUDA events over 5 builds in turn with the other (median, min-max),
+     its peak device memory, and the bound; beside it the codes' copy to the
+     card and DualScanner's stacking copy; last of the timings, so that the
+     traces touch no other;
  16. `overlap` as two `--process-id` workers at once on the card plus
      `--merge-only -t 2` (the port's launcher) against one `-t 2` process:
      the ASQG must be equal;
@@ -118,6 +131,7 @@ INDEX_FILES = ("sai", "bwt", "rsai", "rbwt")
 PROBE_LANES = 60608  # lanes of one overlap chunk (15,152 reads x 4 orientations)
 PROBE_STEPS = 150
 PROBE_ROUNDS = 5  # G2 and G4 timed in turn with their library call, this many rounds
+PLANE_ROUNDS = 5  # K2 and its plain version timed in turn, this many builds each
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
@@ -192,6 +206,55 @@ def scan_bound(lens, lim_t, n_groups, nblocks, wpr, emitted):
     plane = min(row_reads * ROW_NEED_BYTES, 2 * nblocks * ROW_BYTES)
     io = len(lens) * (wpr + 1) * 4 + emitted * 16 + lanes * 24 + 2 * (-(-lanes // 32)) * 4
     return bytes_ms(plane + io), row_reads * ROW_NEED_BYTES
+
+
+def stage_a_bound(nblocks, step_ns, lanes=PROBE_LANES, steps=READ_LEN - 1):
+    """The bound of the JAX package's single-step stage A
+    (`siga_tpu/ops/fm_device.py::_scan_stage_a`, not ported: no command
+    calls it) at one overlap chunk's shape, from its code: bytes (the int32
+    chars [lanes, steps + 1] and lens read, the [steps, lanes, 3] int32
+    emissions and [steps, lanes] validity written, the final [lanes, 8] and
+    lext [lanes, 5] int32 written, each single-step plane row of 64 B read
+    at most once) and the chain of its steps + 2 dependent occ row reads a
+    lane at this run's L2 round trip.  Returns (bytes ms, chain ms)."""
+    n_bytes = (lanes * (steps + 1) * 4 + lanes * 4 + steps * lanes * (12 + 1)
+               + lanes * (8 + 5) * 4 + nblocks * 16 * 4)
+    return bytes_ms(n_bytes), (steps + 2) * step_ns / 1e6
+
+
+def plane_edge_reads(seed: int = 0) -> dict:
+    """Read sets whose BWT texts (n = the reads' lengths + one '$' each) meet
+    the plane build's edges: one block, n = 0, 1 and 127 (mod 128), one
+    read, a homopolymer and a text with no T (C[c] = n for the absent
+    symbols, so K reads the last, partial block), mixed lengths, and texts
+    over several of K2's 128-block tiles, one ending on a tile's edge.
+    {label: reads}, from `seed`; the CPU tests and `chip_smoke.py` build
+    both from them."""
+    rng = np.random.default_rng(seed)
+    genome = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, 60_000)]
+
+    def reads(lengths, alphabet=4):
+        out = []
+        for length in lengths:
+            s = int(rng.integers(0, genome.size - length))
+            read = genome[s : s + length]
+            if alphabet < 4:
+                read = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, alphabet, length)]
+            out.append(read.tobytes().decode())
+        return out
+
+    return {
+        "one block (n 73)": reads([30, 41]),
+        "n 384 (0 mod 128)": reads([100, 120, 161]),
+        "n 385 (1 mod 128)": reads([100, 120, 162]),
+        "n 383 (127 mod 128)": reads([100, 120, 160]),
+        "one read (n 701)": reads([700]),
+        "homopolymer (n 301)": ["A" * 300],
+        "no T (n 455)": reads([90] * 5, alphabet=3),
+        "mixed lengths": reads(rng.integers(20, 300, 40).tolist()),
+        "one tile exactly (n 16,384)": reads([127] * 128),
+        "three tiles (n 45,300)": reads([150] * 300),
+    }
 
 
 def pipeline_stages(r1, r2, device=None):
@@ -350,6 +413,35 @@ def time_index_layers(dev, seqs):
     print(f"index layers, one direction of {codes.size} chars, warm: concat_reads {concat_s:.3f} s, "
           f"suffix_array_device {sort_s:.3f} s, bwt_perm_device (sort + BWT + perm to the host) "
           f"{bwt_perm_s:.3f} s; K6 bound {bytes_ms(k6_bytes):.4f} ms ({k6_bytes} B, bytes)")
+    # where K6's device time goes: the stable torch.sort passes against the
+    # key builds, gathers and rank passes around them
+    dev_ms, n_ops, by_name, prof = trace_device(lambda: sa_mod.suffix_array_device(codes, dev))
+    if not n_ops:
+        print("K6 suffix_array_device: device time not measured (the trace holds no device "
+              "operation)")
+        return
+    sort_ms = sum(device_us(e) for e in prof.events() if e.name == "aten::sort"
+                  and not any(a.name == "aten::sort" for a in ancestors(e))) / 1e3
+    named_ms = sum(ms for name, (ms, _) in by_name.items() if "sort" in name.lower())
+    print(f"K6 suffix_array_device, one direction, device time (torch.profiler) {dev_ms:.4f} ms in "
+          f"{n_ops} device operations; torch.sort's share (its kernels by the trace's op tree) "
+          f"{sort_ms:.4f} ms = {sort_ms / dev_ms:.1%}, kernels named *sort* {named_ms:.4f} ms = "
+          f"{named_ms / dev_ms:.1%}; the key builds, gathers and rank passes the rest")
+    print(f"  K6 costliest device operations: {top_ops(by_name)}")
+
+
+def device_us(event) -> float:
+    """Device microseconds of a CPU-side op in a trace, its children's
+    kernels included."""
+    total = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if total is None else total
+
+
+def ancestors(event):
+    parent = event.cpu_parent
+    while parent is not None:
+        yield parent
+        parent = parent.cpu_parent
 
 
 def run_rmdup(builder, seqs, rng):
@@ -362,6 +454,7 @@ def run_rmdup(builder, seqs, rng):
     launches = dict(kernels.launches)
     n_chunks = -(-len(seqs) // search.chunk_size(len(seqs)))
     assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
+    assert launches["pair_plane"] == 2, launches  # one plane build a direction
     with open("reads.rmdup.fa") as f:
         kept = sum(line.startswith(">") for line in f)
     with open("reads.rmdup.dups.fa") as f:
@@ -396,6 +489,7 @@ def run_probe_path():
     print(f"probe CLI {time.time() - t0:.3f} s; launches {launches}")
     for name in ("gather_rows", "take_along", "gather_chain", "scale2"):
         assert launches[name] >= 1, (name, launches)
+    assert launches["pair_plane"] == 2, launches  # the plane of each direction
     return launches
 
 
@@ -539,59 +633,141 @@ def run_engine(dev, seqs):
     t0 = time.time()
     scanner = search._cached_scanner(builder, dev, *FWD_REV)
     plane_s = time.time() - t0
-    plane, K = fm_device.pair_plane_host(fmi)
-    assert np.array_equal(scanner.plane[: scanner.nblocks].cpu().numpy(), plane)
-    assert np.array_equal(scanner.K2[0].cpu().numpy(), K)
+    for d, host in enumerate((fmi, rfmi)):  # the stacked plane, built by K2
+        plane, K = fm_device.pair_plane_host(host)
+        rows = scanner.plane[d * scanner.nblocks : (d + 1) * scanner.nblocks]
+        assert np.array_equal(rows.cpu().numpy(), plane), f"direction {d}: plane differs"
+        assert np.array_equal(scanner.K2[d].cpu().numpy(), K), f"direction {d}: K differs"
     records = [DNASeq(name=f"r{i}", seq=s) for i, s in enumerate(seqs)]
     ru0 = resource.getrusage(resource.RUSAGE_SELF)
     t0 = time.time()
     hits = list(search.batch_overlap_hits(builder, records, MIN_OVERLAP, dev))
     engine_s = time.time() - t0
     ru1 = resource.getrusage(resource.RUSAGE_SELF)
-    print(f"plane_build_s {plane_s:.3f} (forward plane equals the C++ host packing)")
+    print(f"plane_build_s {plane_s:.3f} (both directions; the stacked plane and K equal the "
+          f"C++ host packing)")
     time_read_guard(seqs)
     print(f"engine_s {engine_s:.3f} engine_reads_per_s {len(seqs) / engine_s:.1f}; process cpu "
           f"user {ru1.ru_utime - ru0.ru_utime:.3f} s, system {ru1.ru_stime - ru0.ru_stime:.3f} s")
     return builder, hits
 
 
-def time_plane_build(dev):
-    """K2 (`_build_pair_plane_dev`) for the forward index of the main path's
-    reads, its BWT codes already on the card, beside its bound: the codes
-    read once, the plane and K written once.  Its device time is the sum of
-    the device spans of its kernels and copies in a torch.profiler trace of
-    one build; the CUDA-event span around a build is its wall, host work and
-    the card's idle gaps at the bincounts' synchronisations included."""
-    fmi = FMIndex.load("reads.bwt")
-    codes = torch.from_numpy(np.ascontiguousarray(fmi.codes)).to(dev)
-    pred = np.asarray(fmi.pred, dtype=np.int64)
-    nblocks = fmi.length // fm_device.SAMPLE + 1
-
-    def build():
-        return fm_device._build_pair_plane_dev(codes, pred, nblocks)
-
-    build()
-    times = []
-    for _ in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        build()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+def trace_device(fn):
+    """fn() under torch.profiler: (device ms, device operations, {name: (ms,
+    count)}, the profile).  The device time is the sum of the device spans
+    of the kernels and copies fn ran."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        build()
+        fn()
         torch.cuda.synchronize()
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = (f"{sum(e.time_range.elapsed_us() for e in on_card) / 1e3:.4f} ms in "
-              f"{len(on_card)} device operations" if on_card
-              else "not measured (the trace holds no device operation)")
+    by_name = {}
+    for e in on_card:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return sum(ms for ms, _ in by_name.values()), len(on_card), by_name, prof
+
+
+def top_ops(by_name, k=5) -> str:
+    top = sorted(by_name.items(), key=lambda item: -item[1][0])[:k]
+    return "; ".join(f"{name[:90]} {ms:.4f} ms x{count}" for name, (ms, count) in top)
+
+
+def peak_bytes(fn) -> int:
+    """Device memory fn() takes at its peak beyond what was allocated before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def check_plane_kernel(dev):
+    """K2 against its plain version, bit for bit, plane and K: both directions
+    of the main path's index, and both directions of every read set of
+    `plane_edge_reads` (the CPU tests' texts), indexed on the card.  Returns
+    the largest error."""
+    cases = [(f"main path {ext}", FMIndex.load(f"reads.{ext}")) for ext in ("bwt", "rbwt")]
+    for label, reads in plane_edge_reads().items():
+        for direction, texts in (("forward", reads), ("reverse", [r[::-1] for r in reads])):
+            bwt, _perm, ns = sa_mod.build_index_arrays(texts, "sais2", dev)
+            cases.append((f"{label} {direction}", FMIndex(bwt, ns)))
+    err_all = 0
+    for label, fmi in cases:
+        codes = torch.from_numpy(np.ascontiguousarray(fmi.codes)).to(dev)
+        args = (codes, np.asarray(fmi.pred, dtype=np.int64), fmi.length // fm_device.SAMPLE + 1)
+        err = max_abs_err(fm_device.build_pair_plane(*args), fm_device.build_pair_plane_plain(*args))
+        err_all = max(err_all, err)
+        print(f"K2 {label}: {fmi.length} codes, {args[2]} rows, max_abs_err {err}")
+    assert err_all == 0
+    return err_all
+
+
+def time_plane_build(dev):
+    """K2 (`build_pair_plane`) for the forward index of the main path's reads,
+    its BWT codes already on the card, against its plain version: each one's
+    device time and operations from a torch.profiler trace of one build, its
+    wall by CUDA events over PLANE_ROUNDS builds in turn with the other, and
+    its peak device memory; the bound (the codes read once, the plane and K
+    written once).  Beside it, the rest of what `plane_build_s` holds: the
+    codes' copy to the card and DualScanner's stacking of the two planes.
+    Returns the kernel's row of the JSON line (walls are medians)."""
+    fmi = FMIndex.load("reads.bwt")
+    host_codes = np.ascontiguousarray(fmi.codes)
+    torch.from_numpy(host_codes).to(dev)  # the process's first copy sets up the context
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PLANE_ROUNDS):
+        codes = torch.from_numpy(host_codes).to(dev)
+        torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) / PLANE_ROUNDS * 1e3
+    pred = np.asarray(fmi.pred, dtype=np.int64)
+    nblocks = fmi.length // fm_device.SAMPLE + 1
+    versions = {
+        "kernel": lambda: fm_device.build_pair_plane(codes, pred, nblocks),
+        "plain": lambda: fm_device.build_pair_plane_plain(codes, pred, nblocks),
+    }
     k2_bytes = codes.numel() * codes.element_size() + nblocks * ROW_BYTES + 25 * 4
-    print(f"K2 plane build, one direction ({codes.numel()} codes, {nblocks} rows): device time "
-          f"(torch.profiler) {device}; wall (CUDA events) {', '.join(f'{t:.3f}' for t in times)} "
-          f"ms; bound {bytes_ms(k2_bytes):.4f} ms ({k2_bytes} B, bytes)")
+    bound = bytes_ms(k2_bytes)
+    traces = {name: trace_device(fn) for name, fn in versions.items()}
+    walls = dict(zip(versions, alternate(list(versions.values()), 1, PLANE_ROUNDS)))
+    for name, fn in versions.items():
+        dev_ms, n_ops, by_name, _prof = traces[name]
+        peak = peak_bytes(fn)
+        device = (f"{dev_ms:.4f} ms in {n_ops} device operations" if n_ops
+                  else "not measured (the trace holds no device operation)")
+        print(f"K2 {name}, one direction ({codes.numel()} codes, {nblocks} rows): device time "
+              f"(torch.profiler) {device}; wall (CUDA events, "
+              f"{PLANE_ROUNDS} builds in turn) {spread(walls[name])}, "
+              f"{bound / np.median(walls[name]):.1%} of the bound; peak device memory {peak} B")
+        print(f"  K2 {name} device operations: {top_ops(by_name, 6)}")
+    stack = [versions["kernel"]()[0] for _ in range(2)]
+    cat_ms = cuda_ms(lambda: torch.cat(stack).contiguous(), PLANE_ROUNDS)
+    print(f"K2 bound {bound:.4f} ms ({k2_bytes} B, bytes); around it in plane_build_s: codes to "
+          f"the card (host clock, pageable) {h2d_ms:.3f} ms a direction, DualScanner's stacking "
+          f"copy of both planes ({2 * nblocks * ROW_BYTES} B) {cat_ms:.4f} ms (bound "
+          f"{bytes_ms(4 * nblocks * ROW_BYTES):.4f} ms)")
+    return kernel_row(0, float(np.median(walls["kernel"])), float(np.median(walls["plain"])),
+                      bound, "bytes", None)
+
+
+def time_plane_build_child():
+    """`time_plane_build` in a fresh process in the current directory: a
+    torch.profiler trace late in this process held none of K2's five
+    kernels (the plain version's were there), while in a process of its own
+    the trace holds them.  Relays its lines and returns its row."""
+    code = ("import json, torch, chip_smoke\n"
+            "print(json.dumps(chip_smoke.time_plane_build(torch.device('cuda'))))\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=CHILD_ENV, capture_output=True,
+                          text=True, timeout=STAGE_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the plane-build timing exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    *lines, row = proc.stdout.strip().splitlines()
+    print("\n".join(lines), flush=True)
+    return json.loads(row)
 
 
 def time_read_guard(seqs):
@@ -830,6 +1006,7 @@ def run_pipeline(workdir):
         print(f"stage {name}: {walls[name]:.3f} s, launches {ran}   ({' '.join(argv)})", flush=True)
         if name.startswith(("overlap", "rmdup")):
             assert ran.get("scan_pair", 0) >= 1, (name, ran)
+            assert ran.get("pair_plane", 0) >= 2, (name, ran)
         for k, v in ran.items():
             launches[k] += v
     print(f"pipeline wall {sum(walls.values()):.3f} s over {len(walls)} stages")
@@ -866,7 +1043,7 @@ def check_correct_subset(workdir):
          "reads.sub.fastq"], workdir)
     print(f"correct of {len(sub)} reads against the {len(reads)}-read index (K7 on cuda): "
           f"{wall:.3f} s, launches {ran}")
-    assert ran.get("kmer_count", 0) >= 1, ran
+    assert ran.get("kmer_count", 0) >= 1 and ran.get("pair_plane", 0) >= 1, ran
     n_kmers = int(own.split(" k-mers in ")[0].rsplit(" ", 1)[1])
     print(f"K7 route: {n_kmers} k-mers in {ran['kmer_count']} launches, "
           f"{n_kmers / ran['kmer_count']:.2f} k-mers a launch ({own.split(', ', 3)[-1]})")
@@ -1014,11 +1191,13 @@ def main(argv=None) -> int:
         n_chunks = -(-len(seqs) // search.chunk_size(len(seqs)))
         assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
         assert launches["sw_wavefront"] >= 1, launches
+        assert launches["pair_plane"] == 2, launches  # overlap's plane of each direction
         phase("engine, warm")
         builder, hits = run_engine(dev, seqs)
         phase("kernels against their plain versions")
         k1 = check_scan_kernel(dev, builder, seqs)
         k5 = check_sw_kernel(dev)
+        k2_err = check_plane_kernel(dev)
         phase("hits of sampled reads against the host engine")
         check_hits(builder, hits, seqs, rng)
         phase("index -a host against -a sais2")
@@ -1027,12 +1206,16 @@ def main(argv=None) -> int:
         phase("rmdup on the card")
         run_rmdup(builder, seqs, rng)
         phase("gather probes: the probe CLI on the pair plane")
-        launches.update(
-            (k, v) for k, v in run_probe_path().items() if k not in ("scan_pair", "sw_wavefront")
-        )
+        for name, n in run_probe_path().items():
+            launches[name] += n
         phase("gather probes against their plain versions")
         probes, step_ns = check_probes(dev, search._cached_scanner(builder, dev, *FWD_REV).plane)
         check_probe_range_assert()
+        nblocks = FMIndex.load("reads.bwt").length // fm_device.SAMPLE + 1
+        by_bytes, by_chain = stage_a_bound(nblocks, step_ns)
+        print(f"_scan_stage_a (not ported) at {PROBE_LANES} lanes x {READ_LEN - 1} steps: bound "
+              f"{max(by_bytes, by_chain):.4f} ms (bytes {by_bytes:.4f} ms; chain of "
+              f"{READ_LEN + 1} dependent row reads at {step_ns:.1f} ns {by_chain:.4f} ms)")
         del builder, hits
         torch.cuda.empty_cache()
         pipe_dir = keep or os.path.join(workdir, "pipeline")
@@ -1049,8 +1232,9 @@ def main(argv=None) -> int:
             launches[name] += n
         phase("K7 against its plain version")
         k7 = check_k7(dev, pp_reads, np.random.default_rng(SEED), pipe_dir, step_ns)
-        phase("K2: the plane build by torch.profiler and CUDA events")
-        time_plane_build(dev)
+        phase("K2: the plane build against its plain version, by torch.profiler and CUDA events")
+        k2 = time_plane_build_child()
+        k2["max_abs_err"] = k2_err
         phase("overlap: two worker processes on the card + --merge-only, against one process")
         check_overlap_workers(pipe_dir)
     finally:
@@ -1059,6 +1243,7 @@ def main(argv=None) -> int:
 
     kernel_rows = []
     rows = [
+        ("pair_plane", "siga_tpu_torch/csrc/pair_plane.cu", "siga_tpu/ops/fm_device.py:702", k2),
         ("scan_pair", "siga_tpu_torch/csrc/scan_pair.cu", "siga_tpu/ops/fm_device.py:858", k1),
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
         ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:23", k7),

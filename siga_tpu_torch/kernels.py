@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 ]
 
 launches = {
-    "scan_pair": 0, "sw_wavefront": 0, "kmer_count": 0,
+    "pair_plane": 0, "scan_pair": 0, "sw_wavefront": 0, "kmer_count": 0,
     "gather_rows": 0, "take_along": 0, "gather_chain": 0, "scale2": 0,
 }
 
@@ -42,6 +42,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
+    # codes, n, nblocks, pred[0..4], plane, K, scratch, stream
+    "siga_pair_plane": [_P, _I, _I] + [_I] * 5 + [_P] * 4,
+    # nblocks -> ints of scratch siga_pair_plane needs
+    "siga_pair_plane_scratch": [_I],
     # plane, K2, pred, la_words, lens, length, nblocks, n, wpr, nfwd,
     # groups_code, lim_t, p1, t0, lanes, lane_base, nl, cap, then
     # lane_counts, fall, candmask, subwords, slab, stream

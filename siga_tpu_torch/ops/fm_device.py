@@ -7,10 +7,11 @@ even-bit format, and 25 exclusive pair checkpoints), plus the 5x5 closure K
 with K[c2][c1] = C(c2) + occ_c2(C(c1) - 1), so that two backward-search
 steps are one row read:  lo'' = K[c2][c1] + occ2((c2, c1), lo - 1).
 
-The scan (`scan_pair`) is the hand-written CUDA kernel K1
-(`csrc/scan_pair.cu`) on a CUDA tensor and its plain PyTorch version
-`scan_pair_plain` on a CPU tensor.  K1 writes each lane's emitted rows into
-a slab of its own in one pass; `compact_slab` and `scan_in_parts` (plain
+The plane build (`build_pair_plane`) is the hand-written CUDA kernel K2
+(`csrc/pair_plane.cu`) and the scan (`scan_pair`) the kernel K1
+(`csrc/scan_pair.cu`) on a CUDA tensor; each runs its plain PyTorch
+version (`build_pair_plane_plain`, `scan_pair_plain`) on a CPU tensor.  K1
+writes each lane's emitted rows into a slab of its own in one pass; `compact_slab` and `scan_in_parts` (plain
 torch, reached by the CPU tests) put them in the plain version's order.
 The plain helpers below work in int64 with explicit 32-bit masks: PyTorch
 has no popcount and no shifts on uint32.
@@ -63,7 +64,7 @@ class DeviceFM:
         self.pred = np.asarray(host.pred, dtype=np.int64)
         self.pred_dev = torch.as_tensor(self.pred, dtype=torch.int32, device=self.device)
         codes = torch.from_numpy(np.ascontiguousarray(host.codes)).to(self.device)
-        self.plane, self.K = _build_pair_plane_dev(codes, self.pred, self.nblocks)
+        self.plane, self.K = build_pair_plane(codes, self.pred, self.nblocks)
 
     @classmethod
     def from_jax_state(cls, plane, K, pred, length: int, nblocks: int, device):
@@ -86,7 +87,7 @@ class DeviceFM:
 def pair_plane_host(host: FMIndex):
     """The pair plane and K packed on the host by the C++ runtime
     (`siga_pack_pair_plane`): an implementation independent of
-    `_build_pair_plane_dev`, to check it against.  Returns (plane int32
+    `build_pair_plane`, to check it against.  Returns (plane int32
     [nblocks, 57], K int64 [5, 5])."""
     lib = native_lib()
     codes = np.ascontiguousarray(host.codes, dtype=np.uint8)
@@ -102,13 +103,14 @@ def pair_plane_host(host: FMIndex):
     return plane, K.reshape(5, 5)
 
 
-def _build_pair_plane_dev(codes: torch.Tensor, pred: np.ndarray, nblocks: int):
-    """Pair plane and K from the BWT codes (uint8 [n], on the device).
+def build_pair_plane_plain(codes: torch.Tensor, pred: np.ndarray, nblocks: int):
+    """Pair plane and K from the BWT codes (uint8 [n]) in plain tensor ops:
+    the reference for the CUDA kernel K2 and the path `build_pair_plane`
+    takes on the CPU.
 
-    Port of the XLA program `siga_tpu/ops/fm_device.py::_build_pair_plane_dev`
-    in plain tensor ops; it runs once per index.  prev at BWT row r is
-    codes[LF(r)] (0 for '$' rows and the padding past n, which also counts
-    as '$' in the masks)."""
+    Port of the XLA program `siga_tpu/ops/fm_device.py::_build_pair_plane_dev`.
+    prev at BWT row r is codes[LF(r)] (0 for '$' rows and the padding past
+    n, which also counts as '$' in the masks)."""
     dev = codes.device
     n = codes.numel()
     n_pad = nblocks * SAMPLE
@@ -152,6 +154,47 @@ def _build_pair_plane_dev(codes: torch.Tensor, pred: np.ndarray, nblocks: int):
         [torch.bincount(c[: int(pred[c1])], minlength=5) for c1 in range(5)], dim=1
     )
     return plane, K.to(torch.int32).contiguous()
+
+
+MAX_PLANE_CODES = 2**31 - SAMPLE  # n_pad = (n // 128 + 1) * 128 stays an int32
+
+
+def build_pair_plane(codes: torch.Tensor, pred, nblocks: int):
+    """The pair plane (int32 [nblocks, 57]) and K (int32 [5, 5]) of the BWT
+    codes (uint8 [n]) with C array `pred` and nblocks = n // 128 + 1: the
+    CUDA kernel K2 (`csrc/pair_plane.cu`, five launches, counted as one) on
+    a CUDA tensor, `build_pair_plane_plain` on a CPU tensor; any other device
+    raises, as does a failed build or launch."""
+    pred = np.asarray(pred, dtype=np.int64)
+    n = codes.numel()
+    if n >= MAX_PLANE_CODES:
+        raise ValueError(f"codes: {n} rows, the plane build takes fewer than {MAX_PLANE_CODES}")
+    if codes.dtype != torch.uint8 or codes.dim() != 1 or not codes.is_contiguous():
+        raise ValueError("codes: want a contiguous 1-d uint8 tensor")
+    if nblocks != n // SAMPLE + 1:
+        raise ValueError(f"nblocks {nblocks} != {n} // {SAMPLE} + 1")
+    if pred.shape != (5,) or pred[0] != 0 or (np.diff(pred) < 0).any() or pred[4] > n:
+        raise ValueError(f"pred {pred.tolist()}: want a C array of 5 non-decreasing values in [0, {n}] from 0")
+    dev = codes.device
+    if dev.type == "cpu":
+        return build_pair_plane_plain(codes, pred, nblocks)
+    if dev.type != "cuda":
+        raise ValueError(f"build_pair_plane: unsupported device {dev}")
+    if codes.data_ptr() % 16:
+        raise ValueError("codes: want a 16-byte aligned tensor")
+    lib = kernels.lib()
+    plane = torch.empty((nblocks, PAIR_COLS), dtype=torch.int32, device=dev)
+    K = torch.empty((5, 5), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.siga_pair_plane_scratch(nblocks), dtype=torch.int32, device=dev)
+    kernels.check(
+        lib.siga_pair_plane(
+            codes.data_ptr(), n, nblocks, *(int(p) for p in pred),
+            plane.data_ptr(), K.data_ptr(), scratch.data_ptr(), kernels.stream_ptr(dev),
+        ),
+        "pair_plane",
+    )
+    kernels.launches["pair_plane"] += 1
+    return plane, K
 
 
 def _popcount(x: torch.Tensor) -> torch.Tensor:
