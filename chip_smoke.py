@@ -19,8 +19,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   5. the overlap engine alone, warm (its wall and the process's user and
      system CPU time), and the stacked pair plane and K of both directions
      (built by K2) against the C++ host packing; the cost of
-     `pack_reads_2bit`'s ACGT guard on one chunk;
-  6. each kernel against its plain PyTorch version on the card, bit for bit:
+     `pack_reads_2bit`'s ACGT guard on one chunk; then the engine with each
+     chunk's reads split over the device list [cuda:0, cuda:0]
+     (`parallel/dist.py`, two host threads on one card): every hit equal;
+  6. `overlap -m 45` with SIGA_PAIR_STEP=0, counts reset just before it: the
+     single-step scan K3 launches once a chunk, K1 and K2 never (each plane
+     is built at its first use), and the ASQG equals the default route's;
+  7. each kernel against its plain PyTorch version on the card, bit for bit:
      the K1 scan on the first full 15,152-read chunk (odd lim_t; timed,
      with its bound; and split over several launches by a small slab
      budget), on a
@@ -29,18 +34,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      K2's plane and K on both directions of the main path's index and of
      every read set of `plane_edge_reads` (the CPU tests' texts, indexed
      on the card);
-  7. the hits of 256 sampled reads, from the command's hits file and from
+  8. the hits of 256 sampled reads, from the command's hits file and from
      the engine, against the shared host engine (OverlapBuilder.overlap);
-  8. `index -a host` (the C++ seed-sort) on the same reads: all four files
+  9. `index -a host` (the C++ seed-sort) on the same reads: all four files
      byte-equal to the device build's; then the device index's layers
      timed alone for one direction (text build, sort, sort + BWT + perm)
      beside K6's bound, and a torch.profiler trace of the sort: its device
      time, operations, torch.sort's share and its five costliest operations;
-  9. `rmdup` on the card, counts reset just before it: K1 must launch (and
+ 10. `rmdup` on the card, counts reset just before it: K1 must launch (and
      K2 once a direction), the
      hits of 256 sampled reads equal the host engine's
-     (OverlapBuilder.duplicate), and kept + duplicates = reads;
- 10. the gather probes' CLI on the stacked pair plane, counts reset just
+     (OverlapBuilder.duplicate), and kept + duplicates = reads; then `rmdup`
+     with SIGA_PAIR_STEP=0, counts reset just before it: K3 once a chunk,
+     K1 and K2 never, its three files equal the default route's;
+ 11. the gather probes' CLI on the stacked pair plane, counts reset just
      before it (G1-G4 must launch, K2 once a direction), then each probe
      kernel against its plain
      version bit for bit at every Pallas probe's own shape and on the pair
@@ -52,27 +59,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      rows wider than shared memory, every form, broadcast indexes); G3 with
      32 chains of single-word gathers gives the L2 round trip of one
      dependent step; and G1's device-side range assert in a child process;
- 11. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
+ 12. K3 against its plain version, bit for bit, on the first full chunk
+     (60,608 lanes; timed, with its bounds; split over several launches by
+     a small slab budget) and on the rmdup lane groups; the chunk's views
+     through K3 equal K1's; then K1 and K3 at that chunk in a process of
+     their own, each wrapper call split by a torch.profiler trace into the
+     scan kernel's device time and the compaction's, beside its wall by
+     CUDA events (5 calls in turn with the other);
+ 13. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
      (its genome and generator), its eleven stages (PIPE_STAGES) through
      `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
      with a time limit, then `benchmark/contigs_mapping.py`: the corrected
      read count and the contig facts must equal BASELINE.md's; each stage's
      wall and kernel launches are printed (K1 must launch in every overlap
      and rmdup stage, and K2 at least twice);
- 12. K1 against its plain version, bit for bit, at the pipeline's shapes
+ 14. K1 against its plain version, bit for bit, at the pipeline's shapes
      with the `--no-opposite-strand` lane groups: the first chunk of
      `reads.ec.fa` at -m 85, and all contigs in one length-sorted chunk at
-     -m 10; each timed beside its bounds;
- 13. `correct` of every 8th preprocessed read against the whole read set's
+     -m 10; each timed beside its bounds; at the contigs K3's views equal
+     K1's and K3 is timed beside its bounds;
+ 15. `correct` of every 8th preprocessed read against the whole read set's
      index (K7 and K2 must launch): its records must equal those reads' records in
      the pipeline's `reads.ec.fa`; the k-mers a launch held on average;
- 14. K7 against its plain version on that index's forward plane, bit for
+ 16. K7 against its plain version on that index's forward plane, bit for
      bit, on 262,144 41-mers (drawn from the reads, one
      base substituted, an N), 300 of them also against
      `FMIndex.occurrences`, timed with its bound; then at the `correct`
      route's sizes, 3 and 110 41-mers: equal to plain, timed per launch on
      the card and per `KmerCounter` call on the wall clock;
- 15. the plane build (K2) for one direction of the main path's index, in a
+ 17. the plane build (K2) for one direction of the main path's index, in a
      process of its own, the kernel against its plain version: each one's
      device time and operations
      from a torch.profiler trace of one build (device spans summed), its wall
@@ -80,18 +95,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      its peak device memory, and the bound; beside it the codes' copy to the
      card and DualScanner's stacking copy; last of the timings, so that the
      traces touch no other;
- 16. `overlap` as two `--process-id` workers at once on the card plus
+ 18. `overlap` as two `--process-id` workers at once on the card plus
      `--merge-only -t 2` (the port's launcher) against one `-t 2` process:
      the ASQG must be equal;
- 17. the kernels' JSON line (each kernel's launches summed over the paths
-     above, each path's counts read from its own run; its time at the
-     shape named above; `bound_ms` from this run's inputs, by bytes at
-     3.35 TB/s or operations at 67e12/s), then the device line last.
+ 19. the whole script's seconds, the kernels' JSON line (each kernel's
+     launches summed over the paths above, each path's counts read from its
+     own run; its time at the shape named above; `bound_ms` from this run's
+     inputs, by bytes at 3.35 TB/s or operations at 67e12/s), then the
+     device line last.
 With --keep-pipeline DIR the pipeline runs in DIR (a new directory) and
 stays there, for `python3 -m siga_tpu_torch.probes.kernel_ab`.
 Imports nothing of JAX and nothing of the JAX package `siga_tpu`.
 """
 import argparse
+import functools
 import gzip
 import json
 import os
@@ -115,7 +132,7 @@ from siga_tpu_torch.io import fastx
 from siga_tpu_torch.io.fastx import DNASeq
 from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
 from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
-from siga_tpu_torch.parallel import multihost
+from siga_tpu_torch.parallel import dist, multihost
 from siga_tpu_torch.probes import gather
 from siga_tpu_torch.probes.kernel_ab import library_call
 
@@ -132,6 +149,7 @@ PROBE_LANES = 60608  # lanes of one overlap chunk (15,152 reads x 4 orientations
 PROBE_STEPS = 150
 PROBE_ROUNDS = 5  # G2 and G4 timed in turn with their library call, this many rounds
 PLANE_ROUNDS = 5  # K2 and its plain version timed in turn, this many builds each
+SCAN_ROUNDS = 5  # K1 and K3 timed in turn and traced, this many calls each
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
@@ -180,6 +198,9 @@ ROW_BYTES = fm_device.PAIR_COLS * 4
 # the bytes of a pair-plane row that an occ query at a uniformly random
 # position needs: 25 checkpoints (100 B) + 4 bit planes x 4.44 words
 ROW_NEED_BYTES = 171
+# a single-step row: its two 32-byte halves (symbols; '$' masks and
+# checkpoints) are both needed by almost every query
+SINGLE_ROW_BYTES = fm_device.SINGLE_COLS * 4
 
 
 def bytes_ms(n_bytes) -> float:
@@ -194,18 +215,29 @@ def live_supersteps(lens, lim_t, n_groups):
     return np.tile(np.minimum(live, (lim_t + 1) // 2), n_groups)
 
 
-def scan_bound(lens, lim_t, n_groups, nblocks, wpr, emitted):
-    """K1's bound in bytes for one scan of these reads: the plane rows it
-    needs (two a live superstep, five a lane to open and close; each row
-    counted at most once, so at most the stacked plane), the packed reads in,
-    the emitted rows, counts and finals out.  Also returns the row reads the
-    scan needs with re-reads counted (the L2 traffic), in bytes."""
-    live = live_supersteps(lens, lim_t, n_groups)
+def live_steps(lens, lim_t, n_groups):
+    """Per lane (group-major, as K3 lays lanes out) the single steps a read
+    of each length runs: those with t <= len - 2, at most lim_t."""
+    lens = np.asarray(lens, dtype=np.int64)
+    return np.tile(np.minimum(np.maximum(lens - 1, 0), lim_t), n_groups)
+
+
+def scan_bound(lens, lim_t, n_groups, nblocks, wpr, emitted, single=False):
+    """The bound in bytes of one scan of these reads, K1's (pair steps) or
+    with `single` K3's: the plane rows it needs (two a live step, five a
+    lane to open and close; each row counted at most once, so at most the
+    stacked plane), the packed reads in, the emitted rows, counts and finals
+    out.  Also returns the row reads the scan needs with re-reads counted
+    (the L2 traffic), in bytes."""
+    if single:
+        live, need, row = live_steps(lens, lim_t, n_groups), SINGLE_ROW_BYTES, SINGLE_ROW_BYTES
+    else:
+        live, need, row = live_supersteps(lens, lim_t, n_groups), ROW_NEED_BYTES, ROW_BYTES
     lanes = live.size
     row_reads = 2 * int(live.sum()) + 5 * lanes
-    plane = min(row_reads * ROW_NEED_BYTES, 2 * nblocks * ROW_BYTES)
+    plane = min(row_reads * need, 2 * nblocks * row)
     io = len(lens) * (wpr + 1) * 4 + emitted * 16 + lanes * 24 + 2 * (-(-lanes // 32)) * 4
-    return bytes_ms(plane + io), row_reads * ROW_NEED_BYTES
+    return bytes_ms(plane + io), row_reads * need
 
 
 def stage_a_bound(nblocks, step_ns, lanes=PROBE_LANES, steps=READ_LEN - 1):
@@ -476,7 +508,40 @@ def run_rmdup(builder, seqs, rng):
     assert not sample, "sampled reads missing from the rmdup hits file"
     print(f"256 sampled reads: rmdup hits == host engine (OverlapBuilder.duplicate), "
           f"{n_blocks} containment blocks among them")
+    return run_single_step_rmdup(n_chunks)
+
+
+RMDUP_FILES = ("reads.rmdup.fa", "reads.rmdup.dups.fa", "reads-thread0.rmdup.hits.gz")
+
+
+def run_single_step_rmdup(n_chunks: int):
+    """`rmdup` again with SIGA_PAIR_STEP=0, counts reset just before it: K3
+    must launch once a chunk, K1 and K2 never, and its kept reads,
+    duplicates and hits must equal the default route's, which `run_rmdup`
+    just wrote.  Returns its launch counts."""
+    want = [read_maybe_gz(path) for path in RMDUP_FILES]
+    kernels.reset_launches()
+    os.environ["SIGA_PAIR_STEP"] = "0"
+    try:
+        t0 = time.time()
+        assert cli.main(["rmdup", "-p", "reads", "reads.fa"]) == 0
+        rmdup_s = time.time() - t0
+    finally:
+        del os.environ["SIGA_PAIR_STEP"]
+    launches = dict(kernels.launches)
+    assert launches["scan_single"] == n_chunks, (launches, n_chunks)
+    assert launches["scan_pair"] == 0 and launches["pair_plane"] == 0, launches
+    for path, data in zip(RMDUP_FILES, want):
+        assert read_maybe_gz(path) == data, f"rmdup with SIGA_PAIR_STEP=0: {path} differs"
+    print(f"rmdup with SIGA_PAIR_STEP=0: {rmdup_s:.3f} s, launches {launches}; kept reads, "
+          f"duplicates and hits equal to the default route's")
     return launches
+
+
+def read_maybe_gz(path) -> bytes:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return f.read()
 
 
 def run_probe_path():
@@ -652,6 +717,59 @@ def run_engine(dev, seqs):
     return builder, hits
 
 
+def run_single_step_overlap():
+    """`overlap -m 45` with SIGA_PAIR_STEP=0 on the main path's index, counts
+    reset just before it: K3 must launch once a chunk and K1 never, and the
+    ASQG must equal the default (pair) route's, which the main path wrote."""
+    shutil.copy("reads.asqg.gz", "pairs.asqg.gz")
+    kernels.reset_launches()
+    os.environ["SIGA_PAIR_STEP"] = "0"
+    try:
+        t0 = time.time()
+        assert cli.main(["overlap", "-m", str(MIN_OVERLAP), "-p", "reads", "reads.fa"]) == 0
+        overlap_s = time.time() - t0
+    finally:
+        del os.environ["SIGA_PAIR_STEP"]
+    launches = dict(kernels.launches)
+    n_reads = count_records("reads.fa")
+    n_chunks = -(-n_reads // search.chunk_size(n_reads))
+    # the pair plane is built at its first use: this route reads none
+    assert launches["scan_single"] == n_chunks and launches["scan_pair"] == 0, launches
+    assert launches["pair_plane"] == 0, launches
+    asqg = []
+    for path in ("pairs.asqg.gz", "reads.asqg.gz"):
+        with gzip.open(path) as f:
+            asqg.append(f.read())
+    assert asqg[0] == asqg[1], "the SIGA_PAIR_STEP=0 ASQG differs from the default route's"
+    print(f"overlap with SIGA_PAIR_STEP=0: {overlap_s:.3f} s, launches {launches}; ASQG equal to "
+          f"the default route's ({asqg[0].count(b'\nED\t')} ED records)")
+    return launches
+
+
+def check_engine_split(builder, seqs, hits):
+    """The engine with each chunk's reads split over the device list [cuda:0,
+    cuda:0] (two host threads sharing one card's planes; the same code path
+    as one shard on each of two cards) against the one-device hits."""
+    devices = [torch.device("cuda", 0)] * 2
+    records = [DNASeq(name=f"r{i}", seq=s) for i, s in enumerate(seqs)]
+    t0 = time.time()
+    split = list(search.batch_overlap_hits(builder, records, MIN_OVERLAP, devices))
+    split_s = time.time() - t0
+    assert len(split) == len(hits)
+    for a, b in zip(split, hits):
+        assert a.idx == b.idx and a.substring == b.substring, a.idx
+        assert np.array_equal(a._array, b._array), a.idx
+    print(f"engine over [cuda:0, cuda:0]: {split_s:.3f} s, {len(split) / split_s:.1f} reads/s; "
+          f"every hit equals the one-device engine's (local cards: "
+          f"{[str(d) for d in dist.data_devices()]})")
+
+
+def views_equal(a, b) -> bool:
+    """Two scanners' (f_view, r_view) equal, array for array."""
+    return all(np.array_equal(x, y) for va, vb in zip(a, b, strict=True)
+               for x, y in zip(va, vb, strict=True))
+
+
 def trace_device(fn):
     """fn() under torch.profiler: (device ms, device operations, {name: (ms,
     count)}, the profile).  The device time is the sum of the device spans
@@ -754,20 +872,71 @@ def time_plane_build(dev):
                       bound, "bytes", None)
 
 
-def time_plane_build_child():
-    """`time_plane_build` in a fresh process in the current directory: a
-    torch.profiler trace late in this process held none of K2's five
-    kernels (the plain version's were there), while in a process of its own
-    the trace holds them.  Relays its lines and returns its row."""
+def in_child(fn_name: str):
+    """`fn_name`(the card) of this module in a fresh process in the current
+    directory: a torch.profiler trace late in this process held none of
+    K2's five kernels (the plain version's were there), while in a process
+    of its own the trace holds them.  Relays its lines and returns what it
+    returned (JSON)."""
     code = ("import json, torch, chip_smoke\n"
-            "print(json.dumps(chip_smoke.time_plane_build(torch.device('cuda'))))\n")
+            f"print(json.dumps(chip_smoke.{fn_name}(torch.device('cuda'))))\n")
     proc = subprocess.run([sys.executable, "-c", code], env=CHILD_ENV, capture_output=True,
                           text=True, timeout=STAGE_TIMEOUT)
     if proc.returncode != 0:
-        raise RuntimeError(f"the plane-build timing exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"{fn_name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     *lines, row = proc.stdout.strip().splitlines()
     print("\n".join(lines), flush=True)
     return json.loads(row)
+
+
+def time_scans(dev):
+    """K1 and K3 through their wrappers (`scan_pair`, `scan_single`) on the
+    first full chunk of the main path's reads, in a process of its own: a
+    wrapper call is the scan kernel, the slab compaction (torch operations)
+    and one synchronisation.  A torch.profiler trace of SCAN_ROUNDS calls
+    of each gives every call's kernel device time and the device time of
+    the rest; CUDA events give each wrapper's wall over SCAN_ROUNDS calls in
+    turn with the other.  Returns {name: median kernel device ms}."""
+    seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
+    chunk = seqs[: search.chunk_size(len(seqs))]
+    maxlen = search._bucket_len(max(map(len, chunk)))
+    la_w, lens = fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
+    lim_t = min(maxlen - 1, int(lens.max()) - 1)
+    reads = (torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev))
+    fms = [fm_device.DeviceFM(FMIndex.load(f"reads.{ext}"), dev) for ext in ("bwt", "rbwt")]
+    calls = {}
+    for name, pair in (("scan_pair", True), ("scan_single", False)):
+        sc = fm_device.DualScanner(*fms, *FWD_REV, pair_step=pair)
+        args = ((sc.plane, sc.K2) if pair else (sc.plane,)) + (
+            sc.pred, sc.length, sc.nblocks, *reads, lim_t, MIN_OVERLAP, sc.fwd_groups,
+            sc.rev_groups)
+        calls[name] = functools.partial(getattr(fm_device, name), *args)
+    walls = dict(zip(calls, alternate(list(calls.values()), 1, SCAN_ROUNDS)))
+    kernel_ms = {}
+    for name, fn in calls.items():
+
+        def rounds(fn=fn):
+            for _ in range(SCAN_ROUNDS):
+                fn()
+
+        dev_ms, n_ops, by_name, prof = trace_device(rounds)
+        mine = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and f"{name}_kernel" in e.name]
+        if len(mine) != SCAN_ROUNDS:
+            print(f"{name}: the trace holds {len(mine)} kernel spans for {SCAN_ROUNDS} calls: "
+                  f"kernel device time not measured")
+            kernel_ms[name] = None
+            continue
+        rest = (dev_ms - sum(mine)) / SCAN_ROUNDS
+        kernel_ms[name] = float(np.median(mine))
+        print(f"{name} first chunk ({len(chunk)} reads, {4 * len(chunk)} lanes), a process of "
+              f"its own: kernel device time (torch.profiler, {SCAN_ROUNDS} calls) "
+              f"{spread(mine)}; the rest of a call's device time {rest:.4f} ms in "
+              f"{(n_ops - len(mine)) / SCAN_ROUNDS:.0f} operations ({top_ops(by_name, 4)}); "
+              f"the wrapper's wall (CUDA events, {SCAN_ROUNDS} calls in turn with the other) "
+              f"{spread(walls[name])}, the card idle for "
+              f"{np.median(walls[name]) - kernel_ms[name] - rest:.4f} ms of it")
+    return kernel_ms
 
 
 def time_read_guard(seqs):
@@ -858,6 +1027,61 @@ def check_scan_kernel(dev, builder, seqs):
     return row
 
 
+def check_single_kernel(dev, builder, seqs, step_ns):
+    """K3 against its plain version, bit for bit: the first full chunk (timed,
+    with its bounds; and split over several launches by a small slab budget)
+    and the rmdup lane groups; then the chunk's views through K3 against
+    K1's.  Returns the kernel's row of the JSON line (the first chunk)."""
+    chunk = search.chunk_size(len(seqs))
+    err_all = 0
+    for name, chunk_seqs, groups, mo in (
+        ("first chunk", seqs[:chunk], FWD_REV, MIN_OVERLAP),
+        ("rmdup groups", seqs[:2048], RMDUP, READ_LEN + 17),
+    ):
+        sc = search._cached_scanner(builder, dev, *groups, pair_step=False)
+        maxlen = search._bucket_len(max(map(len, chunk_seqs)))
+        la_w, lens = fm_device.pack_reads_2bit(chunk_seqs, len(chunk_seqs), maxlen)
+        lim_t = min(maxlen - 1, int(lens.max()) - 1)
+        args = (
+            sc.plane, sc.pred, sc.length, sc.nblocks,
+            torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev),
+            lim_t, mo, sc.fwd_groups, sc.rev_groups,
+        )
+        plain = fm_device.scan_single_plain(*args)
+        err = max_abs_err(fm_device.scan_single(*args), plain)
+        err_all = max(err_all, err)
+        print(f"K3 {name}: lim_t {lim_t}, blocks {int(plain[0][0])}, "
+              f"candidates {int(plain[0][1])}, max_abs_err {err}")
+        if name != "first chunk":
+            continue
+        lanes, cap = 4 * len(chunk_seqs), fm_device.emit_cap(lim_t, mo)
+        budget = lanes * cap * fm_device.SLAB_ROW_BYTES // 3
+        before = kernels.launches["scan_single"]
+        err_split = max_abs_err(fm_device.scan_single(*args, slab_bytes=budget), plain)
+        parts = kernels.launches["scan_single"] - before
+        print(f"K3 first chunk with a slab budget of {budget} B: {parts} launches, "
+              f"max_abs_err {err_split}")
+        assert parts == len(fm_device.lane_parts(lanes, cap, budget)) > 1 and err_split == 0
+        pair = search._cached_scanner(builder, dev, *groups, pair_step=True)
+        assert views_equal(sc.collect(sc.dispatch(chunk_seqs, len(chunk_seqs), maxlen, mo)),
+                           pair.collect(pair.dispatch(chunk_seqs, len(chunk_seqs), maxlen, mo))), \
+            "K3's views differ from K1's at the first chunk"
+        ms = cuda_ms(lambda: fm_device.scan_single(*args), 5)
+        plain_ms = cuda_ms(lambda: fm_device.scan_single_plain(*args), 2)
+        bound, traffic = scan_bound(lens, lim_t, 4, sc.nblocks, la_w.shape[1], int(plain[0][0]),
+                                    single=True)
+        live = live_steps(lens, lim_t, 4)
+        print(f"K3 first chunk ({len(chunk_seqs)} reads, {lanes} lanes): views equal K1's; kernel "
+              f"{ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bound:.4f} ms (bytes, each row "
+              f"once), row reads with re-reads {traffic} B = {bytes_ms(traffic):.4f} ms at HBM "
+              f"rate, chain of {int(live.max()) + 2} dependent row reads at G3's {step_ns:.1f} "
+              f"ns {(live.max() + 2) * step_ns / 1e6:.4f} ms")
+        row = kernel_row(err, ms, plain_ms, bound, "bytes", None)
+    assert err_all == 0
+    row["max_abs_err"] = err_all
+    return row
+
+
 def kernel_row(err, ms, plain_ms, bound, bound_by, library_ms):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -871,16 +1095,17 @@ def check_scan_pipeline(dev, workdir, step_ns):
     chunks are cut as `search.batch_overlap_hits` cuts them.  The plain
     version runs once a case, timed by CUDA events; the kernel is timed
     beside its bounds (`step_ns`: one dependent step of G3
-    on the pair plane).  Returns the largest error."""
+    on the pair plane).  At the contigs, K3's views equal K1's (no plain
+    version there: K1's took 91-118 s), K3 timed beside its bounds.
+    Returns the largest error."""
     err_all = 0
     for name, prefix, mo in (("reads.ec.fa first chunk", "reads.ec", READS_MIN_OVERLAP),
                              ("contigs", "primary-contigs.rmdup", CTG_MIN_OVERLAP)):
         path = os.path.join(workdir, prefix)
-        sc = fm_device.DualScanner(
-            fm_device.DeviceFM(FMIndex.load(path + ".bwt"), dev),
-            fm_device.DeviceFM(FMIndex.load(path + ".rbwt"), dev),
-            (fm_device.GROUP_ID,), (fm_device.GROUP_REV,),
-        )
+        fms = (fm_device.DeviceFM(FMIndex.load(path + ".bwt"), dev),
+               fm_device.DeviceFM(FMIndex.load(path + ".rbwt"), dev))
+        id_rev = ((fm_device.GROUP_ID,), (fm_device.GROUP_REV,))
+        sc = fm_device.DualScanner(*fms, *id_rev, pair_step=True)
         seqs = [r.seq for r in fastx.read_sequences(path + ".fa")]
         lens = sorted(map(len, seqs))
         if lens[-1] > 2 * max(lens[len(lens) // 2], 1):
@@ -912,9 +1137,34 @@ def check_scan_pipeline(dev, workdir, step_ns):
               f"once), row reads with re-reads {bytes_ms(traffic):.4f} ms at HBM rate, longest lane "
               f"{int(live.max())} supersteps = {live.max() * step_ns / 1e6:.4f} ms of dependent "
               f"steps at G3's {step_ns:.1f} ns", flush=True)
-        del sc, args, plain
+        if name == "contigs":
+            check_single_contigs(fms, id_rev, chunk, maxlen, mo, args, step_ns)
+        del sc, fms, args, plain
     assert err_all == 0
     return err_all
+
+
+def check_single_contigs(fms, groups, chunk, maxlen, mo, pair_args, step_ns):
+    """K3 at the contigs' chunk: its views equal K1's (`pair_args`, K1's
+    arguments there), and its time beside its bounds."""
+    sc = fm_device.DualScanner(*fms, *groups, pair_step=False)
+    pair = fm_device.DualScanner(*fms, *groups, pair_step=True)
+    assert views_equal(sc.collect(sc.dispatch(chunk, len(chunk), maxlen, mo)),
+                       pair.collect(pair.dispatch(chunk, len(chunk), maxlen, mo))), \
+        "K3's views differ from K1's at the contigs"
+    _plane, _K2, pred, length, nblocks, la_w, lens, lim_t, *_rest = pair_args
+    args = (sc.plane, pred, length, nblocks, la_w, lens, lim_t, mo, *groups)
+    out = fm_device.scan_single(*args)
+    ms = cuda_ms(lambda: fm_device.scan_single(*args), 3)
+    lens_h = lens.cpu().numpy()
+    bound, traffic = scan_bound(lens_h, lim_t, 2, nblocks, la_w.shape[1], int(out[0][0]),
+                                single=True)
+    live = live_steps(lens_h, lim_t, 2)
+    print(f"K3 contigs (-m {mo}, groups ID/REV): views equal K1's; {len(chunk)} sequences, "
+          f"blocks {int(out[0][0])}; kernel {ms:.4f} ms; bound {bound:.4f} ms (bytes, each row "
+          f"once), row reads with re-reads {bytes_ms(traffic):.4f} ms at HBM rate, longest lane "
+          f"{int(live.max())} steps = {live.max() * step_ns / 1e6:.4f} ms of dependent steps at "
+          f"G3's {step_ns:.1f} ns", flush=True)
 
 
 def check_sw_kernel(dev):
@@ -1157,6 +1407,7 @@ def main(argv=None) -> int:
                         help="run the pipeline in DIR (a new directory) and keep it")
     args = parser.parse_args(argv)
     keep = os.path.abspath(args.keep_pipeline) if args.keep_pipeline else None
+    t_start = time.time()
     phase("card")
     print(card_line(), flush=True)
     if not torch.cuda.is_available():
@@ -1194,6 +1445,10 @@ def main(argv=None) -> int:
         assert launches["pair_plane"] == 2, launches  # overlap's plane of each direction
         phase("engine, warm")
         builder, hits = run_engine(dev, seqs)
+        phase("engine with each chunk split over the device list [cuda:0, cuda:0]")
+        check_engine_split(builder, seqs, hits)
+        phase("overlap with SIGA_PAIR_STEP=0: the single-step scan K3")
+        launches["scan_single"] += run_single_step_overlap()["scan_single"]
         phase("kernels against their plain versions")
         k1 = check_scan_kernel(dev, builder, seqs)
         k5 = check_sw_kernel(dev)
@@ -1203,8 +1458,8 @@ def main(argv=None) -> int:
         phase("index -a host against -a sais2")
         check_host_index(index_s)
         time_index_layers(dev, seqs)
-        phase("rmdup on the card")
-        run_rmdup(builder, seqs, rng)
+        phase("rmdup on the card, then with SIGA_PAIR_STEP=0 (K3)")
+        launches["scan_single"] += run_rmdup(builder, seqs, rng)["scan_single"]
         phase("gather probes: the probe CLI on the pair plane")
         for name, n in run_probe_path().items():
             launches[name] += n
@@ -1216,6 +1471,11 @@ def main(argv=None) -> int:
         print(f"_scan_stage_a (not ported) at {PROBE_LANES} lanes x {READ_LEN - 1} steps: bound "
               f"{max(by_bytes, by_chain):.4f} ms (bytes {by_bytes:.4f} ms; chain of "
               f"{READ_LEN + 1} dependent row reads at {step_ns:.1f} ns {by_chain:.4f} ms)")
+        phase("K3 against its plain version, and its views against K1's")
+        k3 = check_single_kernel(dev, builder, seqs, step_ns)
+        phase("K1 and K3 at the first chunk, kernel and compaction apart (torch.profiler)")
+        scan_device_ms = in_child("time_scans")
+        k1["device_ms"], k3["device_ms"] = scan_device_ms["scan_pair"], scan_device_ms["scan_single"]
         del builder, hits
         torch.cuda.empty_cache()
         pipe_dir = keep or os.path.join(workdir, "pipeline")
@@ -1233,7 +1493,7 @@ def main(argv=None) -> int:
         phase("K7 against its plain version")
         k7 = check_k7(dev, pp_reads, np.random.default_rng(SEED), pipe_dir, step_ns)
         phase("K2: the plane build against its plain version, by torch.profiler and CUDA events")
-        k2 = time_plane_build_child()
+        k2 = in_child("time_plane_build")
         k2["max_abs_err"] = k2_err
         phase("overlap: two worker processes on the card + --merge-only, against one process")
         check_overlap_workers(pipe_dir)
@@ -1245,6 +1505,7 @@ def main(argv=None) -> int:
     rows = [
         ("pair_plane", "siga_tpu_torch/csrc/pair_plane.cu", "siga_tpu/ops/fm_device.py:702", k2),
         ("scan_pair", "siga_tpu_torch/csrc/scan_pair.cu", "siga_tpu/ops/fm_device.py:858", k1),
+        ("scan_single", "siga_tpu_torch/csrc/scan_single.cu", "siga_tpu/ops/fm_device.py:504", k3),
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
         ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:23", k7),
     ] + [
@@ -1256,6 +1517,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], **row,
         })
+    print(f"chip_smoke_s {time.time() - t_start:.3f} (the whole script, the kernels' build "
+          f"included)")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,11 @@ The option tables, `parse_options`, `help_text` and `USAGE` are a copy of
 `siga_tpu/cli.py`'s (git-style subcommand dispatch, per-command getopt
 tables, `--ini` config file merged under CLI options, repeated flags
 concatenated with ':').  The port adds `--device {cuda,cpu}` to `index`,
-`correct`, `overlap` and `rmdup` (default cuda; the CPU runs the plain
-PyTorch versions of the kernels and exists for the tests).  Each device
+`correct`, `overlap` and `rmdup` (default cuda, which for `overlap` and
+`rmdup` is every local card; the CPU runs the plain PyTorch versions of the
+kernels and exists for the tests).  SIGA_PAIR_STEP=0 makes `overlap` and
+`rmdup` scan one symbol a step (K3) instead of two (K1), as in the JAX
+package.  Each device
 command prints the launches of each kernel it ran on stderr, for a parent
 process to read.  Only code that reaches the device imports torch, so the
 host-only commands and `correct`'s host routes start without it.
@@ -368,8 +371,10 @@ DEVICE_HELP = {
     "index": "device of the suffix sort (index -a sais2)",
     "correct": "device of the k-mer counter K7, which --engine=auto|tpu runs "
                "when the index is not the reads' own",
-    "overlap": "device of the stage-A scan (--engine=auto|tpu)",
-    "rmdup": "device of the stage-A scan",
+    "overlap": "device of the stage-A scan (--engine=auto|tpu); cuda splits "
+               "each chunk's reads over every local card, cuda:N is one card",
+    "rmdup": "device of the stage-A scan; cuda splits each chunk's reads over "
+             "every local card, cuda:N is one card",
 }
 
 

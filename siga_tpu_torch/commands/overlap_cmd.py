@@ -3,8 +3,10 @@
 Port of `siga_tpu/commands/overlap_cmd.py`: ASQG header, per-read overlap
 blocks streamed to hits shard files ({prefix}-thread{i}.hits.gz), VT records
 in read order, then hits -> ED records through the .sai/.rsai permutations.
-`--engine=auto|tpu` runs stage A on `--device` (`ops/search.py`), any other
-engine the host engine (`OverlapBuilder.overlap`).  The multi-process
+`--engine=auto|tpu` runs stage A on `--device` (`ops/search.py`; `cuda` is
+every local card, the reads of each chunk split over them, `cuda:N` one
+card: `parallel/dist.py::command_devices`), any other engine the host
+engine (`OverlapBuilder.overlap`).  The multi-process
 modes: `--process-id I --num-processes N` writes only hits shard I, for the
 reads I mod N, and waits at a barrier (`parallel/multihost.py`);
 `--merge-only -t N` emits the ASQG from N shards (`_merge_hits`).
@@ -23,9 +25,9 @@ from ..constants import ASQG_EXT, BWT_EXT, GZIP_EXT, HITS_EXT, RBWT_EXT, RSAI_EX
 from ..index.fm import FMIndex
 from ..io import asqg, fastx, sai as sai_mod
 from ..overlap.builder import BatchHitConverter, Hit, OverlapBuilder
-from ..device import native_lib, resolve_device
+from ..device import native_lib
 from ..ops.search import _blocks_to_array, batch_overlap_hits
-from ..parallel import multihost
+from ..parallel import dist, multihost
 
 ED_BATCH = 4096
 # hit arrays kept in memory for the ED pass while their blocks fit; above it
@@ -153,7 +155,7 @@ def _hits(builder, records, min_overlap: int, engine: str, device):
     """One Hit per read, in input order: stage A on the device for
     `--engine=auto|tpu`, the shared host engine otherwise."""
     if engine in ("auto", "tpu"):
-        return batch_overlap_hits(builder, records, min_overlap, resolve_device(device))
+        return batch_overlap_hits(builder, records, min_overlap, dist.command_devices(device))
     return _host_hits(builder, records, min_overlap)
 
 

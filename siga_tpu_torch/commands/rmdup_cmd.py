@@ -1,7 +1,7 @@
 """`rmdup` — duplicate and contained read removal.
 
 Port of `siga_tpu/commands/rmdup_cmd.py` with the stage-A scan on
-`--device` (default cuda): per read, the containment-only search
+`--device` (default cuda, every local card; `cuda:N` one card): per read, the containment-only search
 (min_overlap = read length); reads flagged substring or contained
 (containment with containedIdx == 0) go to <prefix>.rmdup.dups.fa annotated
 with seqrank, the rest to <prefix>.rmdup.fa; every read gets a
@@ -22,15 +22,16 @@ from ..index.fm import FMIndex
 from ..io import fastx, sai as sai_mod
 from ..overlap.builder import Hit, HitConverter, OverlapBuilder
 
-from ..device import native_lib, resolve_device
+from ..device import native_lib
 from ..ops.search import batch_duplicate_hits
+from ..parallel import dist
 
 
 def run(opts: dict, arguments: List[str]) -> int:
     if len(arguments) != 1:
         print("usage: rmdup [OPTION] ... READSFILE", file=sys.stderr)
         return 256
-    device = resolve_device(opts.get("device", "cuda"))
+    devices = dist.command_devices(opts.get("device", "cuda"))
     native_lib()
     t0 = time.time()
     input_path = arguments[0]
@@ -46,7 +47,7 @@ def run(opts: dict, arguments: List[str]) -> int:
 
     hits_path = f"{prefix}-thread0{RMDUP_EXT}{HITS_EXT}{GZIP_EXT}"
     with fastx.xopen(hits_path, "wt") as hf:
-        for rec, hit in zip(records, batch_duplicate_hits(builder, records, device)):
+        for rec, hit in zip(records, batch_duplicate_hits(builder, records, devices)):
             hf.write(f"{rec.name}\t{rec.seq}\t{hit.serialize()}\n")
     t_hits = time.time()
 
@@ -81,7 +82,7 @@ def run(opts: dict, arguments: List[str]) -> int:
     t_end = time.time()
     print(
         f"[rmdup] wall: {t_end - t0:.3f} sec (hits {t_hits - t0:.3f}, "
-        f"classify {t_end - t_hits:.3f}) on {device}",
+        f"classify {t_end - t_hits:.3f}) on {','.join(map(str, devices))}",
         file=sys.stderr,
     )
     return 0

@@ -46,6 +46,7 @@
 // of their longest lane (19,314 supersteps x one ~233 ns L2 round trip).
 #include <cuda_runtime.h>
 
+#include "lane_scan.cuh"
 #include "pair_occ.cuh"
 
 namespace {
@@ -53,10 +54,9 @@ namespace {
 using pair_occ::kGroup;
 using pair_occ::RowSlice;
 using pair_occ::sel5;
+using lane_scan::step_char;
 
 constexpr int kThreads = 64;
-
-enum Group { kId = 0, kRc = 1, kRev = 2, kComp = 3 };
 
 struct ScanArgs {
   const int* plane;     // [2 * nblocks, 57]: forward rows, then reverse rows
@@ -66,41 +66,6 @@ struct ScanArgs {
   const int* lens;      // [n]
   int length, nblocks, n, wpr, nfwd, groups_code, lim_t, p1, t0, lanes;
 };
-
-__device__ __forceinline__ int comp(int c) { return c == 0 ? 0 : 5 - c; }
-
-// Symbols of one left-aligned read, read in order (ascending or descending):
-// the current 2-bit word stays in a register and is reloaded every 16 symbols.
-struct SymReader {
-  const unsigned* words;
-  int len;
-  int word_i;
-  unsigned word;
-
-  __device__ __forceinline__ SymReader(const int* w, int l)
-      : words(reinterpret_cast<const unsigned*>(w)), len(l), word_i(-1), word(0u) {}
-
-  // rank 1..4 of symbol j; 0 outside [0, len)
-  __device__ __forceinline__ int at(int j) {
-    if (j < 0 || j >= len) return 0;
-    if ((j >> 4) != word_i) {
-      word_i = j >> 4;
-      word = __ldg(words + word_i);
-    }
-    return static_cast<int>((word >> (2 * (j & 15))) & 3u) + 1;
-  }
-};
-
-// The symbol prepended at step t: s'[l-2-t] of the lane's transformed read;
-// t = -1 gives the first symbol s'[l-1], which opens the search interval.
-__device__ __forceinline__ int step_char(SymReader& rd, int group, int t) {
-  switch (group) {
-    case kId: return rd.at(rd.len - 2 - t);
-    case kRc: return comp(rd.at(t + 1));
-    case kRev: return rd.at(t + 1);
-    default: return comp(rd.at(rd.len - 2 - t));
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 scan_pair_kernel(ScanArgs a, int lane_base, int nl, int cap, int* lane_counts,
@@ -124,7 +89,7 @@ scan_pair_kernel(ScanArgs a, int lane_base, int nl, int cap, int* lane_counts,
     int pred[5];
 #pragma unroll
     for (int c = 0; c < 5; ++c) pred[c] = __ldg(a.pred + c);
-    SymReader rd(a.la_words + static_cast<size_t>(row) * a.wpr, len);
+    lane_scan::SymReader rd(a.la_words + static_cast<size_t>(row) * a.wpr, len);
 
     int us[5], ls[5];
     RowSlice r0, r1;
@@ -211,20 +176,7 @@ scan_pair_kernel(ScanArgs a, int lane_base, int nl, int cap, int* lane_counts,
       fall[4 * a.lanes + lane] = psize;
     }
   }
-  // The warp's 32 / kGroup lanes are consecutive and lane_base is a multiple of
-  // 32, so their bits are one aligned run of one mask word.
-  const unsigned cb = __ballot_sync(0xFFFFFFFFu, leader && fvalid);
-  const unsigned sb = __ballot_sync(0xFFFFFFFFu, leader && substring);
-  if ((threadIdx.x & 31) == 0) {
-    unsigned cbits = 0u, sbits = 0u;
-#pragma unroll
-    for (int k = 0; k < 32 / kGroup; ++k) {
-      cbits |= ((cb >> (k * kGroup)) & 1u) << k;
-      sbits |= ((sb >> (k * kGroup)) & 1u) << k;
-    }
-    if (cbits) atomicOr(candmask + (lane >> 5), cbits << (lane & 31));
-    if (sbits) atomicOr(subwords + (lane >> 5), sbits << (lane & 31));
-  }
+  lane_scan::write_lane_bits<kGroup>(leader, fvalid, substring, lane, candmask, subwords);
 }
 
 }  // namespace

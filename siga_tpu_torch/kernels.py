@@ -7,8 +7,11 @@ entry point launches on the stream it is given and returns
 `cudaGetLastError()`, which `check` turns into an exception.  There is no
 fallback: a failed build or launch raises.
 
-`launches` counts, per kernel, the launches its wrapper made (each wrapper
-adds one where it launches), so a run can show that its main path went
+`launch` calls a C entry point with the device of its tensors made the
+calling thread's current device (a ctypes call launches on whatever device
+is current, so a tensor on `cuda:1` would otherwise be launched from
+`cuda:0`), checks it and counts it: `launches` holds, per kernel, the
+launches its wrapper made, so a run can show that its main path went
 through the kernel.
 """
 from __future__ import annotations
@@ -31,11 +34,12 @@ NVCC_FLAGS = [
 ]
 
 launches = {
-    "pair_plane": 0, "scan_pair": 0, "sw_wavefront": 0, "kmer_count": 0,
+    "pair_plane": 0, "scan_pair": 0, "scan_single": 0, "sw_wavefront": 0, "kmer_count": 0,
     "gather_rows": 0, "take_along": 0, "gather_chain": 0, "scale2": 0,
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # shards of a chunk launch from several threads
 _lib = None
 
 _P = ctypes.c_void_p
@@ -50,6 +54,10 @@ _SIGNATURES = {
     # groups_code, lim_t, p1, t0, lanes, lane_base, nl, cap, then
     # lane_counts, fall, candmask, subwords, slab, stream
     "siga_scan_pair": [_P] * 5 + [_I] * 13 + [_P] * 5 + [_P],
+    # plane, pred, la_words, lens, length, nblocks, n, wpr, nfwd,
+    # groups_code, lim_t, p1, lanes, lane_base, nl, cap, then
+    # lane_counts, fall, candmask, subwords, slab, stream
+    "siga_scan_single": [_P] * 4 + [_I] * 12 + [_P] * 5 + [_P],
     # threads a lane of siga_scan_pair and a k-mer of siga_kmer_count
     "siga_lane_group": [],
     # queries, refs, B, M, N, match, mismatch, open, extend, best, qend,
@@ -143,6 +151,16 @@ def check(rc: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device: torch.device, entry, *args) -> None:
+    """entry(*args, stream) with `device` the current device and its current
+    stream last; raises on a failed launch, else counts one for `name`."""
+    with torch.cuda.device(device):
+        rc = entry(*args, stream_ptr(device))
+    check(rc, name)
+    with _count_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:

@@ -15,10 +15,21 @@ writes each lane's emitted rows into a slab of its own in one pass; `compact_sla
 torch, reached by the CPU tests) put them in the plain version's order.
 The plain helpers below work in int64 with explicit 32-bit masks: PyTorch
 has no popcount and no shifts on uint32.
+
+`DualScanner` also runs the JAX package's other route, selected by
+SIGA_PAIR_STEP=0: the single-step scan (`scan_single`, the CUDA kernel K3,
+`csrc/scan_single.cu`, on a CUDA tensor; `scan_single_plain` on a CPU
+tensor), port of `_scan_packed_core`, one backward-search step a symbol
+over the single-step plane (`single_step_plane_host`, one 16-column row a
+block).  It gives the pair scan's output tuple, so `compact_slab` and
+`DualScanner.collect` serve both routes; there a lane emits at most one
+block a step, and trel counts from t0 = p1 instead of 2 * (p1 // 2).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 from typing import Sequence
 
 import numpy as np
@@ -30,6 +41,7 @@ from .. import kernels
 from ..device import native_lib
 
 PAIR_COLS = 57  # 8 cur + 8 prev + 8 cur$ + 8 prev$ + 25 ckpt (sample=128)
+SINGLE_COLS = 16  # 8 symbol words + 4 '$' words + A, C, G, T ckpt (sample=128)
 _LO_BITS = 0x55555555
 _U32 = 0xFFFFFFFF
 
@@ -52,10 +64,14 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
 
 
 class DeviceFM:
-    """Pair plane of one FM-index on `device`.
+    """The occ planes of one FM-index on `device`, each built at its first
+    use, as the JAX package does, so a route pays only for the plane it
+    reads.
 
-    plane: int32 [nblocks, 57]; K: int32 [5, 5]; pred: the C array (host
-    int64 [5]); pred_dev: the same as int32 on `device`, for the kernels."""
+    plane: the pair plane, int32 [nblocks, 57], and K: int32 [5, 5], built
+    together by K2; occ_plane: the single-step plane, int32 [nblocks, 16]
+    (`single_step_plane_host`); pred: the C array (host int64 [5]);
+    pred_dev: the same as int32 on `device`, for the kernels."""
 
     def __init__(self, host: FMIndex, device):
         self.device = torch.device(device)
@@ -63,25 +79,84 @@ class DeviceFM:
         self.nblocks = host.length // SAMPLE + 1
         self.pred = np.asarray(host.pred, dtype=np.int64)
         self.pred_dev = torch.as_tensor(self.pred, dtype=torch.int32, device=self.device)
-        codes = torch.from_numpy(np.ascontiguousarray(host.codes)).to(self.device)
-        self.plane, self.K = build_pair_plane(codes, self.pred, self.nblocks)
+        self._host = host
+        self._pair = None
+        self._occ_plane = None
+
+    def _built(self, name: str):
+        if self._host is None:
+            raise ValueError(f"no {name}: adopted without it")
+        return self._host
+
+    @property
+    def plane(self) -> torch.Tensor:
+        return self._pair_plane()[0]
+
+    @property
+    def K(self) -> torch.Tensor:
+        return self._pair_plane()[1]
+
+    def _pair_plane(self):
+        if self._pair is None:
+            codes = torch.from_numpy(np.ascontiguousarray(self._built("pair plane").codes))
+            self._pair = build_pair_plane(codes.to(self.device), self.pred, self.nblocks)
+        return self._pair
+
+    @property
+    def occ_plane(self) -> torch.Tensor:
+        if self._occ_plane is None:
+            host = self._built("single-step plane")
+            self._occ_plane = torch.from_numpy(single_step_plane_host(host)).to(self.device)
+        return self._occ_plane
 
     @classmethod
-    def from_jax_state(cls, plane, K, pred, length: int, nblocks: int, device):
+    def from_jax_state(cls, plane, K, pred, length: int, nblocks: int, device, occ_plane=None):
         """Adopt the JAX package's pair plane and K (numpy arrays, as from
-        `siga_tpu.ops.fm_device.DeviceFM.pair_plane_device()`)."""
-        plane = np.asarray(plane)
-        if plane.shape != (nblocks, PAIR_COLS):
-            raise ValueError(f"plane shape {plane.shape} != ({nblocks}, {PAIR_COLS})")
+        `siga_tpu.ops.fm_device.DeviceFM.pair_plane_device()`) and, when
+        given, its single-step plane (`DeviceFM.occ_plane`)."""
+        shapes = {"plane": (plane, PAIR_COLS), "occ_plane": (occ_plane, SINGLE_COLS)}
+        for name, (x, cols) in shapes.items():
+            if x is not None and np.shape(x) != (nblocks, cols):
+                raise ValueError(f"{name} shape {np.shape(x)} != ({nblocks}, {cols})")
         self = cls.__new__(cls)
         self.device = torch.device(device)
         self.length = int(length)
         self.nblocks = int(nblocks)
         self.pred = np.asarray(pred, dtype=np.int64)
         self.pred_dev = torch.as_tensor(self.pred, dtype=torch.int32, device=self.device)
-        self.plane = torch.from_numpy(plane.astype(np.int32)).to(self.device)
-        self.K = torch.from_numpy(np.asarray(K).astype(np.int32)).to(self.device)
+        self._host = None
+
+        def adopt(x):
+            return torch.from_numpy(np.asarray(x).astype(np.int32)).to(self.device)
+
+        self._pair = (adopt(plane), adopt(K))
+        self._occ_plane = None if occ_plane is None else adopt(occ_plane)
         return self
+
+
+def single_step_plane_host(host: FMIndex) -> np.ndarray:
+    """The single-step occ plane of `host`, int32 [nblocks, 16] (a 64-byte
+    row a 128-symbol block): 8 words of 2-bit symbols (word j holds symbols
+    [16j, 16j + 16), low bits first; '$' and the padding past n pack as A),
+    4 words of the '$' mask (one bit a symbol), then the exclusive A, C, G, T
+    checkpoints.  There is no '$' checkpoint: base_$ = block * 128 - sum of
+    the four.  Port of `siga_tpu/ops/fm_device.py::DeviceFM._pack_single_step`
+    and `occ_plane` (sample 128), in numpy on the host as there."""
+    n = host.length
+    nblocks = n // SAMPLE + 1
+    padded = np.zeros(nblocks * SAMPLE, dtype=np.uint8)
+    padded[:n] = host.codes
+    sym = padded.reshape(nblocks, SAMPLE).astype(np.uint32)
+    two_bit = np.where(sym == 0, 0, sym - 1)  # $->0(A), A..T -> 0..3
+    shifts16 = (2 * np.arange(16, dtype=np.uint32))[None, None, :]
+    words = (two_bit.reshape(nblocks, SAMPLE // 16, 16) << shifts16).sum(axis=2, dtype=np.uint32)
+    dbit = (sym == 0).astype(np.uint32)
+    shifts32 = np.arange(32, dtype=np.uint32)[None, None, :]
+    dollar = (dbit.reshape(nblocks, SAMPLE // 32, 32) << shifts32).sum(axis=2, dtype=np.uint32)
+    ckpt = np.asarray(host.checkpoints, dtype=np.int32)[:, 1:]
+    return np.ascontiguousarray(
+        np.concatenate([words.view(np.int32), dollar.view(np.int32), ckpt], axis=1)
+    )
 
 
 def pair_plane_host(host: FMIndex):
@@ -186,14 +261,11 @@ def build_pair_plane(codes: torch.Tensor, pred, nblocks: int):
     plane = torch.empty((nblocks, PAIR_COLS), dtype=torch.int32, device=dev)
     K = torch.empty((5, 5), dtype=torch.int32, device=dev)
     scratch = torch.empty(lib.siga_pair_plane_scratch(nblocks), dtype=torch.int32, device=dev)
-    kernels.check(
-        lib.siga_pair_plane(
-            codes.data_ptr(), n, nblocks, *(int(p) for p in pred),
-            plane.data_ptr(), K.data_ptr(), scratch.data_ptr(), kernels.stream_ptr(dev),
-        ),
-        "pair_plane",
+    kernels.launch(
+        "pair_plane", dev, lib.siga_pair_plane,
+        codes.data_ptr(), n, nblocks, *(int(p) for p in pred),
+        plane.data_ptr(), K.data_ptr(), scratch.data_ptr(),
     )
-    kernels.launches["pair_plane"] += 1
     return plane, K
 
 
@@ -331,6 +403,18 @@ def _lane_chars(la_words, lens, groups: Sequence[int]):
     return torch.cat([group_chars[g]() for g in groups], dim=0).T
 
 
+def scan_lanes(la_words, lens, nblocks: int, fwd_groups, rev_groups):
+    """The plain scans' lanes (the forward groups first, then the reverse
+    groups, each with stride n): (charsT int64 [maxlen, lanes] as
+    `_lane_chars` gives it, each lane's read length, whether it scans the
+    forward index, and its table's first row in the stacked plane)."""
+    groups = tuple(fwd_groups) + tuple(rev_groups)
+    lens64 = lens.to(torch.int64)
+    charsT = _lane_chars(la_words, lens64, groups)
+    is_fwd = torch.arange(charsT.shape[1], device=lens.device) < la_words.shape[0] * len(fwd_groups)
+    return charsT, lens64.repeat(len(groups)), is_fwd, torch.where(is_fwd, 0, nblocks)
+
+
 def _scan_params(lim_t: int, min_overlap: int):
     """(p1, t0): the first step that may emit, and the first step of the
     emitting supersteps (even)."""
@@ -360,15 +444,9 @@ def scan_pair_plain(
       subwords [ceil(lanes/32)]
     """
     dev = plane2.device
-    n = la_words.shape[0]
-    groups = tuple(fwd_groups) + tuple(rev_groups)
-    lens64 = lens.to(torch.int64)
-    charsT = _lane_chars(la_words, lens64, groups)
+    charsT, lens_all, is_fwd, tab = scan_lanes(la_words, lens, nblocks, fwd_groups, rev_groups)
     max_t = charsT.shape[0] - 1
     L = charsT.shape[1]
-    lens_all = lens64.repeat(len(groups))
-    is_fwd = torch.arange(L, device=dev) < n * len(fwd_groups)
-    tab = torch.where(is_fwd, 0, nblocks)
     tab2 = torch.cat([tab, tab])
     pred64 = pred.to(torch.int64)
     K_flat = K2.to(torch.int64).reshape(-1)
@@ -443,20 +521,34 @@ def scan_pair_plain(
             step(rhi, nrhi1, nrhi2),
         )
 
+    return finish_scan(
+        emitted, valids, lambda i, tabs: occ(i, tabs)[0], lo, hi, rlo, rhi, tab, nblocks
+    )
+
+
+def finish_scan(emitted, valids, singles, lo, hi, rlo, rhi, tab, nblocks: int):
+    """The plain scans' outputs from their per-step emissions (emitted: a
+    list of int64 [L, k, 4] rows [lo, rlo, size, trel], valids: of bool [L,
+    k], in step order) and the final intervals: the finals classify each
+    lane's full-length interval, its left extensions from the lane's own
+    table (rows from `tab`), its right extensions from the other table.
+    `singles(i, tabs)` gives the inclusive occ counts [5, Q] of positions i
+    in the tables at tabs."""
+    L = lo.numel()
+    dev = lo.device
     if emitted:
         valid = torch.cat(valids, dim=1)  # [L, T2], t ascending per lane
         emit = torch.cat(emitted, dim=1)[valid]  # [blocks, 4], lane-major
         lane_counts = valid.sum(dim=1)
     else:
         emit = torch.zeros((0, 4), dtype=torch.int64, device=dev)
-        lane_counts = zeros
+        lane_counts = torch.zeros(L, dtype=torch.int64, device=dev)
 
-    # finals: containment/substring classification of the full interval
-    fs, _ = occ(torch.cat([lo - 1, hi]), tab2)
+    fs = singles(torch.cat([lo - 1, hi]), torch.cat([tab, tab]))
     l_c, u_c = fs[:, :L], fs[:, L:]
     lext_dna = (u_c[1:] - l_c[1:]).sum(dim=0) > 0
     other = nblocks - tab
-    fr, _ = occ(torch.cat([rlo - 1, rhi]), torch.cat([other, other]))
+    fr = singles(torch.cat([rlo - 1, rhi]), torch.cat([other, other]))
     rext_dna = (fr[1:, L:] - fr[1:, :L]).sum(dim=0) > 0
     l0, u0 = l_c[0], u_c[0]
     psize_f = u0 - l0
@@ -478,15 +570,19 @@ def scan_pair_plain(
     )
 
 
-def _check_scan_inputs(plane2, K2, pred, nblocks, la_words, lens):
+def _check_scan_inputs(plane2, cols: int, nblocks: int, pred, la_words, lens, K2=None):
+    """Every scan input a contiguous int32 tensor of its shape on plane2's
+    device (the single-step scan has no K2)."""
     dev = plane2.device
-    for name, x, shape in (
-        ("plane2", plane2, (2 * nblocks, PAIR_COLS)),
-        ("K2", K2, (2, 5, 5)),
+    inputs = [
+        ("plane2", plane2, (2 * nblocks, cols)),
         ("pred", pred, (5,)),
         ("la_words", la_words, None),
         ("lens", lens, (la_words.shape[0],)),
-    ):
+    ]
+    if K2 is not None:
+        inputs.append(("K2", K2, (2, 5, 5)))
+    for name, x, shape in inputs:
         if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{name}: want a contiguous int32 tensor on {dev}")
         if shape is not None and tuple(x.shape) != shape:
@@ -532,7 +628,7 @@ def compact_slab(slab: torch.Tensor, lane_counts: torch.Tensor, extra=()):
     head = [ends[-1], counts.max()] if lanes else [counts.sum(), counts.sum()]
     total, most, *values = torch.stack([*head, *extra]).tolist()
     if most > cap:
-        raise RuntimeError(f"scan_pair: a lane emitted {most} rows, its slab holds {cap}")
+        raise RuntimeError(f"scan: a lane emitted {most} rows, its slab holds {cap}")
     # row k of lane l sits at slab row l * cap + (k - start of l); its four
     # words are gathered one by one (torch's gather of [*, 4] int32 rows ran
     # far slower on the H100)
@@ -578,39 +674,47 @@ def scan_pair(
         )
     if dev.type != "cuda":
         raise ValueError(f"scan_pair: unsupported device {dev}")
-    _check_scan_inputs(plane2, K2, pred, nblocks, la_words, lens)
+    _check_scan_inputs(plane2, PAIR_COLS, nblocks, pred, la_words, lens, K2)
+    p1, t0 = _scan_params(lim_t, min_overlap)
     n, wpr = la_words.shape
     groups = tuple(fwd_groups) + tuple(rev_groups)
-    L = n * len(groups)
+    entry = functools.partial(
+        kernels.lib().siga_scan_pair,
+        plane2.data_ptr(), K2.data_ptr(), pred.data_ptr(), la_words.data_ptr(), lens.data_ptr(),
+        length, nblocks, n, wpr, len(fwd_groups), _groups_code(groups), lim_t, p1, t0,
+        n * len(groups),
+    )
+    return scan_on_card("scan_pair", entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
+                        slab_bytes)
+
+
+def _groups_code(groups) -> int:
+    """The lane groups' transform ids, 2 bits each, first group lowest."""
+    return sum(g << (2 * k) for k, g in enumerate(groups))
+
+
+def scan_on_card(name: str, entry, L: int, cap: int, dev, slab_bytes: int | None):
+    """Run a stage-A scan kernel over L lanes on the card and compact its
+    slabs: `entry(lane_base, nl, cap, lane_counts, fall, candmask, subwords,
+    slab, stream)` launches lanes [lane_base, lane_base + nl), each with a
+    slab of `cap` rows, and counts as a launch of `name`.  Returns the plain
+    versions' output tuple."""
     if L == 0:
-        raise ValueError("scan_pair: no lanes")
-    p1, t0 = _scan_params(lim_t, min_overlap)
-    cap = emit_cap(lim_t, min_overlap)
+        raise ValueError(f"{name}: no lanes")
     lane_counts = torch.empty(L, dtype=torch.int32, device=dev)
     fall = torch.empty((5, L), dtype=torch.int32, device=dev)
     nw = -(-L // 32)
     candmask = torch.zeros(nw, dtype=torch.int32, device=dev)  # the kernel ORs bits in
     subwords = torch.zeros(nw, dtype=torch.int32, device=dev)
-    groups_code = sum(g << (2 * k) for k, g in enumerate(groups))
-    lib = kernels.lib()
-    stream = kernels.stream_ptr(dev)
     if slab_bytes is None:
         slab_bytes = torch.cuda.mem_get_info(dev)[0] // 3
 
     def launch(l0, l1):
         slab = torch.empty((l1 - l0, cap, 4), dtype=torch.int32, device=dev)
-        kernels.check(
-            lib.siga_scan_pair(
-                plane2.data_ptr(), K2.data_ptr(), pred.data_ptr(),
-                la_words.data_ptr(), lens.data_ptr(),
-                length, nblocks, n, wpr, len(fwd_groups), groups_code,
-                lim_t, p1, t0, L, l0, l1 - l0, cap,
-                lane_counts.data_ptr(), fall.data_ptr(), candmask.data_ptr(),
-                subwords.data_ptr(), slab.data_ptr(), stream,
-            ),
-            "scan_pair",
+        kernels.launch(
+            name, dev, entry, l0, l1 - l0, cap, lane_counts.data_ptr(), fall.data_ptr(),
+            candmask.data_ptr(), subwords.data_ptr(), slab.data_ptr(),
         )
-        kernels.launches["scan_pair"] += 1
         return slab
 
     cand_ends = []  # the candidate bits' cumsum, once every part has run
@@ -623,6 +727,116 @@ def scan_pair(
     candT = fall.index_select(1, _owners(cand_ends[0], n_cand)[1])
     counts = torch.stack([lane_counts.sum(), cand_ends[0][-1]]).to(torch.int32)
     return counts, lane_counts, emit[:, :3].T, emit[:, 3], candmask, candT, subwords
+
+
+_NWORDS = SAMPLE // 16  # single-step plane: symbol words a row
+_NDWORDS = SAMPLE // 32  # single-step plane: '$' mask words a row
+def occ_single(plane2: torch.Tensor, nblocks: int, i: torch.Tensor, tabs: torch.Tensor):
+    """Inclusive occ counts int64 [5, Q] of positions i [Q] (>= -1), each in
+    the table of the stacked single-step plane (int32 [2 * nblocks, 16])
+    whose rows start at tabs [Q].  Port of `occ_all_fused_T` and
+    `_occ_from_rows`: popcounts of the symbol words below the position, the
+    A count less the '$' bits (which pack as A), and base_$ = block * 128 -
+    the ACGT checkpoints.  Position 0 (i = -1) reads no bit: all zero."""
+    pos = i + 1
+    block0 = torch.div(pos, SAMPLE, rounding_mode="floor")
+    rowsT = plane2[(block0 + tabs).clamp(0, 2 * nblocks - 1)].T.to(torch.int64)
+    tail = pos - block0 * SAMPLE
+    w = rowsT[:_NWORDS] & _U32
+    d = rowsT[_NWORDS : _NWORDS + _NDWORDS] & _U32
+    base_acgt = rowsT[_NWORDS + _NDWORDS :]
+    wmask = _tail_wmask(tail)
+    dvalid = (tail[None, :] - (torch.arange(_NDWORDS, device=i.device) * 32)[:, None]).clamp(0, 32)
+    dmask = torch.where(dvalid == 32, _U32, (torch.ones_like(dvalid) << dvalid) - 1)
+    n_dollar = _popsum(d & dmask)
+    acgt = [_popsum(_match2(w, p) & wmask) for p in (0, _LO_BITS, 0xAAAAAAAA, _U32)]
+    acgt[0] = acgt[0] - n_dollar  # '$' packs as A
+    base_dollar = block0 * SAMPLE - base_acgt.sum(dim=0)
+    return torch.stack([base_dollar + n_dollar] + [base_acgt[k] + acgt[k] for k in range(4)])
+
+
+def scan_single_plain(
+    plane2, pred, length: int, nblocks: int, la_words, lens,
+    lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+):
+    """Stage-A scan, single-step engine, in plain PyTorch: the reference for
+    the CUDA kernel K3 and the path `scan_single` takes on the CPU.
+
+    Mirrors `siga_tpu/ops/fm_device.py::_scan_packed_core`: steps t <
+    p1 = min(max(min_overlap - 1, 0), lim_t) only update the intervals, the
+    steps t in [p1, lim_t) also emit the closed-form '$'-probe block of the
+    state before the step ([lo, rlo, size] where occ_$ grows over [lo, hi]);
+    a lane's steps with t > len - 2 change nothing.  Inputs as
+    `scan_pair_plain`'s, with the stacked [2*nblocks, 16] single-step plane
+    and no K2; outputs as its, with trel = t - p1."""
+    dev = plane2.device
+    charsT, lens_all, _is_fwd, tab = scan_lanes(la_words, lens, nblocks, fwd_groups, rev_groups)
+    L = charsT.shape[1]
+    tab2 = torch.cat([tab, tab])
+    pred64 = pred.to(torch.int64)
+
+    def occ(i, tabs):
+        return occ_single(plane2, nblocks, i, tabs)
+
+    c0 = charsT[-1]  # the lane's first symbol s'[l-1]
+    lo = pred64[c0]
+    hi = lo + _sel_rank(occ(torch.full((L,), length - 1, device=dev), tab), c0) - 1
+    rlo, rhi = lo, hi
+    p1, _t0 = _scan_params(lim_t, min_overlap)
+    emitted, valids = [], []
+    zeros = torch.zeros(L, dtype=torch.int64, device=dev)
+    for t in range(lim_t):
+        c = charsT[t]
+        both = occ(torch.cat([lo - 1, hi]), tab2)
+        l_c, u_c = both[:, :L], both[:, L:]
+        diff = u_c - l_c
+        active = t <= lens_all - 2
+        if t >= p1:
+            psize = diff[0]
+            valids.append(((psize > 0) & (rlo + psize - 1 >= 0) & active)[:, None])
+            emitted.append(torch.stack([lo, rlo, hi - lo, zeros + (t - p1)], dim=1)[:, None])
+        # updateL(c), as `_update_left_T`
+        nrlo = rlo + _below_rank(diff, c)
+        nrhi = nrlo + _sel_rank(diff, c) - 1
+        nlo = _sel_rank(pred64[:, None] + l_c, c)
+        nhi = _sel_rank(pred64[:, None] + u_c, c) - 1
+        lo, hi, rlo, rhi = (
+            torch.where(active, new, old)
+            for new, old in ((nlo, lo), (nhi, hi), (nrlo, rlo), (nrhi, rhi))
+        )
+    return finish_scan(emitted, valids, occ, lo, hi, rlo, rhi, tab, nblocks)
+
+
+def scan_single(
+    plane2, pred, length: int, nblocks: int, la_words, lens,
+    lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+    slab_bytes: int | None = None,
+):
+    """The single-step stage-A scan: the CUDA kernel K3 on CUDA tensors,
+    `scan_single_plain` on CPU tensors; same arguments and outputs.  On CUDA
+    one launch scans all lanes in one pass into per-lane slabs, split over
+    several launches where the slabs would not fit in `slab_bytes` (default
+    a third of the free device memory), as `scan_pair` does."""
+    dev = plane2.device
+    if dev.type == "cpu":
+        return scan_single_plain(
+            plane2, pred, length, nblocks, la_words, lens,
+            lim_t, min_overlap, fwd_groups, rev_groups,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"scan_single: unsupported device {dev}")
+    _check_scan_inputs(plane2, SINGLE_COLS, nblocks, pred, la_words, lens)
+    p1, _t0 = _scan_params(lim_t, min_overlap)
+    n, wpr = la_words.shape
+    groups = tuple(fwd_groups) + tuple(rev_groups)
+    entry = functools.partial(
+        kernels.lib().siga_scan_single,
+        plane2.data_ptr(), pred.data_ptr(), la_words.data_ptr(), lens.data_ptr(),
+        length, nblocks, n, wpr, len(fwd_groups), _groups_code(groups), lim_t, p1,
+        n * len(groups),
+    )
+    return scan_on_card("scan_single", entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
+                        slab_bytes)
 
 
 def require_acgt(text: bytes) -> None:
@@ -666,27 +880,44 @@ def pack_reads_2bit(seqs: Sequence[str], n: int, maxlen: int):
     return la_w, lens
 
 
+def pair_step_default() -> bool:
+    """The scan route SIGA_PAIR_STEP selects, as in the JAX package: "0" is
+    the single-step scan, anything else or unset the pair scan."""
+    return os.environ.get("SIGA_PAIR_STEP", "1") != "0"
+
+
 class DualScanner:
     """One scan serves both orientation pairs of a chunk: the forward and
     reverse planes are stacked and each lane carries its table's row offset.
     The C arrays of the forward and reversed text are equal, so `pred` is
     shared.  Lane layout: forward groups first, then reverse groups, each
-    with stride n."""
+    with stride n.
+
+    `pair_step` picks the route: the pair scan K1 over the pair planes
+    (True), or the single-step scan K3 (`scan_single`) over the
+    single-step planes (False); None reads SIGA_PAIR_STEP as the JAX package
+    does ("0" for the single-step scan, anything else or unset for pairs)."""
 
     def __init__(self, dfwd: DeviceFM, drev: DeviceFM,
                  fwd_groups=(GROUP_ID, GROUP_RC),
-                 rev_groups=(GROUP_REV, GROUP_COMP)):
+                 rev_groups=(GROUP_REV, GROUP_COMP),
+                 pair_step: bool | None = None):
         if (dfwd.length, dfwd.nblocks, dfwd.device) != (
             drev.length, drev.nblocks, drev.device
         ):
             raise ValueError("forward and reverse indexes differ in size or device")
+        self.pair = pair_step_default() if pair_step is None else bool(pair_step)
         self.device = dfwd.device
         self.length = dfwd.length
         self.nblocks = dfwd.nblocks
         self.fwd_groups = tuple(fwd_groups)
         self.rev_groups = tuple(rev_groups)
-        self.plane = torch.cat([dfwd.plane, drev.plane]).contiguous()
-        self.K2 = torch.stack([dfwd.K, drev.K]).contiguous()
+        if self.pair:
+            self.plane = torch.cat([dfwd.plane, drev.plane]).contiguous()
+            self.K2 = torch.stack([dfwd.K, drev.K]).contiguous()
+        else:
+            self.plane = torch.cat([dfwd.occ_plane, drev.occ_plane]).contiguous()
+            self.K2 = None
         self.pred = dfwd.pred_dev
 
     def dispatch(self, seqs: Sequence[str], n: int, maxlen: int, min_overlap: int):
@@ -695,12 +926,18 @@ class DualScanner:
         la_w, lens = pack_reads_2bit(seqs, n, maxlen)
         # the scan goes only as deep as the chunk's longest read
         lim_t = min(maxlen - 1, int(lens.max()) - 1)
-        out = scan_pair(
-            self.plane, self.K2, self.pred, self.length, self.nblocks,
-            torch.from_numpy(la_w).to(self.device),
-            torch.from_numpy(lens).to(self.device),
-            lim_t, min_overlap, self.fwd_groups, self.rev_groups,
-        )
+        la_words = torch.from_numpy(la_w).to(self.device)
+        lens_d = torch.from_numpy(lens).to(self.device)
+        if self.pair:
+            out = scan_pair(
+                self.plane, self.K2, self.pred, self.length, self.nblocks, la_words, lens_d,
+                lim_t, min_overlap, self.fwd_groups, self.rev_groups,
+            )
+        else:
+            out = scan_single(
+                self.plane, self.pred, self.length, self.nblocks, la_words, lens_d,
+                lim_t, min_overlap, self.fwd_groups, self.rev_groups,
+            )
         return out, n, lim_t, min_overlap
 
     def collect(self, handle):
@@ -713,13 +950,16 @@ class DualScanner:
           cand_rows6: [flo, fhi, frlo, frhi, occ_$(flo-1), occ_$(fhi)] per
             candidate;
           substr_flags: uint8 [lanes], lext|rext DNA extension of the
-            full-length interval."""
+            full-length interval.
+        Both routes give the same views; their trel counts from t0 =
+        2 * (p1 // 2) (pairs) or from p1 (single steps)."""
         out, n, lim_t, min_overlap = handle
         _counts, lane_counts, data3T, trel, candmask, candT, subwords = out
         dev = lane_counts.device
         num_lanes = n * (len(self.fwd_groups) + len(self.rev_groups))
         half = n * len(self.fwd_groups)
-        _p1, t0 = _scan_params(lim_t, min_overlap)
+        p1, t0 = _scan_params(lim_t, min_overlap)
+        t0 = t0 if self.pair else p1
         lane = torch.repeat_interleave(
             torch.arange(num_lanes, device=dev), lane_counts.to(torch.int64)
         )

@@ -113,15 +113,11 @@ def count_kmers(dfm: DeviceFM, kmers: torch.Tensor) -> torch.Tensor:
     out = torch.empty(q, dtype=torch.int32, device=dev)
     if q == 0:
         return out
-    kernels.check(
-        kernels.lib().siga_kmer_count(
-            dfm.plane.data_ptr(), dfm.K.data_ptr(), dfm.pred_dev.data_ptr(),
-            dfm.length, dfm.nblocks, codes.data_ptr(), q, k, out.data_ptr(),
-            kernels.stream_ptr(dev),
-        ),
-        "kmer_count",
+    kernels.launch(
+        "kmer_count", dev, kernels.lib().siga_kmer_count,
+        dfm.plane.data_ptr(), dfm.K.data_ptr(), dfm.pred_dev.data_ptr(),
+        dfm.length, dfm.nblocks, codes.data_ptr(), q, k, out.data_ptr(),
     )
-    kernels.launches["kmer_count"] += 1
     return out
 
 

@@ -1,9 +1,12 @@
 """Batched overlap detection: device stage-A scan + native stage B/C.
 
-Port of `siga_tpu/ops/search.py` for one GPU.  Stage A (the backward search
-with '$'-probes over every read in four orientations) runs as the pair scan
-of `fm_device.py`; stages B/C (submaximal filtering, irreducible extraction)
-run in the shared C++ runtime, one chunk behind the scan in a worker thread.
+Port of `siga_tpu/ops/search.py`.  Stage A (the backward search with
+'$'-probes over every read in four orientations) runs as the scan of
+`fm_device.DualScanner` (the pair scan K1, or the single-step scan K3 with
+SIGA_PAIR_STEP=0) on one device, or on each entry of a device list with a
+chunk's reads split over them (`parallel/dist.py`); stages B/C (submaximal
+filtering, irreducible extraction) run in the shared C++ runtime, one chunk
+behind the scan in a worker thread.
 There is no Python stage B/C here: the runtime is required.  rmdup
 (`batch_duplicate_hits`) needs only the scan's finals.
 """
@@ -26,6 +29,7 @@ from ..overlap.builder import (
 )
 
 from ..device import native_lib
+from ..parallel import dist
 from .fm_device import (
     GROUP_COMP,
     GROUP_ID,
@@ -33,6 +37,7 @@ from .fm_device import (
     GROUP_REV,
     DeviceFM,
     DualScanner,
+    pair_step_default,
 )
 
 CHUNK_READS = 16384
@@ -76,7 +81,9 @@ def _final8_from_cands(
 def batch_overlap_hits(
     builder: OverlapBuilder, records, min_overlap: int, device
 ) -> Iterator[Hit]:
-    """Yield one Hit per read, in input order.
+    """Yield one Hit per read, in input order, with stage A on `device`: one
+    device or a sequence of them (the reads of each chunk split over its
+    entries, `parallel/dist.py`).
 
     Inputs of mixed lengths (contig re-overlap) run in length-sorted chunks
     so short chunks do not pay the longest read's scan depth; their results
@@ -105,7 +112,7 @@ def _batch_overlap_ordered(
         fwd_groups, rev_groups = (GROUP_ID, GROUP_RC), (GROUP_REV, GROUP_COMP)
     else:
         fwd_groups, rev_groups = (GROUP_ID,), (GROUP_REV,)
-    scanner = _cached_scanner(builder, device, fwd_groups, rev_groups)
+    scanners = _scanners(builder, device, fwd_groups, rev_groups)
     proc = _native_chunk_processor(builder)
     chunk_reads = chunk_size(len(records))
 
@@ -113,9 +120,7 @@ def _batch_overlap_ordered(
         chunk = records[start : start + chunk_reads]
         seqs = [r.seq for r in chunk]
         maxlen = _bucket_len(max(len(s) for s in seqs))
-        f_view, r_view = scanner.collect(
-            scanner.dispatch(seqs, len(chunk), maxlen, min_overlap)
-        )
+        f_view, r_view = dist.scan_views(scanners, seqs, maxlen, min_overlap)
         return native_args(chunk, f_view, r_view)
 
     def native_args(chunk, f_view, r_view):
@@ -200,18 +205,16 @@ def batch_duplicate_hits(builder: OverlapBuilder, records, device) -> Iterator[H
     """rmdup's search, one Hit per read in input order: `duplicate()` is the
     containment-only search (min_overlap = read length), i.e. only the
     finals of the stage-A scan over lanes [seq] (forward index) and
-    [complement(seq)] (reverse index).  Port of
-    `siga_tpu/ops/search.py::batch_duplicate_hits` for one GPU."""
-    scanner = _cached_scanner(builder, device, (GROUP_ID,), (GROUP_COMP,))
+    [complement(seq)] (reverse index), on `device` as `batch_overlap_hits`
+    takes it.  Port of `siga_tpu/ops/search.py::batch_duplicate_hits`."""
+    scanners = _scanners(builder, device, (GROUP_ID,), (GROUP_COMP,))
     chunk_reads = chunk_size(len(records))
     for start in range(0, len(records), chunk_reads):
         chunk = records[start : start + chunk_reads]
         seqs = [r.seq for r in chunk]
         maxlen = _bucket_len(max(len(s) for s in seqs))
         # min_overlap above every read: no overlap blocks, only the finals
-        f_view, r_view = scanner.collect(
-            scanner.dispatch(seqs, len(chunk), maxlen, maxlen + 1)
-        )
+        f_view, r_view = dist.scan_views(scanners, seqs, maxlen, maxlen + 1)
         f_contain = _Containments(*f_view[3:], builder.rfmi)
         r_contain = _Containments(*r_view[3:], builder.fmi)
         for k, rec in enumerate(chunk):
@@ -243,18 +246,29 @@ class _LazyHit(Hit):
         return self._blocks
 
 
-def _cached_scanner(builder, device, fwd_groups, rev_groups) -> DualScanner:
+def _scanners(builder, device, fwd_groups, rev_groups) -> list:
+    """A scanner for each entry of `device` (one device or a sequence)."""
+    return [
+        _cached_scanner(builder, d, fwd_groups, rev_groups) for d in dist.device_list(device)
+    ]
+
+
+def _cached_scanner(builder, device, fwd_groups, rev_groups, pair_step=None) -> DualScanner:
     """DualScanner cached on the builder, its planes shared by every lane-group
-    layout on one device, so repeated engine passes build the planes once."""
+    layout and route on one device, so repeated engine passes build the
+    planes once.  The route (`DualScanner`'s pair_step) defaults to
+    SIGA_PAIR_STEP's."""
+    (device,) = dist.device_list(device)  # "cuda" is the current card's index
     scanners = builder.__dict__.setdefault("_scanners", {})
-    key = (str(device), fwd_groups, rev_groups)
+    pair = pair_step_default() if pair_step is None else bool(pair_step)
+    key = (str(device), fwd_groups, rev_groups, pair)
     if key not in scanners:
         planes = builder.__dict__.setdefault("_dfms", {})
         if str(device) not in planes:
             planes[str(device)] = (
                 DeviceFM(builder.fmi, device), DeviceFM(builder.rfmi, device)
             )
-        scanners[key] = DualScanner(*planes[str(device)], fwd_groups, rev_groups)
+        scanners[key] = DualScanner(*planes[str(device)], fwd_groups, rev_groups, pair)
     return scanners[key]
 
 

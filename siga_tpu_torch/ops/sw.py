@@ -93,16 +93,12 @@ def sw_wavefront(queries, refs, match, mismatch, gap_open, gap_extend):
     if M + 1 > 1024:
         raise ValueError(f"sw_wavefront: query length {M} above the kernel's 1023")
     best, qend, rend = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
-    kernels.check(
-        kernels.lib().siga_sw_wavefront(
-            queries.data_ptr(), refs.data_ptr(), B, M, N,
-            match, mismatch, gap_open, gap_extend,
-            best.data_ptr(), qend.data_ptr(), rend.data_ptr(),
-            kernels.stream_ptr(dev),
-        ),
-        "sw_wavefront",
+    kernels.launch(
+        "sw_wavefront", dev, kernels.lib().siga_sw_wavefront,
+        queries.data_ptr(), refs.data_ptr(), B, M, N,
+        match, mismatch, gap_open, gap_extend,
+        best.data_ptr(), qend.data_ptr(), rend.data_ptr(),
     )
-    kernels.launches["sw_wavefront"] += 1
     return best, qend, rend
 
 

@@ -54,10 +54,6 @@ def _check_range(name: str, idx: torch.Tensor, hi: int) -> None:
         raise ValueError(f"{name}: values in [{lo_v}, {hi_v}], want [0, {hi})")
 
 
-def _launch(name: str, rc: int) -> None:
-    """Raise on a failed launch, else count it."""
-    kernels.check(rc, name)
-    kernels.launches[name] += 1
 
 
 # ---- G1: row gather ------------------------------------------------------
@@ -78,9 +74,8 @@ def gather_rows(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check("idx", idx, dev, 1)
     (R, C), Q = plane.shape, idx.shape[0]
     out = torch.empty((Q, C), dtype=torch.int32, device=dev)
-    _launch("gather_rows", kernels.lib().siga_gather_rows(
-        plane.data_ptr(), idx.data_ptr(), R, Q, C, out.data_ptr(), kernels.stream_ptr(dev),
-    ))
+    kernels.launch("gather_rows", dev, kernels.lib().siga_gather_rows,
+                   plane.data_ptr(), idx.data_ptr(), R, Q, C, out.data_ptr())
     return out
 
 
@@ -173,10 +168,9 @@ def take_along(table: torch.Tensor, index: torch.Tensor, axis: int) -> torch.Ten
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     form, tile = take_along_plan(A, B, Q, axis, sms)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
-    _launch("take_along", kernels.lib().siga_take_along(
-        table.data_ptr(), index.data_ptr(), A, B, Q, si0, si1, axis, form, tile,
-        out.data_ptr(), kernels.stream_ptr(dev),
-    ))
+    kernels.launch("take_along", dev, kernels.lib().siga_take_along,
+                   table.data_ptr(), index.data_ptr(), A, B, Q, si0, si1, axis, form, tile,
+                   out.data_ptr())
     return out
 
 
@@ -223,24 +217,25 @@ def gather_chain(table, init, c: Optional[torch.Tensor], steps: int, mode: str):
     if N + steps >= 2**31 or steps < 0:
         raise ValueError(f"gather_chain: modulus {N} with {steps} steps")
     sw, sx = table.stride()
-    lib, stream = kernels.lib(), kernels.stream_ptr(dev)
+    lib = kernels.lib()
     out = torch.empty_like(init)
     if mode == "sum":
         _check("init", init, dev, 1)
         _check("c", c, dev, 1)
-        rc = lib.siga_gather_chain_sum(
+        kernels.launch(
+            "gather_chain", dev, lib.siga_gather_chain_sum,
             table.data_ptr(), sw, sx, W, N, init.data_ptr(), c.data_ptr(), c.numel(),
-            steps, init.numel(), out.data_ptr(), stream,
+            steps, init.numel(), out.data_ptr(),
         )
     else:
         _check("init", init, dev, 2)
         if init.shape[0] != W:
             raise ValueError(f"gather_chain: init rows {init.shape[0]} != table rows {W}")
-        rc = lib.siga_gather_chain_elem(
+        kernels.launch(
+            "gather_chain", dev, lib.siga_gather_chain_elem,
             table.data_ptr(), sw, sx, W, N, init.data_ptr(), init.shape[1], steps,
-            out.data_ptr(), stream,
+            out.data_ptr(),
         )
-    _launch("gather_chain", rc)
     return out
 
 
@@ -283,9 +278,8 @@ def scale2(x: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return scale2_plain(x)
     out, head, nvec = scale2_out(x)
-    _launch("scale2", kernels.lib().siga_scale2(
-        x.data_ptr(), x.numel(), head, nvec, out.data_ptr(), kernels.stream_ptr(dev),
-    ))
+    kernels.launch("scale2", dev, kernels.lib().siga_scale2,
+                   x.data_ptr(), x.numel(), head, nvec, out.data_ptr())
     return out
 
 
@@ -459,7 +453,7 @@ def stacked_plane(prefix: str, device) -> torch.Tensor:
     from ..ops.fm_device import DeviceFM, DualScanner
 
     fwd, rev = (DeviceFM(FMIndex.load(prefix + ext), device) for ext in (BWT_EXT, RBWT_EXT))
-    return DualScanner(fwd, rev).plane
+    return DualScanner(fwd, rev, pair_step=True).plane
 
 
 def main(argv=None) -> int:
