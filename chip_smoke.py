@@ -62,10 +62,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  12. K3 against its plain version, bit for bit, on the first full chunk
      (60,608 lanes; timed, with its bounds; split over several launches by
      a small slab budget) and on the rmdup lane groups; the chunk's views
-     through K3 equal K1's; then K1 and K3 at that chunk in a process of
-     their own, each wrapper call split by a torch.profiler trace into the
-     scan kernel's device time and the compaction's, beside its wall by
-     CUDA events (5 calls in turn with the other);
+     through K3 equal K1's; then the index-sharded scan (K3 reading its rows
+     through a table of D row shards of the 25.2 MB stacked single-step
+     plane, D = 2 and 4 separate allocations on [cuda:0] * D): against its
+     plain version bit for bit on the rmdup lane groups (and for D = 2 at
+     the first chunk), its views at the first chunk equal K3's, its wrapper
+     timed in turn with K3's beside the bounds; then the dry run
+     (`siga_tpu_torch/dryrun.py`) over [cuda:0] * 4, counts reset just
+     before it (the sharded scan must launch); then K1, K3 and the sharded
+     scan (D = 2, 4) at that chunk in a process of their own, each wrapper
+     call split by a torch.profiler trace into the scan kernel's device
+     time and the compaction's, beside its wall by CUDA events (5 calls in
+     turn with the others);
  13. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
      (its genome and generator), its eleven stages (PIPE_STAGES) through
      `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
@@ -77,7 +85,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      with the `--no-opposite-strand` lane groups: the first chunk of
      `reads.ec.fa` at -m 85, and all contigs in one length-sorted chunk at
      -m 10; each timed beside its bounds; at the contigs K3's views equal
-     K1's and K3 is timed beside its bounds;
+     K1's and K3 is timed beside its bounds, and the sharded scan's views
+     (D = 2, 4 on [cuda:0] * D) equal K3's, its time per step beside K3's;
  15. `correct` of every 8th preprocessed read against the whole read set's
      index (K7 and K2 must launch): its records must equal those reads' records in
      the pipeline's `reads.ec.fa`; the k-mers a launch held on average;
@@ -123,7 +132,7 @@ import time
 import numpy as np
 import torch
 
-from siga_tpu_torch import cli, kernels
+from siga_tpu_torch import cli, dryrun, kernels
 from siga_tpu_torch.core import dna
 from siga_tpu_torch.device import native_lib
 from siga_tpu_torch.index import sa as sa_mod
@@ -149,7 +158,8 @@ PROBE_LANES = 60608  # lanes of one overlap chunk (15,152 reads x 4 orientations
 PROBE_STEPS = 150
 PROBE_ROUNDS = 5  # G2 and G4 timed in turn with their library call, this many rounds
 PLANE_ROUNDS = 5  # K2 and its plain version timed in turn, this many builds each
-SCAN_ROUNDS = 5  # K1 and K3 timed in turn and traced, this many calls each
+SCAN_ROUNDS = 5  # K1, K3 and the sharded scan timed in turn and traced, this many calls each
+SHARDS = (2, 4)  # the index-sharded scan's shard counts, D allocations on cuda:0 each
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
@@ -889,14 +899,21 @@ def in_child(fn_name: str):
     return json.loads(row)
 
 
+def sharded_scanner(fms, groups, d: int):
+    """The index-sharded scanner over [cuda:0] * d: the stacked single-step
+    plane of `fms` packed on the host and split into d allocations."""
+    return fm_device.DualScanner(*fms, *groups, devices=[torch.device("cuda", 0)] * d)
+
+
 def time_scans(dev):
-    """K1 and K3 through their wrappers (`scan_pair`, `scan_single`) on the
+    """K1, K3 and the index-sharded scan (D in SHARDS) through their
+    wrappers (`scan_pair`, `scan_single`, `scan_single_sharded`) on the
     first full chunk of the main path's reads, in a process of its own: a
     wrapper call is the scan kernel, the slab compaction (torch operations)
     and one synchronisation.  A torch.profiler trace of SCAN_ROUNDS calls
     of each gives every call's kernel device time and the device time of
     the rest; CUDA events give each wrapper's wall over SCAN_ROUNDS calls in
-    turn with the other.  Returns {name: median kernel device ms}."""
+    turn with the others.  Returns {label: median kernel device ms}."""
     seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
     chunk = seqs[: search.chunk_size(len(seqs))]
     maxlen = search._bucket_len(max(map(len, chunk)))
@@ -904,16 +921,22 @@ def time_scans(dev):
     lim_t = min(maxlen - 1, int(lens.max()) - 1)
     reads = (torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev))
     fms = [fm_device.DeviceFM(FMIndex.load(f"reads.{ext}"), dev) for ext in ("bwt", "rbwt")]
-    calls = {}
+    calls = {}  # label: (kernel name, wrapper call)
     for name, pair in (("scan_pair", True), ("scan_single", False)):
         sc = fm_device.DualScanner(*fms, *FWD_REV, pair_step=pair)
         args = ((sc.plane, sc.K2) if pair else (sc.plane,)) + (
             sc.pred, sc.length, sc.nblocks, *reads, lim_t, MIN_OVERLAP, sc.fwd_groups,
             sc.rev_groups)
-        calls[name] = functools.partial(getattr(fm_device, name), *args)
-    walls = dict(zip(calls, alternate(list(calls.values()), 1, SCAN_ROUNDS)))
+        calls[name] = (name, functools.partial(getattr(fm_device, name), *args))
+    for d in SHARDS:
+        sc = sharded_scanner(fms, FWD_REV, d)
+        args = (sc.shards, sc.pred, sc.length, sc.nblocks, *reads, lim_t, MIN_OVERLAP, *FWD_REV)
+        calls[f"scan_single_sharded D={d}"] = (
+            "scan_single_sharded", functools.partial(fm_device.scan_single_sharded, *args))
+    walls = dict(zip(calls, alternate([fn for _name, fn in calls.values()], 1, SCAN_ROUNDS)))
     kernel_ms = {}
-    for name, fn in calls.items():
+    card = card_line()
+    for label, (name, fn) in calls.items():
 
         def rounds(fn=fn):
             for _ in range(SCAN_ROUNDS):
@@ -923,19 +946,19 @@ def time_scans(dev):
         mine = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA and f"{name}_kernel" in e.name]
         if len(mine) != SCAN_ROUNDS:
-            print(f"{name}: the trace holds {len(mine)} kernel spans for {SCAN_ROUNDS} calls: "
+            print(f"{label}: the trace holds {len(mine)} kernel spans for {SCAN_ROUNDS} calls: "
                   f"kernel device time not measured")
-            kernel_ms[name] = None
+            kernel_ms[label] = None
             continue
         rest = (dev_ms - sum(mine)) / SCAN_ROUNDS
-        kernel_ms[name] = float(np.median(mine))
-        print(f"{name} first chunk ({len(chunk)} reads, {4 * len(chunk)} lanes), a process of "
+        kernel_ms[label] = float(np.median(mine))
+        print(f"{label} first chunk ({len(chunk)} reads, {4 * len(chunk)} lanes), a process of "
               f"its own: kernel device time (torch.profiler, {SCAN_ROUNDS} calls) "
               f"{spread(mine)}; the rest of a call's device time {rest:.4f} ms in "
               f"{(n_ops - len(mine)) / SCAN_ROUNDS:.0f} operations ({top_ops(by_name, 4)}); "
-              f"the wrapper's wall (CUDA events, {SCAN_ROUNDS} calls in turn with the other) "
-              f"{spread(walls[name])}, the card idle for "
-              f"{np.median(walls[name]) - kernel_ms[name] - rest:.4f} ms of it")
+              f"the wrapper's wall (CUDA events, {SCAN_ROUNDS} calls in turn with the others) "
+              f"{spread(walls[label])}, the card idle for "
+              f"{np.median(walls[label]) - kernel_ms[label] - rest:.4f} ms of it [{card}]")
     return kernel_ms
 
 
@@ -1082,6 +1105,88 @@ def check_single_kernel(dev, builder, seqs, step_ns):
     return row
 
 
+def check_sharded_kernel(dev, builder, seqs, step_ns):
+    """The index-sharded scan on the main path's index, for D in SHARDS on
+    [cuda:0] * D (D separate allocations, so the shard table routes every
+    row read): the kernel against its plain version, bit for bit, on the
+    rmdup lane groups and, for D = 2, on the first full chunk (timed beside
+    its plain version there); the first chunk's views against the
+    replicated K3's; its wrapper and K3's in turn (3 rounds of 5 calls),
+    beside the bounds, which are K3's (the same bytes move).  Returns the
+    kernel's row of the JSON line (D = 2, the first chunk)."""
+    fms = (fm_device.DeviceFM(builder.fmi, dev), fm_device.DeviceFM(builder.rfmi, dev))
+    k3 = search._cached_scanner(builder, dev, *FWD_REV, pair_step=False)
+    card = card_line()
+
+    def packed(chunk_seqs):
+        maxlen = search._bucket_len(max(map(len, chunk_seqs)))
+        la_w, lens = fm_device.pack_reads_2bit(chunk_seqs, len(chunk_seqs), maxlen)
+        lim_t = min(maxlen - 1, int(lens.max()) - 1)
+        return maxlen, la_w, lens, (torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev),
+                                    lim_t)
+
+    first = seqs[: search.chunk_size(len(seqs))]
+    maxlen, la_w, lens, reads = packed(first)
+    lim_t = reads[2]
+    _rm_maxlen, _rm_la, _rm_lens, rm_reads = packed(seqs[:2048])
+    want = k3.collect(k3.dispatch(first, len(first), maxlen, MIN_OVERLAP))
+    k3_args = (k3.plane, k3.pred, k3.length, k3.nblocks, *reads, MIN_OVERLAP, *FWD_REV)
+    err_all, row = 0, None
+    for d in SHARDS:
+        sc = sharded_scanner(fms, FWD_REV, d)
+        rows = [int(s.shape[0]) for s in sc.shards]
+        head = (sc.shards, sc.pred, sc.length, sc.nblocks)
+        rm_args = (*head, *rm_reads, READ_LEN + 17, *RMDUP)
+        err = max_abs_err(fm_device.scan_single_sharded(*rm_args),
+                          fm_device.scan_single_sharded_plain(*rm_args))
+        assert views_equal(sc.collect(sc.dispatch(first, len(first), maxlen, MIN_OVERLAP)), want), \
+            f"the sharded scan's views (D = {d}) differ from K3's at the first chunk"
+        args = (*head, *reads, MIN_OVERLAP, *FWD_REV)
+        plain_ms = None
+        if d == SHARDS[0]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            plain = fm_device.scan_single_sharded_plain(*args)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = max(err, max_abs_err(fm_device.scan_single_sharded(*args), plain))
+        err_all = max(err_all, err)
+        ms, k3_ms = alternate([lambda: fm_device.scan_single_sharded(*args),
+                               lambda: fm_device.scan_single(*k3_args)], 5, 3)
+        out = fm_device.scan_single_sharded(*args)
+        bound, traffic = scan_bound(lens, lim_t, 4, sc.nblocks, la_w.shape[1], int(out[0][0]),
+                                    single=True)
+        live = live_steps(lens, lim_t, 4)
+        chain = (live.max() + 2) * step_ns / 1e6
+        plain_text = f"; plain {plain_ms:.3f} ms (CUDA events, one call)" if plain_ms else ""
+        print(f"sharded K3, D = {d} on [cuda:0] x {d} (shard rows {rows}): max_abs_err {err} "
+              f"(rmdup groups{', first chunk' if plain_ms else ''}); first chunk "
+              f"({len(first)} reads, {4 * len(first)} lanes) views equal K3's; wrapper "
+              f"{spread(ms)}, K3's {spread(k3_ms)} (CUDA events, 3 rounds of 5 calls in turn)"
+              f"{plain_text}; bound {bound:.4f} ms (bytes, as K3's), row reads with re-reads "
+              f"{bytes_ms(traffic):.4f} ms at HBM rate, chain of {int(live.max()) + 2} dependent "
+              f"row reads at G3's {step_ns:.1f} ns {chain:.4f} ms [{card}]", flush=True)
+        if d == SHARDS[0]:
+            row = kernel_row(0, float(np.median(ms)), plain_ms, bound, "bytes", None)
+    assert err_all == 0
+    row["max_abs_err"] = err_all
+    return row
+
+
+def run_dryrun():
+    """The port's multi-device dry run over [cuda:0] * 4, counts reset just
+    before it: the index-sharded scan must launch.  Returns its counts."""
+    kernels.reset_launches()
+    t0 = time.time()
+    out = dryrun.dryrun_multidevice([torch.device("cuda", 0)] * 4)
+    ran = dict(kernels.launches)
+    print(f"dryrun_multidevice([cuda:0] x 4): {time.time() - t0:.3f} s, {out}; launches {ran}")
+    assert ran["scan_single_sharded"] >= 1, ran
+    return ran
+
+
 def kernel_row(err, ms, plain_ms, bound, bound_by, library_ms):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -1165,6 +1270,19 @@ def check_single_contigs(fms, groups, chunk, maxlen, mo, pair_args, step_ns):
           f"once), row reads with re-reads {bytes_ms(traffic):.4f} ms at HBM rate, longest lane "
           f"{int(live.max())} steps = {live.max() * step_ns / 1e6:.4f} ms of dependent steps at "
           f"G3's {step_ns:.1f} ns", flush=True)
+    views = sc.collect(sc.dispatch(chunk, len(chunk), maxlen, mo))
+    card = card_line()
+    per_step = {}
+    for d in SHARDS:
+        sh = sharded_scanner(fms, groups, d)
+        assert views_equal(sh.collect(sh.dispatch(chunk, len(chunk), maxlen, mo)), views), \
+            f"the sharded scan's views (D = {d}) differ from K3's at the contigs"
+        sargs = (sh.shards, pred, length, nblocks, la_w, lens, lim_t, mo, *groups)
+        ms_d = cuda_ms(lambda: fm_device.scan_single_sharded(*sargs), 3)
+        per_step[d] = ms_d * 1e3 / live.max()
+        print(f"sharded K3 contigs, D = {d} on [cuda:0] x {d}: views equal K3's; {ms_d:.4f} ms, "
+              f"{per_step[d]:.4f} us a step of the longest lane (K3 {ms:.4f} ms, "
+              f"{ms * 1e3 / live.max():.4f} us a step) [{card}]", flush=True)
 
 
 def check_sw_kernel(dev):
@@ -1473,9 +1591,16 @@ def main(argv=None) -> int:
               f"{READ_LEN + 1} dependent row reads at {step_ns:.1f} ns {by_chain:.4f} ms)")
         phase("K3 against its plain version, and its views against K1's")
         k3 = check_single_kernel(dev, builder, seqs, step_ns)
-        phase("K1 and K3 at the first chunk, kernel and compaction apart (torch.profiler)")
+        phase("the index-sharded scan on [cuda:0] x D against its plain version and K3")
+        ks = check_sharded_kernel(dev, builder, seqs, step_ns)
+        phase("the port's multi-device dry run over [cuda:0] x 4")
+        for name, n in run_dryrun().items():
+            launches[name] += n
+        phase("K1, K3 and the sharded scan at the first chunk, kernel and compaction apart "
+              "(torch.profiler)")
         scan_device_ms = in_child("time_scans")
         k1["device_ms"], k3["device_ms"] = scan_device_ms["scan_pair"], scan_device_ms["scan_single"]
+        ks["device_ms"] = scan_device_ms[f"scan_single_sharded D={SHARDS[0]}"]
         del builder, hits
         torch.cuda.empty_cache()
         pipe_dir = keep or os.path.join(workdir, "pipeline")
@@ -1506,6 +1631,8 @@ def main(argv=None) -> int:
         ("pair_plane", "siga_tpu_torch/csrc/pair_plane.cu", "siga_tpu/ops/fm_device.py:702", k2),
         ("scan_pair", "siga_tpu_torch/csrc/scan_pair.cu", "siga_tpu/ops/fm_device.py:858", k1),
         ("scan_single", "siga_tpu_torch/csrc/scan_single.cu", "siga_tpu/ops/fm_device.py:504", k3),
+        ("scan_single_sharded", "siga_tpu_torch/csrc/scan_single.cu",
+         "siga_tpu/ops/fm_device.py:1165", ks),
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
         ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:23", k7),
     ] + [

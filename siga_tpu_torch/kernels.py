@@ -34,8 +34,9 @@ NVCC_FLAGS = [
 ]
 
 launches = {
-    "pair_plane": 0, "scan_pair": 0, "scan_single": 0, "sw_wavefront": 0, "kmer_count": 0,
-    "gather_rows": 0, "take_along": 0, "gather_chain": 0, "scale2": 0,
+    "pair_plane": 0, "scan_pair": 0, "scan_single": 0, "scan_single_sharded": 0,
+    "sw_wavefront": 0, "kmer_count": 0, "gather_rows": 0, "take_along": 0, "gather_chain": 0,
+    "scale2": 0,
 }
 
 _lock = threading.Lock()
@@ -54,10 +55,13 @@ _SIGNATURES = {
     # groups_code, lim_t, p1, t0, lanes, lane_base, nl, cap, then
     # lane_counts, fall, candmask, subwords, slab, stream
     "siga_scan_pair": [_P] * 5 + [_I] * 13 + [_P] * 5 + [_P],
-    # plane, pred, la_words, lens, length, nblocks, n, wpr, nfwd,
-    # groups_code, lim_t, p1, lanes, lane_base, nl, cap, then
-    # lane_counts, fall, candmask, subwords, slab, stream
-    "siga_scan_single": [_P] * 4 + [_I] * 12 + [_P] * 5 + [_P],
+    # shards (host array of nshards pointers), nshards, bps, pred, la_words,
+    # lens, length, nblocks, n, wpr, nfwd, groups_code, lim_t, p1, lanes,
+    # lane_base, nl, cap, then lane_counts, fall, candmask, subwords, slab,
+    # stream
+    "siga_scan_single": [_P, _I, _I] + [_P] * 3 + [_I] * 12 + [_P] * 5 + [_P],
+    # peer: let the current card read that card's memory
+    "siga_enable_peer_access": [_I],
     # threads a lane of siga_scan_pair and a k-mer of siga_kmer_count
     "siga_lane_group": [],
     # queries, refs, B, M, N, match, mismatch, open, extend, best, qend,

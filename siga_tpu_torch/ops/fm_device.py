@@ -24,6 +24,13 @@ over the single-step plane (`single_step_plane_host`, one 16-column row a
 block).  It gives the pair scan's output tuple, so `compact_slab` and
 `DualScanner.collect` serve both routes; there a lane emits at most one
 block a step, and trel counts from t0 = p1 instead of 2 * (p1 // 2).
+
+`DualScanner(..., devices=D devices)` is the JAX package's index-sharded
+capacity mode (`shard_index=True` there): the stacked single-step plane split
+by rows over the devices (`shard_plane`), scanned by `scan_single_sharded`
+(K3 reading each row through a table of the shards, on a CUDA tensor;
+`scan_single_sharded_plain`, whose occ is `occ_single_sharded`, on a CPU
+tensor).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..index.fm import SAMPLE, FMIndex
 
 from .. import kernels
 from ..device import native_lib
+from ..parallel.dist import device_list
 
 PAIR_COLS = 57  # 8 cur + 8 prev + 8 cur$ + 8 prev$ + 25 ckpt (sample=128)
 SINGLE_COLS = 16  # 8 symbol words + 4 '$' words + A, C, G, T ckpt (sample=128)
@@ -108,6 +116,14 @@ class DeviceFM:
             host = self._built("single-step plane")
             self._occ_plane = torch.from_numpy(single_step_plane_host(host)).to(self.device)
         return self._occ_plane
+
+    def single_step_rows(self) -> torch.Tensor:
+        """The single-step plane without building it on `device`: packed on
+        the host (a CPU tensor), or the adopted one where there is no host
+        index (`from_jax_state`)."""
+        if self._host is None:
+            return self.occ_plane
+        return torch.from_numpy(single_step_plane_host(self._host))
 
     @classmethod
     def from_jax_state(cls, plane, K, pred, length: int, nblocks: int, device, occ_plane=None):
@@ -570,18 +586,15 @@ def finish_scan(emitted, valids, singles, lo, hi, rlo, rhi, tab, nblocks: int):
     )
 
 
-def _check_scan_inputs(plane2, cols: int, nblocks: int, pred, la_words, lens, K2=None):
-    """Every scan input a contiguous int32 tensor of its shape on plane2's
-    device (the single-step scan has no K2)."""
-    dev = plane2.device
+def _check_lane_inputs(dev, pred, la_words, lens, more=()):
+    """pred, la_words, lens and the (name, tensor, shape) of `more`, each a
+    contiguous int32 tensor of its shape on `dev`."""
     inputs = [
-        ("plane2", plane2, (2 * nblocks, cols)),
         ("pred", pred, (5,)),
         ("la_words", la_words, None),
         ("lens", lens, (la_words.shape[0],)),
+        *more,
     ]
-    if K2 is not None:
-        inputs.append(("K2", K2, (2, 5, 5)))
     for name, x, shape in inputs:
         if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{name}: want a contiguous int32 tensor on {dev}")
@@ -674,7 +687,8 @@ def scan_pair(
         )
     if dev.type != "cuda":
         raise ValueError(f"scan_pair: unsupported device {dev}")
-    _check_scan_inputs(plane2, PAIR_COLS, nblocks, pred, la_words, lens, K2)
+    _check_lane_inputs(dev, pred, la_words, lens,
+                       [("plane2", plane2, (2 * nblocks, PAIR_COLS)), ("K2", K2, (2, 5, 5))])
     p1, t0 = _scan_params(lim_t, min_overlap)
     n, wpr = la_words.shape
     groups = tuple(fwd_groups) + tuple(rev_groups)
@@ -731,28 +745,85 @@ def scan_on_card(name: str, entry, L: int, cap: int, dev, slab_bytes: int | None
 
 _NWORDS = SAMPLE // 16  # single-step plane: symbol words a row
 _NDWORDS = SAMPLE // 32  # single-step plane: '$' mask words a row
-def occ_single(plane2: torch.Tensor, nblocks: int, i: torch.Tensor, tabs: torch.Tensor):
-    """Inclusive occ counts int64 [5, Q] of positions i [Q] (>= -1), each in
-    the table of the stacked single-step plane (int32 [2 * nblocks, 16])
-    whose rows start at tabs [Q].  Port of `occ_all_fused_T` and
-    `_occ_from_rows`: popcounts of the symbol words below the position, the
-    A count less the '$' bits (which pack as A), and base_$ = block * 128 -
-    the ACGT checkpoints.  Position 0 (i = -1) reads no bit: all zero."""
+MAX_SHARDS = 16  # rows of the shard table (csrc/scan_single.cu kMaxShards)
+
+
+def _single_rows(nblocks: int, i: torch.Tensor, tabs: torch.Tensor):
+    """(row, block0, tail) of positions i [Q] (>= -1) in the tables of the
+    stacked single-step plane whose rows start at tabs [Q]: the global row
+    that holds each, clamped to the plane's 2 * nblocks rows, so that no
+    query reads past the plane."""
     pos = i + 1
     block0 = torch.div(pos, SAMPLE, rounding_mode="floor")
-    rowsT = plane2[(block0 + tabs).clamp(0, 2 * nblocks - 1)].T.to(torch.int64)
-    tail = pos - block0 * SAMPLE
+    return (block0 + tabs).clamp(0, 2 * nblocks - 1), block0, pos - block0 * SAMPLE
+
+
+def _occ_from_single_rows(rowsT: torch.Tensor, block0: torch.Tensor, tail: torch.Tensor):
+    """Inclusive occ counts int64 [5, Q] from gathered single-step rows
+    (rowsT int64 [16, Q]): popcounts of the symbol words below the
+    position, the A count less the '$' bits (which pack as A), and base_$ =
+    block * 128 - the ACGT checkpoints.  Port of `_occ_from_rows`."""
     w = rowsT[:_NWORDS] & _U32
     d = rowsT[_NWORDS : _NWORDS + _NDWORDS] & _U32
     base_acgt = rowsT[_NWORDS + _NDWORDS :]
     wmask = _tail_wmask(tail)
-    dvalid = (tail[None, :] - (torch.arange(_NDWORDS, device=i.device) * 32)[:, None]).clamp(0, 32)
+    word0 = (torch.arange(_NDWORDS, device=tail.device) * 32)[:, None]
+    dvalid = (tail[None, :] - word0).clamp(0, 32)
     dmask = torch.where(dvalid == 32, _U32, (torch.ones_like(dvalid) << dvalid) - 1)
     n_dollar = _popsum(d & dmask)
     acgt = [_popsum(_match2(w, p) & wmask) for p in (0, _LO_BITS, 0xAAAAAAAA, _U32)]
     acgt[0] = acgt[0] - n_dollar  # '$' packs as A
     base_dollar = block0 * SAMPLE - base_acgt.sum(dim=0)
     return torch.stack([base_dollar + n_dollar] + [base_acgt[k] + acgt[k] for k in range(4)])
+
+
+def occ_single(plane2: torch.Tensor, nblocks: int, i: torch.Tensor, tabs: torch.Tensor):
+    """Inclusive occ counts int64 [5, Q] of positions i [Q] (>= -1), each in
+    the table of the stacked single-step plane (int32 [2 * nblocks, 16])
+    whose rows start at tabs [Q].  Port of `occ_all_fused_T`.  Position 0
+    (i = -1) reads no bit: all zero."""
+    row, block0, tail = _single_rows(nblocks, i, tabs)
+    return _occ_from_single_rows(plane2[row].T.to(torch.int64), block0, tail)
+
+
+def shard_rows(nblocks: int, d: int) -> int:
+    """Rows a shard holds when the stacked single-step plane (2 * nblocks
+    rows) is split into d contiguous row ranges: ceil(2 * nblocks / d); the
+    last shards hold fewer, or none."""
+    return -(-2 * nblocks // d)
+
+
+def shard_plane(stacked: torch.Tensor, devices) -> list:
+    """The stacked single-step plane (int32 [2 * nblocks, 16], on the host or
+    one device) cut into len(devices) contiguous row ranges of
+    `shard_rows` rows, range k copied into an allocation of its own on
+    devices[k]."""
+    bps = shard_rows(stacked.shape[0] // 2, len(devices))
+    shards = []
+    for k, device in enumerate(devices):
+        part = stacked[k * bps : (k + 1) * bps]
+        shards.append(torch.empty(part.shape, dtype=torch.int32, device=device).copy_(part))
+    return shards
+
+
+def occ_single_sharded(shards, nblocks: int, i: torch.Tensor, tabs: torch.Tensor):
+    """`occ_single` over the stacked single-step plane split into row shards
+    (`shard_plane`): each shard counts the queries whose global row it holds
+    and 0 for the others, on its own device; the answers are moved to i's
+    device and summed.  Port of `occ_all_fused_sharded_T`, whose psum over
+    the mesh the sum is.  The global row is clamped first, so no shard reads
+    past the plane and a short or empty last shard needs no padding."""
+    row, block0, tail = _single_rows(nblocks, i, tabs)
+    bps = shard_rows(nblocks, len(shards))
+    total = torch.zeros((5, i.numel()), dtype=torch.int64, device=i.device)
+    for k, shard in enumerate(shards):
+        if shard.shape[0] == 0:  # past the plane: owns no row
+            continue
+        dev = shard.device
+        local = (row - k * bps).clamp(0, shard.shape[0] - 1).to(dev)
+        counts = _occ_from_single_rows(shard[local].T.to(torch.int64), block0.to(dev), tail.to(dev))
+        total += torch.where((row // bps == k)[None, :], counts.to(i.device), 0)
+    return total
 
 
 def scan_single_plain(
@@ -769,14 +840,39 @@ def scan_single_plain(
     a lane's steps with t > len - 2 change nothing.  Inputs as
     `scan_pair_plain`'s, with the stacked [2*nblocks, 16] single-step plane
     and no K2; outputs as its, with trel = t - p1."""
-    dev = plane2.device
+    return _scan_single_steps(
+        functools.partial(occ_single, plane2, nblocks), pred, length, nblocks,
+        la_words, lens, lim_t, min_overlap, fwd_groups, rev_groups,
+    )
+
+
+def scan_single_sharded_plain(
+    shards, pred, length: int, nblocks: int, la_words, lens,
+    lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+):
+    """`scan_single_plain` over the stacked single-step plane split into row
+    shards (`shard_plane`), its occ counts from `occ_single_sharded`: the
+    reference for the CUDA kernel behind `scan_single_sharded` and the path
+    it takes on the CPU.  Port of `_build_sharded_scan` (`_scan_packed_core`
+    under shard_map, one psum a step).  The lanes, pred and the outputs are
+    on la_words' device."""
+    return _scan_single_steps(
+        functools.partial(occ_single_sharded, shards, nblocks), pred, length, nblocks,
+        la_words, lens, lim_t, min_overlap, fwd_groups, rev_groups,
+    )
+
+
+def _scan_single_steps(
+    occ, pred, length: int, nblocks: int, la_words, lens,
+    lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+):
+    """The single-step scan of `scan_single_plain`, its occ counts from
+    `occ(i, tabs)` (inclusive, int64 [5, Q])."""
+    dev = la_words.device
     charsT, lens_all, _is_fwd, tab = scan_lanes(la_words, lens, nblocks, fwd_groups, rev_groups)
     L = charsT.shape[1]
     tab2 = torch.cat([tab, tab])
     pred64 = pred.to(torch.int64)
-
-    def occ(i, tabs):
-        return occ_single(plane2, nblocks, i, tabs)
 
     c0 = charsT[-1]  # the lane's first symbol s'[l-1]
     lo = pred64[c0]
@@ -816,26 +912,93 @@ def scan_single(
     `scan_single_plain` on CPU tensors; same arguments and outputs.  On CUDA
     one launch scans all lanes in one pass into per-lane slabs, split over
     several launches where the slabs would not fit in `slab_bytes` (default
-    a third of the free device memory), as `scan_pair` does."""
-    dev = plane2.device
+    a third of the free device memory), as `scan_pair` does.  It is
+    `scan_single_sharded` with the whole plane as its one shard."""
+    return scan_single_sharded(
+        [plane2], pred, length, nblocks, la_words, lens,
+        lim_t, min_overlap, fwd_groups, rev_groups, slab_bytes,
+    )
+
+
+def _check_shards(shards, nblocks: int) -> int:
+    """Raise unless `shards` are 1 to MAX_SHARDS contiguous int32 CUDA
+    tensors of the rows `shard_plane` gives each; returns their stride."""
+    if not 1 <= len(shards) <= MAX_SHARDS:
+        raise ValueError(f"{len(shards)} shards: the shard table holds 1 to {MAX_SHARDS}")
+    bps = shard_rows(nblocks, len(shards))
+    for k, shard in enumerate(shards):
+        want = (min(bps, max(2 * nblocks - k * bps, 0)), SINGLE_COLS)
+        if (shard.device.type != "cuda" or shard.dtype != torch.int32
+                or not shard.is_contiguous() or tuple(shard.shape) != want):
+            raise ValueError(f"shard {k}: want a contiguous int32 CUDA tensor of shape {want}")
+    return bps
+
+
+_PEER_ACCESS = set()  # (card, peer) index pairs whose peer access is enabled
+
+
+def _enable_peers(dev: torch.device, shards) -> None:
+    """Let `dev` read every shard on another card, once a pair: raises,
+    before anything is enabled or launched, naming a pair without peer
+    access (a read through such a pointer would be a fault that ends the
+    process)."""
+    pairs = sorted({(dev.index, s.device.index) for s in shards if s.device != dev} - _PEER_ACCESS)
+    for card, peer in pairs:
+        if not torch.cuda.can_device_access_peer(card, peer):
+            raise ValueError(f"shards on cuda:{peer}: {dev} cannot read them (no peer access)")
+    for card, peer in pairs:
+        with torch.cuda.device(card):
+            kernels.check(kernels.lib().siga_enable_peer_access(peer),
+                          f"peer access {dev} -> cuda:{peer}")
+        _PEER_ACCESS.add((card, peer))
+
+
+def scan_single_sharded(
+    shards, pred, length: int, nblocks: int, la_words, lens,
+    lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+    slab_bytes: int | None = None,
+):
+    """The single-step scan over the stacked single-step plane split into
+    row shards (`shard_plane`, shard k on a device of its own, or D
+    allocations on one card); one shard is the whole plane (`scan_single`).
+    On CUDA every lane runs on la_words' card, in one C entry: one shard
+    launches K3 (counted as `scan_single`), more launch K3 reading each row
+    from the shard that owns it through a table of the shards' base pointers
+    (counted as `scan_single_sharded`).  A shard on another card is a peer
+    read, so every such pair must have peer access (enabled at its first
+    use; a pair without it raises before any launch).  The slabs split as
+    `scan_pair`'s do, sized by la_words' card's free memory.  On CPU tensors
+    `scan_single_plain` (one shard) or `scan_single_sharded_plain`; same
+    arguments and outputs as `scan_single`, with `shards` in place of the
+    plane."""
+    dev = la_words.device
     if dev.type == "cpu":
-        return scan_single_plain(
-            plane2, pred, length, nblocks, la_words, lens,
+        if len(shards) == 1:
+            return scan_single_plain(
+                shards[0], pred, length, nblocks, la_words, lens,
+                lim_t, min_overlap, fwd_groups, rev_groups,
+            )
+        return scan_single_sharded_plain(
+            shards, pred, length, nblocks, la_words, lens,
             lim_t, min_overlap, fwd_groups, rev_groups,
         )
     if dev.type != "cuda":
         raise ValueError(f"scan_single: unsupported device {dev}")
-    _check_scan_inputs(plane2, SINGLE_COLS, nblocks, pred, la_words, lens)
+    bps = _check_shards(shards, nblocks)
+    _check_lane_inputs(dev, pred, la_words, lens)
+    _enable_peers(dev, shards)
+    table = (ctypes.c_void_p * len(shards))(*(s.data_ptr() for s in shards))
     p1, _t0 = _scan_params(lim_t, min_overlap)
     n, wpr = la_words.shape
     groups = tuple(fwd_groups) + tuple(rev_groups)
     entry = functools.partial(
         kernels.lib().siga_scan_single,
-        plane2.data_ptr(), pred.data_ptr(), la_words.data_ptr(), lens.data_ptr(),
+        table, len(shards), bps, pred.data_ptr(), la_words.data_ptr(), lens.data_ptr(),
         length, nblocks, n, wpr, len(fwd_groups), _groups_code(groups), lim_t, p1,
         n * len(groups),
     )
-    return scan_on_card("scan_single", entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
+    name = "scan_single" if len(shards) == 1 else "scan_single_sharded"
+    return scan_on_card(name, entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
                         slab_bytes)
 
 
@@ -896,22 +1059,48 @@ class DualScanner:
     `pair_step` picks the route: the pair scan K1 over the pair planes
     (True), or the single-step scan K3 (`scan_single`) over the
     single-step planes (False); None reads SIGA_PAIR_STEP as the JAX package
-    does ("0" for the single-step scan, anything else or unset for pairs)."""
+    does ("0" for the single-step scan, anything else or unset for pairs).
+
+    A list of D `devices` (the port's stand-in for the JAX package's mesh
+    in `DualScanner(dfwd, drev, mesh, shard_index=True)`) selects the
+    capacity mode for an index larger than one device: the stacked
+    single-step plane is packed on the host and its rows split into D
+    contiguous ranges, range k copied to devices[k] (`shard_plane`), so no
+    device holds the whole plane and `DeviceFM.occ_plane` is never built;
+    the route is the single-step scan, over the shards
+    (`scan_single_sharded`), with pred and every lane on devices[0].  The
+    views are the replicated scan's.  (The lane split over a device list is
+    `parallel/dist.py`'s.)"""
 
     def __init__(self, dfwd: DeviceFM, drev: DeviceFM,
                  fwd_groups=(GROUP_ID, GROUP_RC),
                  rev_groups=(GROUP_REV, GROUP_COMP),
-                 pair_step: bool | None = None):
+                 pair_step: bool | None = None,
+                 devices=None):
         if (dfwd.length, dfwd.nblocks, dfwd.device) != (
             drev.length, drev.nblocks, drev.device
         ):
             raise ValueError("forward and reverse indexes differ in size or device")
-        self.pair = pair_step_default() if pair_step is None else bool(pair_step)
-        self.device = dfwd.device
         self.length = dfwd.length
         self.nblocks = dfwd.nblocks
         self.fwd_groups = tuple(fwd_groups)
         self.rev_groups = tuple(rev_groups)
+        self.shards = None
+        if devices is not None:
+            devices = device_list(devices)
+            if len(devices) > MAX_SHARDS:
+                raise ValueError(f"{len(devices)} devices: the shard table holds {MAX_SHARDS}")
+            # the sharded capacity mode runs the single-step scan, as in JAX
+            self.pair = False
+            self.device = devices[0]
+            self.shards = shard_plane(
+                torch.cat([dfwd.single_step_rows().cpu(), drev.single_step_rows().cpu()]), devices
+            )
+            self.plane = self.K2 = None
+            self.pred = torch.as_tensor(dfwd.pred, dtype=torch.int32, device=self.device)
+            return
+        self.pair = pair_step_default() if pair_step is None else bool(pair_step)
+        self.device = dfwd.device
         if self.pair:
             self.plane = torch.cat([dfwd.plane, drev.plane]).contiguous()
             self.K2 = torch.stack([dfwd.K, drev.K]).contiguous()
@@ -928,7 +1117,12 @@ class DualScanner:
         lim_t = min(maxlen - 1, int(lens.max()) - 1)
         la_words = torch.from_numpy(la_w).to(self.device)
         lens_d = torch.from_numpy(lens).to(self.device)
-        if self.pair:
+        if self.shards is not None:
+            out = scan_single_sharded(
+                self.shards, self.pred, self.length, self.nblocks, la_words, lens_d,
+                lim_t, min_overlap, self.fwd_groups, self.rev_groups,
+            )
+        elif self.pair:
             out = scan_pair(
                 self.plane, self.K2, self.pred, self.length, self.nblocks, la_words, lens_d,
                 lim_t, min_overlap, self.fwd_groups, self.rev_groups,

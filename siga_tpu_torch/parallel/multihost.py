@@ -8,7 +8,8 @@ then emits the ASQG, byte-identical to the single-process run.  The
 processes meet at one barrier of `torch.distributed` over the gloo backend
 (a barrier moves no tensors), set up from the JAX package's environment:
 SIGA_COORDINATOR (host:port of process 0's TCP store), SIGA_NUM_PROCESSES
-and SIGA_PROCESS_ID.  On one machine each process may use the same card.
+and SIGA_PROCESS_ID.  On one machine the launcher gives each worker its share
+of the cores and, on `--device cuda`, one card of its own.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import sys
 import time
 from typing import List, Optional
 
+import torch
 import torch.distributed as dist
 
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -85,9 +87,24 @@ def launch_overlap_2proc(
     shards in this process (`overlap --merge-only -t N`).  On a cluster the
     same thing is N worker invocations (one per machine, shared
     filesystem) and one merge.  A worker that fails stops the others and
-    raises; there is no single-process fallback."""
+    raises; there is no single-process fallback.
+
+    Where the device is bare `cuda` (given or the default), worker I runs
+    on card I mod k of the k local cards, not on all k: each worker already
+    holds a share of the cores.  Another device, and the merge, are passed
+    on as given; with no card the workers raise as `--device cuda` does."""
+    from .. import cli
+
     coordinator = f"127.0.0.1:{coordinator_port or _free_port()}"
     args = ["-m", str(min_overlap), "-p", prefix] + (extra_args or [])
+    rest, device = cli._split_device(extra_args or [])
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+
+    def worker_args(pid):
+        if cards == 0:
+            return args
+        return ["-m", str(min_overlap), "-p", prefix, *rest, "--device", f"cuda:{pid % cards}"]
+
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (PACKAGE_ROOT, env.get("PYTHONPATH")) if p
@@ -99,7 +116,7 @@ def launch_overlap_2proc(
     env.setdefault("OMP_NUM_THREADS", str(max(1, len(os.sched_getaffinity(0)) // num_processes)))
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "siga_tpu_torch", "overlap", *args,
+            [sys.executable, "-m", "siga_tpu_torch", "overlap", *worker_args(pid),
              "--num-processes", str(num_processes), "--process-id", str(pid), input_path],
             env={**env, "SIGA_PROCESS_ID": str(pid)},
         )
@@ -118,8 +135,6 @@ def launch_overlap_2proc(
             if p.poll() is None:
                 p.kill()
             p.wait()
-
-    from .. import cli
 
     rc = cli.main(["overlap", *args, "--merge-only", "-t", str(num_processes), input_path])
     if rc != 0:

@@ -241,7 +241,8 @@ def test_wrapper_refuses_other_devices():
 
 def test_kernel_is_registered():
     sig = kernels._SIGNATURES["siga_scan_single"]
-    assert len(sig) == 22 and sig[:4] == [kernels._P] * 4 and sig[4:16] == [kernels._I] * 12
+    assert len(sig) == 24 and sig[:3] == [kernels._P, kernels._I, kernels._I]
+    assert sig[3:6] == [kernels._P] * 3 and sig[6:18] == [kernels._I] * 12
     assert "scan_single" in kernels.launches
     assert os.path.exists(os.path.join(kernels.CSRC, "scan_single.cu"))
 
