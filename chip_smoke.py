@@ -41,6 +41,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      timed alone for one direction (text build, sort, sort + BWT + perm)
      beside K6's bound, and a torch.profiler trace of the sort: its device
      time, operations, torch.sort's share and its five costliest operations;
+     then the distributed index build (K8, `parallel/dist_build.py`) of the
+     same forward text split into D = 2 and 4 segments on [cuda:0] * D: its
+     suffix array equal to K6's, its BWT and permutation equal to K6's and
+     to reads.bwt / reads.sai, its warm wall (3 builds in turn with K6's),
+     device time, torch.sort's share and costliest operations
+     (torch.profiler), peak device memory beside K6's and the memory check's
+     estimate, the bytes each global sort moved between entries, its host
+     synchronisations, and its bound;
  10. `rmdup` on the card, counts reset just before it: K1 must launch (and
      K2 once a direction), the
      hits of 256 sampled reads equal the host engine's
@@ -128,6 +136,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -138,10 +147,12 @@ from siga_tpu_torch.device import native_lib
 from siga_tpu_torch.index import sa as sa_mod
 from siga_tpu_torch.index.fm import FMIndex
 from siga_tpu_torch.io import fastx
+from siga_tpu_torch.io.bwtio import load_bwt
+from siga_tpu_torch.io.sai import load_sai
 from siga_tpu_torch.io.fastx import DNASeq
 from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
 from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
-from siga_tpu_torch.parallel import dist, multihost
+from siga_tpu_torch.parallel import dist, dist_build, multihost
 from siga_tpu_torch.probes import gather
 from siga_tpu_torch.probes.kernel_ab import library_call
 
@@ -160,6 +171,8 @@ PROBE_ROUNDS = 5  # G2 and G4 timed in turn with their library call, this many r
 PLANE_ROUNDS = 5  # K2 and its plain version timed in turn, this many builds each
 SCAN_ROUNDS = 5  # K1, K3 and the sharded scan timed in turn and traced, this many calls each
 SHARDS = (2, 4)  # the index-sharded scan's shard counts, D allocations on cuda:0 each
+SEGMENTS = (2, 4)  # the distributed index build's entries, [cuda:0] * D each
+DIST_ROUNDS = 3  # distributed builds timed in turn with K6's bwt_perm_device
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
@@ -462,14 +475,115 @@ def time_index_layers(dev, seqs):
         print("K6 suffix_array_device: device time not measured (the trace holds no device "
               "operation)")
         return
-    sort_ms = sum(device_us(e) for e in prof.events() if e.name == "aten::sort"
-                  and not any(a.name == "aten::sort" for a in ancestors(e))) / 1e3
+    sort_ms = torch_sort_ms(prof)
     named_ms = sum(ms for name, (ms, _) in by_name.items() if "sort" in name.lower())
     print(f"K6 suffix_array_device, one direction, device time (torch.profiler) {dev_ms:.4f} ms in "
           f"{n_ops} device operations; torch.sort's share (its kernels by the trace's op tree) "
           f"{sort_ms:.4f} ms = {sort_ms / dev_ms:.1%}, kernels named *sort* {named_ms:.4f} ms = "
           f"{named_ms / dev_ms:.1%}; the key builds, gathers and rank passes the rest")
     print(f"  K6 costliest device operations: {top_ops(by_name)}")
+
+
+def torch_sort_ms(prof) -> float:
+    """Device ms of the torch.sort calls in a trace (their kernels by the
+    trace's op tree)."""
+    return sum(device_us(e) for e in prof.events() if e.name == "aten::sort"
+               and not any(a.name == "aten::sort" for a in ancestors(e))) / 1e3
+
+
+def host_walls(fns, rounds):
+    """Seconds of each fn() in `rounds` rounds, the fns in turn within each,
+    each from a synchronised card to a synchronised card."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+    return times
+
+
+def time_dist_build(dev, seqs):
+    """The distributed index build (K8, torch ops, `parallel/dist_build.py`)
+    on the main path's forward text, split into D = 2 and 4 segments on
+    [cuda:0] * D.  Its suffix array equals K6's `suffix_array_device` order,
+    and its BWT and permutation equal `bwt_perm_device`'s and the reads.bwt /
+    reads.sai that `index` wrote, exactly.  Then its warm wall (DIST_ROUNDS
+    builds in turn with K6's `bwt_perm_device`, host clock), device time and
+    costliest operations (torch.profiler), peak device memory beside K6's and
+    beside the memory check's estimate, the bytes each global sort moved
+    between entries, the host synchronisations, and the bound (the text
+    read once, one int32 a suffix written once)."""
+    card = card_line()
+    codes, _starts, _lengths = sa_mod.concat_reads(seqs)
+    n = codes.size
+    want_sa = sa_mod.suffix_array_device(codes, dev).cpu().numpy()
+    k6 = functools.partial(sa_mod.bwt_perm_device, codes, dev)
+    want_bwt, want_perm = k6()
+    file_bwt, file_ns, _ = load_bwt("reads.bwt")
+    file_perm, _ = load_sai("reads.sai")
+    assert file_ns == len(seqs) and np.array_equal(want_bwt, file_bwt), "reads.bwt differs"
+    assert np.array_equal(want_perm, file_perm), "reads.sai differs"
+    k6_peak = peak_bytes(k6)
+    bound = bytes_ms(n * (1 + 4))
+    print(f"K8 bound {bound:.4f} ms ({n} chars: the text read once, one int32 a suffix written "
+          f"once; bytes); K6 bwt_perm_device peak device memory {k6_peak} B = "
+          f"{k6_peak / n:.1f} per char [{card}]")
+    for d in SEGMENTS:
+        devs = dist.device_list([dev] * d)
+        got_sa = dist_build.distributed_sa(codes, devs)
+        assert np.array_equal(got_sa, want_sa), f"D = {d}: the suffix array differs from K6's"
+        del got_sa
+        build = functools.partial(dist_build.distributed_bwt_perm, codes, devs)
+        bwt, perm = build()
+        assert np.array_equal(bwt, want_bwt) and np.array_equal(perm, want_perm), \
+            f"D = {d}: the BWT or permutation differs from K6's and the index files"
+        del bwt, perm
+        walls = host_walls([build, k6], DIST_ROUNDS)
+        dev_ms, n_ops, by_name, prof = trace_device(build)
+        peak = peak_bytes(build)
+        syncs, (_out, stats) = count_syncs(
+            functools.partial(dist_build.run_distributed, codes, devs, emit_bwt=True))
+        del _out
+        held = d * (2 * stats["segment"] + dist_build.SEED_HALO)
+        print(f"K8 distributed_bwt_perm on [cuda:0] x {d}, {n} chars, segments {stats['sizes']} "
+              f"(S = {stats['segment']}): SA equal to suffix_array_device, BWT + perm equal to "
+              f"bwt_perm_device and reads.bwt / reads.sai; warm wall ({DIST_ROUNDS} builds in "
+              f"turn, host clock) median {np.median(walls[0]):.4f} s (min-max "
+              f"{min(walls[0]):.4f}-{max(walls[0]):.4f}), K6 bwt_perm_device in turn median "
+              f"{np.median(walls[1]):.4f} s (min-max {min(walls[1]):.4f}-{max(walls[1]):.4f}) "
+              f"[{card}]")
+        if n_ops:
+            sort_ms = torch_sort_ms(prof)
+            print(f"  K8 D = {d} device time (torch.profiler) {dev_ms:.4f} ms in {n_ops} device "
+                  f"operations, {bound / dev_ms:.2%} of the bound; torch.sort {sort_ms:.4f} ms = "
+                  f"{sort_ms / dev_ms:.1%}; costliest: {top_ops(by_name)} [{card}]")
+        else:
+            print(f"  K8 D = {d} device time: not measured (the trace holds no device operation)")
+        print(f"  K8 D = {d} peak device memory {peak} B = {peak / n:.1f} per char (K6 "
+              f"{k6_peak / n:.1f}); the memory check's estimate "
+              f"{sa_mod.SORT_BYTES_PER_CHAR * held} B; host synchronisations "
+              f"{stats['host_syncs']} by the build's count (bucket sizes, run counts), {syncs} "
+              f"by torch.cuda.set_sync_debug_mode (all, before the output's copy); moved between entries (pieces out and ranks back), per "
+              f"global sort: " + ", ".join(
+                  f"{p['phase']} {p['moved_bytes']} B (largest bucket {max(p['buckets'])})"
+                  for p in stats["phases"]) + f" [{card}]")
+        assert peak <= sa_mod.SORT_BYTES_PER_CHAR * held, "the build's memory estimate is too low"
+
+
+def count_syncs(fn):
+    """(synchronising CUDA calls fn() made, by torch's sync debug mode, which
+    warns at each; fn's result)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught), out
 
 
 def device_us(event) -> float:
@@ -1576,6 +1690,8 @@ def main(argv=None) -> int:
         phase("index -a host against -a sais2")
         check_host_index(index_s)
         time_index_layers(dev, seqs)
+        phase("the distributed index build (K8) on [cuda:0] x D against K6 and the index files")
+        time_dist_build(dev, seqs)
         phase("rmdup on the card, then with SIGA_PAIR_STEP=0 (K3)")
         launches["scan_single"] += run_rmdup(builder, seqs, rng)["scan_single"]
         phase("gather probes: the probe CLI on the pair plane")

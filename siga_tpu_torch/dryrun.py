@@ -12,7 +12,11 @@ the first device, then requires
   2. the index-sharded scanner (`DualScanner(devices=...)`,
      the stacked single-step plane split by rows over the devices) to give
      the views of the replicated single-step scanner on the first device,
-     for a lane bucket padded to a multiple of D.
+     for a lane bucket padded to a multiple of D;
+  3. for D >= 2, the index built over the device list
+     (`parallel/dist_build.py::distributed_index_arrays`, the suffix sort
+     split into D segments) to give the BWT and `.sai` permutation of the
+     index built on the first device.
 
 The tiny problem's random reads emit no overlap blocks, so step 2
 compares the containment candidates and the finals; emitted blocks are
@@ -22,10 +26,8 @@ CPU and by `chip_smoke.py` at full size on the card.
 Any difference raises.  `--devices cuda` (the default) is every local
 card; a repeated entry (`cuda:0,cuda:0`) puts several shards on one card.
 
-Two steps of the JAX dry run are not here: its run of `_scan_stage_a` (an
-XLA program that only that dry run calls; the port's stage A is K1 or K3)
-and its check of the mesh-built index (`parallel/dist_build.py`, not yet
-ported).
+One step of the JAX dry run is not here: its run of `_scan_stage_a` (an
+XLA program that only that dry run calls; the port's stage A is K1 or K3).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from .ops.fm_device import DeviceFM, DualScanner
 from .ops.search import batch_overlap_hits
 from .overlap.builder import Hit, OverlapBuilder
 from .parallel import dist
+from .parallel.dist_build import distributed_index_arrays, segment_sizes
 
 MIN_OVERLAP = 8
 
@@ -53,12 +56,12 @@ def tiny_reads(num_reads: int = 8, readlen: int = 24, seed: int = 0) -> list:
 
 
 def dryrun_multidevice(devices) -> dict:
-    """Run both checks over `devices` (a list of devices of one type; see
+    """Run the checks over `devices` (a list of devices of one type; see
     the module's docstring) and return what they compared."""
     devices = dist.device_list(devices)
     d = len(devices)
     seqs = tiny_reads(num_reads=max(2 * d, 8))
-    bwt, _perm, ns = sa.build_index_arrays(seqs, "sais2", devices[0])
+    bwt, perm, ns = sa.build_index_arrays(seqs, "sais2", devices[0])
     rbwt, _rperm, _ = sa.build_index_arrays([s[::-1] for s in seqs], "sais2", devices[0])
     fmi, rfmi = FMIndex(bwt, ns), FMIndex(rbwt, ns)
     builder = OverlapBuilder(fmi, rfmi)
@@ -84,10 +87,17 @@ def dryrun_multidevice(devices) -> dict:
             if not np.array_equal(x, y):
                 raise RuntimeError(f"the index-sharded views over {d} shards differ from the "
                                    f"replicated scan's")
+    segments = []
+    if d >= 2:
+        dbwt, dperm, _ = distributed_index_arrays(seqs, devices)
+        if not (np.array_equal(dbwt, bwt) and np.array_equal(dperm, perm)):
+            raise RuntimeError(f"the index built over {d} segments differs from the one built "
+                               f"on {devices[0]}")
+        segments = segment_sizes(sum(len(s) + 1 for s in seqs), d)
     return {
         "devices": [str(x) for x in devices], "reads": len(seqs), "hits": len(dev_hits),
         "blocks": int(sum(len(v[0]) for v in views[0])),
-        "shard_rows": [int(s.shape[0]) for s in sharded.shards],
+        "shard_rows": [int(s.shape[0]) for s in sharded.shards], "segments": segments,
     }
 
 

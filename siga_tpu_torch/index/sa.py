@@ -104,19 +104,67 @@ def _sort_by(keys) -> torch.Tensor:
     return order
 
 
-def _check_fits(n: int, device: torch.device) -> None:
+def _check_fits(n: int, device: torch.device, held: int | None = None) -> None:
+    """Raises unless a text of n characters is below 2**31 and `device` has
+    room for the sort state of `held` characters (default n) at once."""
     if n >= 2**31:
         raise ValueError(f"text of {n} characters: the device sort takes below 2**31")
     if device.type == "cuda":
+        held = n if held is None else held
         free, total = torch.cuda.mem_get_info(device)
         # blocks the caching allocator holds but no tensor uses are free too
         free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-        need = SORT_BYTES_PER_CHAR * n
+        need = SORT_BYTES_PER_CHAR * held
         if need > free:
             raise RuntimeError(
-                f"suffix sort of {n} characters needs about {need} bytes on {device}; "
+                f"suffix sort of {held} characters needs about {need} bytes on {device}; "
                 f"{free} of {total} are free"
             )
+
+
+def seed_keys(c: torch.Tensor, n: int):
+    """(sentpos, key_a, key_b), int64 [n]: the seed sort's keys of the first
+    n positions of the rank text `c` (uint8 [m >= n], on its device).
+
+    sentpos is the distance to the first sentinel at or after a position,
+    capped at 64; key_a and key_b pack the four 32-bit words of its first 64
+    symbols, each symbol from the sentinel on masked to 0.  Symbols past
+    position n - 1 + 80 are never read, and every position must have a
+    sentinel after it in `c`: the whole text ends in one, and a segment of it
+    (`parallel/dist_build.py`) carries the next 80 symbols and one more."""
+    m = c.numel()
+    pos = torch.arange(n, device=c.device)
+    # distance to the first sentinel at or after each position, capped at 64
+    is_sent = c == 0
+    sent_at = torch.nonzero(is_sent).flatten()
+    is_sent = is_sent[:n]
+    rid = torch.cumsum(is_sent, 0) - is_sent.to(torch.int64)
+    sentpos = (sent_at[rid] - pos).clamp_(max=GRAM3)
+    del sent_at, rid, is_sent
+
+    # 2-bit symbols ($ and A both 0), 16 to a big-endian word, zero-padded
+    m16 = -(-m // 16)
+    two = torch.zeros((m16 + 5) * 16, dtype=torch.int64, device=c.device)
+    two[:m] = (c.to(torch.int64) - 1).clamp_(min=0)
+    shifts = 30 - 2 * torch.arange(16, device=c.device)
+    w16 = (two.view(-1, 16) << shifts).sum(dim=1)
+    del two
+
+    blk = pos >> 4
+    o2 = (pos & 15) * 2
+    del pos
+    keys = []
+    for j in range(4):
+        wa = w16[blk + j]
+        wb = w16[blk + (j + 1)]
+        w = ((wa << o2) & _U32) | (wb >> (32 - o2))
+        del wa, wb
+        valid = (sentpos - 16 * j).clamp_(0, 16)
+        w &= (_U32 << (32 - 2 * valid)) & _U32
+        keys.append(w)
+        del valid
+    del blk, o2, w16
+    return sentpos, pack64(keys[0], keys[1]), pack64(keys[2], keys[3])
 
 
 def suffix_array_device(codes: np.ndarray, device) -> torch.Tensor:
@@ -137,40 +185,9 @@ def suffix_array_device(codes: np.ndarray, device) -> torch.Tensor:
     _check_fits(n, device)
     rounds = _sa_rounds_v3(_max_span(codes))
     c = torch.from_numpy(np.ascontiguousarray(codes)).to(device)
+    sentpos, key_a, key_b = seed_keys(c, n)
+    del c
     pos = torch.arange(n, device=device)
-
-    # distance to the first sentinel at or after each position, capped at 64
-    is_sent = c == 0
-    sent_at = torch.nonzero(is_sent).flatten()
-    rid = torch.cumsum(is_sent, 0) - is_sent.to(torch.int64)
-    sentpos = (sent_at[rid] - pos).clamp_(max=GRAM3)
-    del sent_at, rid, is_sent
-
-    # 2-bit symbols ($ and A both 0), 16 to a big-endian word, zero-padded
-    n16 = -(-n // 16)
-    two = torch.zeros((n16 + 5) * 16, dtype=torch.int64, device=device)
-    two[:n] = (c.to(torch.int64) - 1).clamp_(min=0)
-    shifts = 30 - 2 * torch.arange(16, device=device)
-    w16 = (two.view(-1, 16) << shifts).sum(dim=1)
-    del two
-
-    blk = pos >> 4
-    o2 = (pos & 15) * 2
-    keys = []
-    for j in range(4):
-        wa = w16[blk + j]
-        wb = w16[blk + (j + 1)]
-        w = ((wa << o2) & _U32) | (wb >> (32 - o2))
-        del wa, wb
-        valid = (sentpos - 16 * j).clamp_(0, 16)
-        w &= (_U32 << (32 - 2 * valid)) & _U32
-        keys.append(w)
-        del valid
-    del blk, o2, w16
-
-    key_a = pack64(keys[0], keys[1])
-    key_b = pack64(keys[2], keys[3])
-    del keys
     order = _sort_by([pack64(sentpos, pos), key_b, key_a])
     del pos
     a_s, b_s, sp_s = key_a[order], key_b[order], sentpos[order]

@@ -7,7 +7,7 @@ import torch
 
 from siga_tpu_torch import cli, dryrun
 from siga_tpu_torch.ops import fm_device as tfm
-from siga_tpu_torch.parallel import multihost
+from siga_tpu_torch.parallel import dist_build, multihost
 
 
 @pytest.mark.parametrize("D", [1, 2, 4])
@@ -16,6 +16,9 @@ def test_dryrun_passes(D):
     assert out["devices"] == ["cpu"] * D and out["reads"] == max(2 * D, 8)
     assert out["hits"] == out["reads"] and len(out["shard_rows"]) == D
     assert sum(out["shard_rows"]) == 2 * (out["reads"] * 25 // tfm.SAMPLE + 1)
+    # the index step: D segments of one 128-character tile each hold the text
+    assert out["segments"] == ([] if D == 1 else dist_build.segment_sizes(out["reads"] * 25, D))
+    assert sum(out["segments"]) == (0 if D == 1 else out["reads"] * 25)
 
 
 @pytest.mark.parametrize("num_reads", [8, 16])
@@ -77,6 +80,26 @@ def test_dryrun_raises_on_lost_hits(monkeypatch):
 
     monkeypatch.setattr(dryrun, "batch_overlap_hits", lossy)
     with pytest.raises(RuntimeError, match="differ from the host path's"):
+        dryrun.dryrun_multidevice(["cpu"] * 2)
+
+
+@pytest.mark.parametrize("what", ["bwt", "perm"])
+def test_dryrun_raises_on_a_wrong_symbol(monkeypatch, what):
+    """An index built over the device list whose BWT differs in one symbol,
+    or whose .sai permutation differs in one entry, makes the dry run raise."""
+    build = dryrun.distributed_index_arrays
+
+    def wrong(seqs, devices):
+        bwt, perm, ns = build(seqs, devices)
+        if what == "bwt":
+            bwt = bwt.copy()
+            bwt[7] = (bwt[7] % 4) + 1
+        else:
+            perm = perm[::-1].copy()
+        return bwt, perm, ns
+
+    monkeypatch.setattr(dryrun, "distributed_index_arrays", wrong)
+    with pytest.raises(RuntimeError, match="the index built over 2 segments differs"):
         dryrun.dryrun_multidevice(["cpu"] * 2)
 
 

@@ -28,6 +28,7 @@ import siga_tpu_torch.cli
 import siga_tpu_torch.kernels
 import siga_tpu_torch.ops.fm_device
 import siga_tpu_torch.parallel.dist
+import siga_tpu_torch.parallel.dist_build
 import siga_tpu_torch.dryrun
 import siga_tpu_torch.ops.search
 import siga_tpu_torch.ops.sw
