@@ -33,7 +33,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      B=4096, query 150, ref 400, and 16 of those pairs against a naive DP;
      K2's plane and K on both directions of the main path's index and of
      every read set of `plane_edge_reads` (the CPU tests' texts, indexed
-     on the card);
+     on the card), each also built 3 times in a row and once on a second
+     stream beside one on the first, all equal to the first build;
   8. the hits of 256 sampled reads, from the command's hits file and from
      the engine, against the shared host engine (OverlapBuilder.overlap);
   9. `index -a host` (the C++ seed-sort) on the same reads: all four files
@@ -169,6 +170,7 @@ PROBE_LANES = 60608  # lanes of one overlap chunk (15,152 reads x 4 orientations
 PROBE_STEPS = 150
 PROBE_ROUNDS = 5  # G2 and G4 timed in turn with their library call, this many rounds
 PLANE_ROUNDS = 5  # K2 and its plain version timed in turn, this many builds each
+PLANE_REPEATS = 3  # K2 rebuilt this many times in a row, each equal to the first
 SCAN_ROUNDS = 5  # K1, K3 and the sharded scan timed in turn and traced, this many calls each
 SHARDS = (2, 4)  # the index-sharded scan's shard counts, D allocations on cuda:0 each
 SEGMENTS = (2, 4)  # the distributed index build's entries, [cuda:0] * D each
@@ -282,7 +284,11 @@ def plane_edge_reads(seed: int = 0) -> dict:
     the plane build's edges: one block, n = 0, 1 and 127 (mod 128), one
     read, a homopolymer and a text with no T (C[c] = n for the absent
     symbols, so K reads the last, partial block), mixed lengths, and texts
-    over several of K2's 128-block tiles, one ending on a tile's edge.
+    over several of K2's tiles (64 plane rows; 128 for the labels' counts):
+    one ending on a tile's edge, a
+    homopolymer and a text with no T (empty runs in every tile), one whose
+    C[3] is a tile's first row, and one whose first tile's four runs start
+    at odd bytes and whose last run ends at n (n not a multiple of 16).
     {label: reads}, from `seed`; the CPU tests and `chip_smoke.py` build
     both from them."""
     rng = np.random.default_rng(seed)
@@ -298,6 +304,32 @@ def plane_edge_reads(seed: int = 0) -> dict:
             out.append(read.tobytes().decode())
         return out
 
+    def recount(rs, base, other, target):
+        """rs with bases turned into `base` (or `base` into `other`), first
+        read first, until #reads + #bases in "ACGT" up to `base` == target:
+        then C of the next symbol is target."""
+        low = "ACGT"[: "ACGT".index(base) + 1]
+        chars = [list(r) for r in rs]
+        have = len(rs) + sum(ch in low for r in chars for ch in r)
+        for r in chars:
+            for i, ch in enumerate(r):
+                if have < target and ch not in low:
+                    r[i], have = base, have + 1
+                elif have > target and ch == base:
+                    r[i], have = other, have - 1
+        assert have == target
+        return ["".join(r) for r in chars]
+
+    def odd_starts(rs):
+        """rs (an odd number of reads) with #A, #C and #G made even, so that
+        C[1..4], the first tile's run starts, are all odd."""
+        chars = [list(r) for r in rs]
+        for base in "ACG":
+            if sum(r.count(base) for r in chars) % 2:
+                r = next(r for r in chars if base in r)
+                r[r.index(base)] = "T"
+        return ["".join(r) for r in chars]
+
     return {
         "one block (n 73)": reads([30, 41]),
         "n 384 (0 mod 128)": reads([100, 120, 161]),
@@ -309,6 +341,10 @@ def plane_edge_reads(seed: int = 0) -> dict:
         "mixed lengths": reads(rng.integers(20, 300, 40).tolist()),
         "one tile exactly (n 16,384)": reads([127] * 128),
         "three tiles (n 45,300)": reads([150] * 300),
+        "homopolymer over several tiles (n 40,004)": ["A" * 10_000] * 4,
+        "no T over several tiles (n 40,400)": reads([100] * 400, alphabet=3),
+        "C[3] on a tile's first row (n 30,200)": recount(reads([150] * 200), "C", "G", 16_384),
+        "odd run starts, a run ends at n (n 36,421)": odd_starts(reads([120] * 301)),
     }
 
 
@@ -930,20 +966,35 @@ def peak_bytes(fn) -> int:
 def check_plane_kernel(dev):
     """K2 against its plain version, bit for bit, plane and K: both directions
     of the main path's index, and both directions of every read set of
-    `plane_edge_reads` (the CPU tests' texts), indexed on the card.  Returns
-    the largest error."""
+    `plane_edge_reads` (the CPU tests' texts), indexed on the card.  Each
+    case is built PLANE_REPEATS more times in a row on the current stream,
+    and once on a second stream while the current stream builds it too: all
+    equal to the first (the look-back's flags and ticket are reset for
+    every build, and two builds at once keep to their own scratch).
+    Returns the largest error."""
     cases = [(f"main path {ext}", FMIndex.load(f"reads.{ext}")) for ext in ("bwt", "rbwt")]
     for label, reads in plane_edge_reads().items():
         for direction, texts in (("forward", reads), ("reverse", [r[::-1] for r in reads])):
             bwt, _perm, ns = sa_mod.build_index_arrays(texts, "sais2", dev)
             cases.append((f"{label} {direction}", FMIndex(bwt, ns)))
+    side = torch.cuda.Stream(dev)
     err_all = 0
     for label, fmi in cases:
         codes = torch.from_numpy(np.ascontiguousarray(fmi.codes)).to(dev)
         args = (codes, np.asarray(fmi.pred, dtype=np.int64), fmi.length // fm_device.SAMPLE + 1)
-        err = max_abs_err(fm_device.build_pair_plane(*args), fm_device.build_pair_plane_plain(*args))
-        err_all = max(err_all, err)
-        print(f"K2 {label}: {fmi.length} codes, {args[2]} rows, max_abs_err {err}")
+        first = fm_device.build_pair_plane(*args)
+        err = max_abs_err(first, fm_device.build_pair_plane_plain(*args))
+        again = [fm_device.build_pair_plane(*args) for _ in range(PLANE_REPEATS)]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            on_side = fm_device.build_pair_plane(*args)
+        alongside = fm_device.build_pair_plane(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        repeat_err = max(max_abs_err(first, out) for out in again + [on_side, alongside])
+        err_all = max(err_all, err, repeat_err)
+        print(f"K2 {label}: {fmi.length} codes, {args[2]} rows, max_abs_err {err}; "
+              f"{PLANE_REPEATS} builds in a row, one on a second stream beside one on this "
+              f"stream: max_abs_err {repeat_err} against the first")
     assert err_all == 0
     return err_all
 
@@ -951,7 +1002,8 @@ def check_plane_kernel(dev):
 def time_plane_build(dev):
     """K2 (`build_pair_plane`) for the forward index of the main path's reads,
     its BWT codes already on the card, against its plain version: each one's
-    device time and operations from a torch.profiler trace of one build, its
+    device time and operations from a torch.profiler trace of one build
+    (after one build each to warm up), its
     wall by CUDA events over PLANE_ROUNDS builds in turn with the other, and
     its peak device memory; the bound (the codes read once, the plane and K
     written once).  Beside it, the rest of what `plane_build_s` holds: the
@@ -974,13 +1026,15 @@ def time_plane_build(dev):
     }
     k2_bytes = codes.numel() * codes.element_size() + nblocks * ROW_BYTES + 25 * 4
     bound = bytes_ms(k2_bytes)
+    for fn in versions.values():
+        fn()
     traces = {name: trace_device(fn) for name, fn in versions.items()}
     walls = dict(zip(versions, alternate(list(versions.values()), 1, PLANE_ROUNDS)))
     for name, fn in versions.items():
         dev_ms, n_ops, by_name, _prof = traces[name]
         peak = peak_bytes(fn)
-        device = (f"{dev_ms:.4f} ms in {n_ops} device operations" if n_ops
-                  else "not measured (the trace holds no device operation)")
+        device = (f"{dev_ms:.4f} ms in {n_ops} device operations ({bound / dev_ms:.1%} of the "
+                  f"bound)" if n_ops else "not measured (the trace holds no device operation)")
         print(f"K2 {name}, one direction ({codes.numel()} codes, {nblocks} rows): device time "
               f"(torch.profiler) {device}; wall (CUDA events, "
               f"{PLANE_ROUNDS} builds in turn) {spread(walls[name])}, "
@@ -999,8 +1053,8 @@ def time_plane_build(dev):
 def in_child(fn_name: str):
     """`fn_name`(the card) of this module in a fresh process in the current
     directory: a torch.profiler trace late in this process held none of
-    K2's five kernels (the plain version's were there), while in a process
-    of its own the trace holds them.  Relays its lines and returns what it
+    K2's kernels (the plain version's were there), while in a process of
+    its own the trace holds them.  Relays its lines and returns what it
     returned (JSON)."""
     code = ("import json, torch, chip_smoke\n"
             f"print(json.dumps(chip_smoke.{fn_name}(torch.device('cuda'))))\n")

@@ -253,9 +253,10 @@ MAX_PLANE_CODES = 2**31 - SAMPLE  # n_pad = (n // 128 + 1) * 128 stays an int32
 def build_pair_plane(codes: torch.Tensor, pred, nblocks: int):
     """The pair plane (int32 [nblocks, 57]) and K (int32 [5, 5]) of the BWT
     codes (uint8 [n]) with C array `pred` and nblocks = n // 128 + 1: the
-    CUDA kernel K2 (`csrc/pair_plane.cu`, five launches, counted as one) on
-    a CUDA tensor, `build_pair_plane_plain` on a CPU tensor; any other device
-    raises, as does a failed build or launch."""
+    CUDA kernel K2 (`csrc/pair_plane.cu`, one launch after a memset of its
+    look-back flags, counted as one) on a CUDA tensor, `build_pair_plane_plain`
+    on a CPU tensor; any other device raises, as does a failed build or
+    launch."""
     pred = np.asarray(pred, dtype=np.int64)
     n = codes.numel()
     if n >= MAX_PLANE_CODES:

@@ -1,9 +1,10 @@
-"""Time K1 and K7, or the gather probes G2 and G4, of two checkouts of the
-repo against each other on one card, at the error pipeline's own shapes.
+"""Time K1 and K7, the gather probes G2 and G4, or the plane build K2, of
+two checkouts of the repo against each other on one card, at the error
+pipeline's own shapes.
 
     python3 chip_smoke.py --keep-pipeline DIR
     python3 -m siga_tpu_torch.probes.kernel_ab --trees OTHER,. --pipeline DIR \
-        [--probes] [--order 0,1,1,0] [--out FILE]
+        [--probes | --plane] [--order 0,1,1,0] [--out FILE]
 
 DIR holds the `benchmark/ecoli_scale.py 1.0 25 0.005` pipeline as
 `chip_smoke.py --keep-pipeline` leaves it.  This process takes the cases'
@@ -22,6 +23,11 @@ With --probes the cases are instead G2 (`gather.take_along`) and G4
 on the stacked pair plane of DIR/reads.ec (the `overlap` stage's index,
 with `gather.plane_args`' 60,608 random rows), each timed beside its
 library call (`torch.gather`, `x * 2`) in the same worker.
+With --plane the cases are K2 (`fm_device.build_pair_plane`) on both
+directions of DIR/reads.ec's index (the `overlap` stage's), its BWT codes
+already on the card: the wall of a build by CUDA events (PLANE_REPS builds
+in turn, the card held busy while they are enqueued) and, from a
+torch.profiler trace of one build, its device time and device operations.
 Each entry of --order runs a fresh worker process on the checkout it names
 (this file is run as a script with that checkout first on sys.path, so an
 older checkout needs no copy of it).  The worker builds that checkout's
@@ -47,6 +53,7 @@ KMER_SEED = 3
 PROBE_SEED = 1
 PROBE_LANES = 60608  # one overlap chunk's lanes
 PROBE_KERNELS = ("take_along", "scale2")
+PLANE_REPS = 20  # K2 builds a timing
 K, KMERS, ROUTE_SIZES = 41, 262_144, (110, 3)
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
 K1_CASES = {"K1 reads.ec.fa chunk": ("reads.ec", 85), "K1 contigs": ("primary-contigs.rmdup", 10)}
@@ -151,6 +158,44 @@ def probe_worker(tree: str, pipeline: str) -> dict:
     return out
 
 
+def device_time(fn):
+    """(device ms, device operations) of fn() from a torch.profiler trace:
+    the device spans of the kernels and copies it ran, summed."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(spans) / 1e3, len(spans)
+
+
+def plane_worker(tree: str, pipeline: str) -> dict:
+    """Times of K2 through the wrapper of the checkout at `tree`, on both
+    directions of the pipeline's reads.ec index."""
+    import torch
+
+    from siga_tpu_torch.ops import fm_device
+    from siga_tpu_torch.probes.gather import cuda_ms
+
+    dev = torch.device("cuda")
+    out = _start(tree)
+    out["device_ops"] = {}
+    for ext in ("bwt", "rbwt"):
+        fmi = fm_device.FMIndex.load(os.path.join(pipeline, f"reads.ec.{ext}"))
+        codes = torch.from_numpy(np.ascontiguousarray(fmi.codes)).to(dev)
+        args = (codes, np.asarray(fmi.pred, dtype=np.int64), fmi.length // fm_device.SAMPLE + 1)
+        name = f"K2 reads.ec.{ext} ({fmi.length} codes)"
+        out["digests"][name] = _digest(fm_device.build_pair_plane(*args))
+        out["times"][name] = cuda_ms(lambda: fm_device.build_pair_plane(*args), PLANE_REPS)
+        dev_ms, n_ops = device_time(lambda: fm_device.build_pair_plane(*args))
+        out["times"][name + ", device time"] = dev_ms
+        out["device_ops"][name] = n_ops
+    return out
+
+
 def worker(tree: str, pipeline: str) -> dict:
     """Times of K1 and K7 through the wrappers of the checkout at `tree`."""
     import torch
@@ -205,25 +250,30 @@ def main(argv=None) -> int:
     parser.add_argument("--order", default="0,1,1,0", help="indices into --trees, one worker each")
     parser.add_argument("--pipeline", required=True,
                         help="a pipeline directory left by chip_smoke.py --keep-pipeline")
-    parser.add_argument("--probes", action="store_true",
-                        help="time the gather probes G2 and G4 instead of K1 and K7")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--probes", action="store_true",
+                      help="time the gather probes G2 and G4 instead of K1 and K7")
+    mode.add_argument("--plane", action="store_true",
+                      help="time the plane build K2 instead of K1 and K7")
     parser.add_argument("--out", help="also write the JSON line here")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     pipeline = os.path.abspath(args.pipeline)
     if args.worker:
-        run = (probe_worker if args.probes else worker)(args.worker, pipeline)
+        fn = probe_worker if args.probes else plane_worker if args.plane else worker
+        run = fn(args.worker, pipeline)
         print("KERNEL_AB " + json.dumps(run), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
-    if not args.probes:
+    if not (args.probes or args.plane):
         make_inputs(pipeline)
     runs = []
     for k in (int(i) for i in args.order.split(",")):
         env = {**os.environ, "PYTHONPATH": trees[k]}
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", trees[k],
-             "--trees", args.trees, "--pipeline", pipeline, *(["--probes"] if args.probes else [])],
+             "--trees", args.trees, "--pipeline", pipeline,
+             *(["--probes"] if args.probes else []), *(["--plane"] if args.plane else [])],
             cwd=trees[k], env=env, capture_output=True, text=True, timeout=1800,
         )
         if proc.returncode != 0:

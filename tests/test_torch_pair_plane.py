@@ -20,6 +20,7 @@ from siga_tpu_torch.ops import fm_device as tfm
 from chip_smoke import plane_edge_reads
 
 EDGE_READS = plane_edge_reads()
+TILE_BLOCKS = 64  # plane rows a tile of the kernel (`csrc/pair_plane.cu`)
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +56,15 @@ def test_edge_texts_cover_the_edges(indexes):
     for label in ("homopolymer (n 301)", "no T (n 455)"):
         fmi = indexes(label)[0]
         assert fmi.pred[4] == fmi.length  # K reads the last, partial block
+    tile_rows = 2 * TILE_BLOCKS * tfm.SAMPLE  # a tile at 128 plane rows, two at 64
+    for label in ("homopolymer over several tiles (n 40,004)", "no T over several tiles (n 40,400)"):
+        fmi = indexes(label)[0]
+        assert fmi.length > 2 * tile_rows and fmi.pred[4] == fmi.length  # an empty run a tile
+    fmi = indexes("C[3] on a tile's first row (n 30,200)")[0]
+    assert fmi.pred[3] == tile_rows < fmi.length
+    fmi = indexes("odd run starts, a run ends at n (n 36,421)")[0]
+    assert fmi.length > 2 * tile_rows and fmi.length % 16
+    assert all(p % 2 for p in fmi.pred[1:])  # the first tile's runs start at C[1..4]
 
 
 @pytest.mark.parametrize("direction", [0, 1], ids=["forward", "reverse"])
@@ -70,6 +80,47 @@ def test_plane_and_K_match_jax_and_host(indexes, label, direction):
     plane_h, K_h = tfm.pair_plane_host(host)
     np.testing.assert_array_equal(plane.numpy(), plane_h)
     np.testing.assert_array_equal(K.numpy(), K_h)
+
+
+def _prev_codes(plane, n):
+    """Each row's prev code (0 for '$') from the plane's prev words and
+    their '$' mask."""
+    shifts = 2 * np.arange(16, dtype=np.uint32)
+    words = plane[:, 8:16].view(np.uint32)[:, :, None] >> shifts
+    dollar = plane[:, 24:32].view(np.uint32)[:, :, None] >> shifts
+    prev = np.where(dollar & 1, 0, (words & 3) + 1)
+    return prev.reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("blocks", [TILE_BLOCKS, 2 * TILE_BLOCKS], ids=lambda b: f"tile {b}")
+@pytest.mark.parametrize("direction", [0, 1], ids=["forward", "reverse"])
+@pytest.mark.parametrize("label", list(EDGE_READS))
+def test_tile_prevs_are_runs_of_the_codes(indexes, label, direction, blocks):
+    """What the kernel's design rests on: in each tile of `blocks` plane
+    rows (rows [R0, R1) of the BWT; the kernel's tile and twice it), the
+    prevs of the rows of symbol c, in row order, are
+    codes[C[c] + occ_c(R0) : C[c] + occ_c(R1)], one contiguous run; over
+    all tiles the runs cover [C[1], n) once.  The runs come from the numpy
+    codes, the prevs from the plane `build_pair_plane_plain` writes."""
+    host = indexes(label)[direction]
+    n, codes = host.length, np.asarray(host.codes)
+    pred = np.asarray(host.pred, dtype=np.int64)
+    plane, _K = _build(host)
+    prev = _prev_codes(plane.numpy(), n)
+    occ = np.zeros((5, n + 1), dtype=np.int64)  # occ[c, r]: rows before r holding c
+    for c in range(1, 5):
+        occ[c, 1:] = np.cumsum(codes == c)
+    covered = np.zeros(n, dtype=np.int64)
+    tile_rows = blocks * tfm.SAMPLE
+    for r0 in range(0, (n // tfm.SAMPLE + 1) * tfm.SAMPLE, tile_rows):
+        r1 = min(r0 + tile_rows, n)
+        rows = codes[r0:r1]
+        for c in range(1, 5):
+            start, stop = pred[c] + occ[c, r0], pred[c] + occ[c, r1]
+            np.testing.assert_array_equal(prev[r0:r1][rows == c], codes[start:stop])
+            covered[start:stop] += 1
+        assert not prev[r0:r1][rows == 0].any()  # '$' rows have prev '$'
+    assert not covered[: pred[1]].any() and (covered[pred[1] :] == 1).all()
 
 
 def test_cpu_route_is_the_plain_version(indexes, monkeypatch):
