@@ -155,7 +155,7 @@ from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
 from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import dist, dist_build, multihost
 from siga_tpu_torch.probes import gather
-from siga_tpu_torch.probes.kernel_ab import library_call
+from siga_tpu_torch.probes.kernel_ab import library_call, trace_device
 
 SEED = 1
 GENOME = 1_000_000
@@ -930,22 +930,6 @@ def views_equal(a, b) -> bool:
                for x, y in zip(va, vb, strict=True))
 
 
-def trace_device(fn):
-    """fn() under torch.profiler: (device ms, device operations, {name: (ms,
-    count)}, the profile).  The device time is the sum of the device spans
-    of the kernels and copies fn ran."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in on_card:
-        ms, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    return sum(ms for ms, _ in by_name.values()), len(on_card), by_name, prof
-
-
 def top_ops(by_name, k=5) -> str:
     top = sorted(by_name.items(), key=lambda item: -item[1][0])[:k]
     return "; ".join(f"{name[:90]} {ms:.4f} ms x{count}" for name, (ms, count) in top)
@@ -1002,9 +986,10 @@ def check_plane_kernel(dev):
 def time_plane_build(dev):
     """K2 (`build_pair_plane`) for the forward index of the main path's reads,
     its BWT codes already on the card, against its plain version: each one's
-    device time and operations from a torch.profiler trace of one build
-    (after one build each to warm up), its
-    wall by CUDA events over PLANE_ROUNDS builds in turn with the other, and
+    device time and operations from a torch.profiler trace of its first
+    build in this process (cold) and of its second (warm, as the walls here
+    and `kernel_ab --plane` take it: each times builds after a first one),
+    its wall by CUDA events over PLANE_ROUNDS builds in turn with the other, and
     its peak device memory; the bound (the codes read once, the plane and K
     written once).  Beside it, the rest of what `plane_build_s` holds: the
     codes' copy to the card and DualScanner's stacking of the two planes.
@@ -1026,15 +1011,16 @@ def time_plane_build(dev):
     }
     k2_bytes = codes.numel() * codes.element_size() + nblocks * ROW_BYTES + 25 * 4
     bound = bytes_ms(k2_bytes)
-    for fn in versions.values():
-        fn()
+    cold = {name: trace_device(fn) for name, fn in versions.items()}
     traces = {name: trace_device(fn) for name, fn in versions.items()}
     walls = dict(zip(versions, alternate(list(versions.values()), 1, PLANE_ROUNDS)))
     for name, fn in versions.items():
         dev_ms, n_ops, by_name, _prof = traces[name]
         peak = peak_bytes(fn)
+        cold_ms, cold_ops = cold[name][:2]
         device = (f"{dev_ms:.4f} ms in {n_ops} device operations ({bound / dev_ms:.1%} of the "
-                  f"bound)" if n_ops else "not measured (the trace holds no device operation)")
+                  f"bound; the first build {cold_ms:.4f} ms in {cold_ops})" if n_ops
+                  else "not measured (the trace holds no device operation)")
         print(f"K2 {name}, one direction ({codes.numel()} codes, {nblocks} rows): device time "
               f"(torch.profiler) {device}; wall (CUDA events, "
               f"{PLANE_ROUNDS} builds in turn) {spread(walls[name])}, "

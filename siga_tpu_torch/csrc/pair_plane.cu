@@ -23,7 +23,8 @@
 // gathers are four runs, read like the text itself.  One launch, one thread
 // block a tile of kTile plane rows; a lane serves 16 rows of a block (one
 // word of each bit plane), eight lanes a block, a warp 16 consecutive
-// blocks.  The phases (numbered as in the kernel):
+// blocks.  The phases (each marked PHASE k in the kernel, where
+// probes/plane_phases.py puts its timer marks):
 //  1. the block takes a tile ticket from a counter, so tiles start in order
 //     and a look-back only ever waits on a tile that is running, and copies
 //     the tile's codes to shared memory (16-byte cp.async copies; rows past
@@ -254,7 +255,7 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
   const int nb = min(kTile, nblocks - b0);
   const int r0 = b0 * kSample;
 
-  // 1. the tile's codes; rows past n read as '$' (the pair counts never
+  // PHASE 1: the tile's codes; rows past n read as '$' (the pair counts never
   // count '$' rows: the '$' checkpoints follow from the row counts)
   for (int i = threadIdx.x; i < kTileCodes / 16; i += kThreads) {
     const int g = r0 + 16 * i;
@@ -277,7 +278,7 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
   __pipeline_wait_prior(0);
   __syncthreads();
 
-  // 2. code words and symbol counts; rank_*: the symbols before the lane's
+  // PHASE 2: code words and symbol counts; rank_*: the symbols before the lane's
   // rows in the tile, A | G << 16 and C | T << 16
   const int bw = warp * kBlocksWarp;
   unsigned cur[kSteps], curd[kSteps], rank_lo[kSteps], rank_hi[kSteps];
@@ -331,7 +332,7 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
   const int tot[4] = {static_cast<int>(tlo & 0xffffu), static_cast<int>(thi & 0xffffu),
                       static_cast<int>(tlo >> 16), static_cast<int>(thi >> 16)};
 
-  // 3. the symbols before the tile
+  // PHASE 3: the symbols before the tile
   if (warp == 0) {
     const uint4 agg = make_uint4(tot[0], tot[1], tot[2], tot[3]);
     if (lane == 0) publish_aggregate(tile, agg, state);
@@ -340,7 +341,7 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
   }
   __syncthreads();
 
-  // 4. the four runs: run c - 1 is codes[C[c] + occ_c(R0), + tot[c - 1]),
+  // PHASE 4: the four runs: run c - 1 is codes[C[c] + occ_c(R0), + tot[c - 1]),
   // its first code at byte run_at[c - 1] of sm.u.in.runs
   int run_at[4];
   {
@@ -411,7 +412,7 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
     }
   }
 
-  // 5. prev words from the runs, and the pair counts of each block
+  // PHASE 5: prev words from the runs, and the pair counts of each block
   unsigned prev[kSteps], prevd[kSteps];
   const auto* runs = reinterpret_cast<const unsigned char*>(sm.u.in.runs);
 #pragma unroll
@@ -498,7 +499,7 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
   }
   __syncthreads();
 
-  // 6. the pairs before the tile: channel c looks back for (p, c + 1), p = 1-4
+  // PHASE 6: the pairs before the tile: channel c looks back for (p, c + 1), p = 1-4
   for (int c = warp; c < 4; c += kWarps) {
     const unsigned a = sm.tot_pair[2 * c], z = sm.tot_pair[2 * c + 1];
     const uint4 agg = make_uint4(a & 0xffffu, a >> 16, z & 0xffffu, z >> 16);
@@ -538,7 +539,7 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
   }
   __syncthreads();
 
-  // 7. out: the tile's rows are one stretch of the plane, 16-byte aligned
+  // PHASE 7: out: the tile's rows are one stretch of the plane, 16-byte aligned
   const int ints = nb * kCols;
   auto* out = reinterpret_cast<uint4*>(plane + static_cast<size_t>(b0) * kCols);
   const auto* rows = reinterpret_cast<const uint4*>(sm.u.rows);
@@ -550,8 +551,9 @@ pair_plane(const unsigned char* __restrict__ codes, int n, int nblocks, Pred pre
 
 }  // namespace
 
-// Ints of scratch siga_pair_plane needs for nblocks plane rows: the
-// look-back's values (40 a tile), then its flags (2 a tile) and the ticket.
+// Ints of scratch siga_pair_plane needs for nblocks plane rows: three
+// 64-bit words a channel a tile (the flag kSet in bit 63 of each), five
+// channels, then the ticket.
 extern "C" int siga_pair_plane_scratch(int nblocks) {
   return 2 * 3 * kChannels * tiles(nblocks) + 1;
 }

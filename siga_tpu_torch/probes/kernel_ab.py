@@ -158,18 +158,23 @@ def probe_worker(tree: str, pipeline: str) -> dict:
     return out
 
 
-def device_time(fn):
-    """(device ms, device operations) of fn() from a torch.profiler trace:
-    the device spans of the kernels and copies it ran, summed."""
+def trace_device(fn):
+    """fn() under torch.profiler: (device ms, device operations, {name: (ms,
+    count)}, the profile).  The device time is the sum of the device spans
+    of the kernels and copies fn ran.  (Here, and not in the package, so
+    that a worker on an older checkout has it too; chip_smoke.py uses it.)"""
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(spans) / 1e3, len(spans)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in on_card:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return sum(ms for ms, _ in by_name.values()), len(on_card), by_name, prof
 
 
 def plane_worker(tree: str, pipeline: str) -> dict:
@@ -190,7 +195,7 @@ def plane_worker(tree: str, pipeline: str) -> dict:
         name = f"K2 reads.ec.{ext} ({fmi.length} codes)"
         out["digests"][name] = _digest(fm_device.build_pair_plane(*args))
         out["times"][name] = cuda_ms(lambda: fm_device.build_pair_plane(*args), PLANE_REPS)
-        dev_ms, n_ops = device_time(lambda: fm_device.build_pair_plane(*args))
+        dev_ms, n_ops, _by_name, _prof = trace_device(lambda: fm_device.build_pair_plane(*args))
         out["times"][name + ", device time"] = dev_ms
         out["device_ops"][name] = n_ops
     return out

@@ -1,6 +1,6 @@
 """Where the time of the plane build K2 goes, on one card.
 
-    python3 -m siga_tpu_torch.probes.plane_phases --index PREFIX [--reps N]
+    python3 -m siga_tpu_torch.probes.plane_phases --index PREFIX
 
 Builds two copies of `csrc/pair_plane.cu`, each with one change to its
 source, and times them beside the kernel itself on the BWT codes of
@@ -9,13 +9,14 @@ PREFIX.bwt (an index as `index` writes it):
     waits on the tiles before it (the counts before every tile read as 0:
     the output is wrong, and every address stays inside the codes);
   - `phases`: thread 0 of every tile stores the global timer when each
-    numbered phase of the kernel begins (the `// 1.` ... `// 7.` comments
+    phase of the kernel begins (the `// PHASE 1:` ... `// PHASE 7:` marks
     of its source) and when the tile ends.
-Prints the three walls (CUDA events, builds in turn), and from `phases` the
-median time of each phase over the tiles that started after the first
-third of the build, beside the kernel's span and the mean number of tiles
-in flight.  Needs a card and nvcc; a source that no longer has the anchors
-the changes need makes it fail.
+Prints the three walls (CUDA events, REPS builds a timing, ROUNDS timings
+of each in turn), and from `phases` the median time of each phase over the
+tiles that started after the first third of the build, beside the
+kernel's span and the mean number of tiles in flight.  Needs a card and
+nvcc; a source that no longer has the anchors the changes need makes it
+fail.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ from ..ops import fm_device
 from .gather import cuda_ms
 
 SOURCE = os.path.join(kernels.CSRC, "pair_plane.cu")
-PHASES = 7  # the numbered phases of the kernel; one more mark at its end
+PHASES = 7  # the marked phases of the kernel; one more mark at its end
+REPS = 20  # builds a timing
+ROUNDS = 5  # timings of each copy, in turn
 PROBE_HEADER = """
 __device__ unsigned long long* probe_marks;
 __device__ __forceinline__ void probe_mark(int tile, int k) {
@@ -65,8 +68,8 @@ def no_wait(text: str) -> str:
 def phases(text: str) -> str:
     text = _once(text, "namespace {\n", "namespace {\n" + PROBE_HEADER)
     for k in range(1, PHASES + 1):
-        text = _once(text, f"\n  // {k}. ",
-                     f"\n  if (threadIdx.x == 0) probe_mark(tile, {k - 1});\n  // {k}. ")
+        mark = f"\n  // PHASE {k}: "
+        text = _once(text, mark, f"\n  if (threadIdx.x == 0) probe_mark(tile, {k - 1});{mark}")
     end = re.search(r"\n}\n\n}  // namespace", text)
     if end is None:
         raise RuntimeError("pair_plane.cu: no end of the kernel before the namespace's end")
@@ -116,8 +119,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python3 -m siga_tpu_torch.probes.plane_phases",
                                      description=__doc__.split("\n\n")[0])
     parser.add_argument("--index", required=True, help="index prefix (PREFIX.bwt)")
-    parser.add_argument("--reps", type=int, default=20, help="builds a timing")
-    parser.add_argument("--rounds", type=int, default=5, help="timings of each, in turn")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("plane_phases needs a card")
@@ -137,9 +138,9 @@ def main(argv=None) -> int:
     want = runs["kernel"]()
     assert all(torch.equal(a, b) for a, b in zip(runs["phases"](), want)), "phases differs"
     walls = {name: [] for name in runs}
-    for _ in range(args.rounds):
+    for _ in range(ROUNDS):
         for name, fn in runs.items():
-            walls[name].append(cuda_ms(fn, args.reps))
+            walls[name].append(cuda_ms(fn, REPS))
     marks.zero_()
     runs["phases"]()
     torch.cuda.synchronize()

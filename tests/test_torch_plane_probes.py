@@ -21,7 +21,7 @@ def test_phase_marks_open_every_numbered_phase_and_close_the_tile(source):
     marks = [int(k) for k in re.findall(r"probe_mark\(tile, (\d+)\);", text)]
     assert marks == list(range(plane_phases.PHASES + 1))
     for k in range(1, plane_phases.PHASES + 1):  # each mark just before its phase
-        assert f"probe_mark(tile, {k - 1});\n  // {k}. " in text
+        assert f"probe_mark(tile, {k - 1});\n  // PHASE {k}: " in text
     assert text.count("__syncthreads();") == source.count("__syncthreads();") + 1
     assert text.rstrip().endswith("}") and "probe_set_marks" in text
 
@@ -37,7 +37,7 @@ def test_a_changed_source_fails_loudly(source):
     with pytest.raises(RuntimeError, match="want one"):
         plane_phases.no_wait(source.replace("  if (tile == 0) return base;\n", ""))
     with pytest.raises(RuntimeError, match="want one"):
-        plane_phases.phases(source.replace("  // 4. ", "  // four. "))
+        plane_phases.phases(source.replace("  // PHASE 4: ", "  // PHASE four: "))
 
 
 def test_kernel_ab_plane_is_a_mode_of_its_own(capsys):
