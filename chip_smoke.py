@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card: nvidia-smi name and power limit; CUDA must be available;
   2. build the hand-written kernels (csrc/*.cu, one nvcc per source for
-     sm_90a, all started together) and the shared C++ runtime for this host;
+     sm_90a, all started together; each kernel's registers, stack frame and
+     spills as `-Xptxas -v` reports them) and the shared C++ runtime for
+     this host;
   3. simulate the 1 Mb x 25x read set (166,667 error-free 150 bp reads from
      both strands of a random genome, fixed seed);
   4. the main path, with the kernels' launch counts reset just before it:
@@ -70,19 +72,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      dependent step; and G1's device-side range assert in a child process;
  12. K3 against its plain version, bit for bit, on the first full chunk
      (60,608 lanes; timed, with its bounds; split over several launches by
-     a small slab budget) and on the rmdup lane groups; the chunk's views
+     a small slab budget), on the rmdup lane groups and on every case of
+     `scan_edge_cases` (the indexes of `plane_edge_reads`: odd lane counts,
+     reads of 1 and 2 symbols and of the bucket's width, padding lanes, -m
+     above the reads, intervals at the plane's first and last rows, a slab
+     split); the chunk's views
      through K3 equal K1's; then the index-sharded scan (K3 reading its rows
      through a table of D row shards of the 25.2 MB stacked single-step
      plane, D = 2 and 4 separate allocations on [cuda:0] * D): against its
-     plain version bit for bit on the rmdup lane groups (and for D = 2 at
-     the first chunk), its views at the first chunk equal K3's, its wrapper
+     plain version bit for bit on the rmdup lane groups and every case of
+     `scan_edge_cases` (and for D = 2 at the first chunk), its views at the
+     first chunk equal K3's, its wrapper
      timed in turn with K3's beside the bounds; then the dry run
      (`siga_tpu_torch/dryrun.py`) over [cuda:0] * 4, counts reset just
      before it (the sharded scan must launch); then K1, K3 and the sharded
      scan (D = 2, 4) at that chunk in a process of their own, each wrapper
      call split by a torch.profiler trace into the scan kernel's device
      time and the compaction's, beside its wall by CUDA events (5 calls in
-     turn with the others);
+     turn with the others), and K3's device time as a share of its chain
+     bound (151 dependent row reads at G3's step);
  13. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
      (its genome and generator), its eleven stages (PIPE_STAGES) through
      `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
@@ -131,6 +139,7 @@ import gzip
 import json
 import os
 import random
+import re
 import resource
 import shutil
 import subprocess
@@ -155,7 +164,7 @@ from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
 from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import dist, dist_build, multihost
 from siga_tpu_torch.probes import gather
-from siga_tpu_torch.probes.kernel_ab import library_call, trace_device
+from siga_tpu_torch.probes.kernel_ab import kernel_spans, library_call, trace_device
 
 SEED = 1
 GENOME = 1_000_000
@@ -226,6 +235,8 @@ ROW_NEED_BYTES = 171
 # a single-step row: its two 32-byte halves (symbols; '$' masks and
 # checkpoints) are both needed by almost every query
 SINGLE_ROW_BYTES = fm_device.SINGLE_COLS * 4
+EDGE_SCAN_LEN = 100  # an edge index's reads are scanned this far, so the plain scans stay quick
+SPLIT_SLAB_BYTES = 64 * 1024  # splits the 2,049-lane edge case over several launches
 
 
 def bytes_ms(n_bytes) -> float:
@@ -348,6 +359,46 @@ def plane_edge_reads(seed: int = 0) -> dict:
     }
 
 
+def scan_edge_cases() -> list:
+    """K3's and the sharded K3's edge cases over the indexes of
+    `plane_edge_reads()`: (label, index label, reads, n, (forward, reverse)
+    lane groups, min_overlap, slab_bytes or None), n >= len(reads) the lane
+    bucket (rows past the reads are padding lanes).  Every index's own
+    reads, cut to EDGE_SCAN_LEN symbols, with the overlap groups at -m 5 and
+    with the rmdup groups at a -m above every read: among them the
+    homopolymers (intervals from the first rows of a table) and "n 384 (0
+    mod 128)", whose full intervals reach the plane's last row with an
+    empty block prefix.  On the 300 reads of "three tiles": 1, 31 and 33
+    lanes (one group), 2,049 (683 reads x ID, RC | REV; neither a multiple
+    of a warp's lanes nor of a block's), the same split over launches by a
+    slab budget of SPLIT_SLAB_BYTES, and reads of 1 and 2 symbols and of the
+    bucket's 160 beside 5 padding lanes.  The CPU tests hold the plain
+    versions to the JAX package on these cases; `chip_smoke.py` holds the
+    kernels to the plain versions."""
+    edges = plane_edge_reads()
+    cases = []
+    for label, reads in edges.items():
+        cut = [r[:EDGE_SCAN_LEN] for r in reads]
+        longest = max(map(len, cut))
+        cases.append((f"{label}, overlap groups, -m 5", label, cut, len(cut), FWD_REV, 5, None))
+        cases.append((f"{label}, rmdup groups, -m {longest + 3}", label, cut, len(cut), RMDUP,
+                      longest + 3, None))
+    three_label = "three tiles (n 45,300)"
+    three = edges[three_label]
+    for nl in (1, 31, 33):
+        cases.append((f"{nl} lanes", three_label, three[:nl], nl, ((fm_device.GROUP_ID,), ()),
+                      20, None))
+    pick = [three[i] for i in np.random.default_rng(0).integers(0, len(three), 683)]
+    mixed = ((fm_device.GROUP_ID, fm_device.GROUP_RC), (fm_device.GROUP_REV,))
+    cases.append(("2,049 lanes", three_label, pick, len(pick), mixed, 30, None))
+    cases.append(("2,049 lanes, slabs split over launches", three_label, pick, len(pick), mixed,
+                  30, SPLIT_SLAB_BYTES))
+    short = ["A", "CG", three[0] + three[1][:10]] + three[2:40]
+    cases.append(("reads of 1, 2 and 160 symbols, 5 padding lanes", three_label, short,
+                  len(short) + 5, FWD_REV, 10, None))
+    return cases
+
+
 def pipeline_stages(r1, r2, device=None):
     """(stage name, argv) of every stage, in order, for the paired read files
     r1 and r2.  With `device`, the port's device commands get `--device`."""
@@ -362,6 +413,32 @@ def pipeline_stages(r1, r2, device=None):
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def ptxas_summary(report: str) -> list:
+    """One line a kernel from nvcc's `-Xptxas -v` report: its name (for a
+    mangled name in a namespace, the name after the namespace), registers,
+    stack frame and spills."""
+    out, name = [], None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name, frame = entry.group(1), "stack frame not reported"
+            outer = re.match(r"_ZN(\d+)", name)
+            if outer:  # _ZN <namespace> <name> ...: skip the namespace
+                rest = name[outer.end() + int(outer.group(1)):]
+                inner = re.match(r"(\d+)", rest)
+                if inner:
+                    name = rest[inner.end() : inner.end() + int(inner.group(1))]
+                    args = re.match(r"ILi(\d+)EE", rest[inner.end() + int(inner.group(1)):])
+                    name += f"<{args.group(1)}>" if args else ""
+        elif name and "stack frame" in line:
+            frame = line.split(":", 1)[-1].strip()
+        elif name and "Used" in line and "registers" in line:
+            used = line.split(":", 1)[-1].strip()
+            out.append(f"{name}: {used}; {frame}")
+            name = None
+    return out
 
 
 def card_line() -> str:
@@ -947,20 +1024,30 @@ def peak_bytes(fn) -> int:
     return peak
 
 
-def check_plane_kernel(dev):
+def edge_indexes(dev) -> dict:
+    """{label: (forward FMIndex, reverse FMIndex)} of every read set of
+    `plane_edge_reads` (the CPU tests' texts), indexed on the card."""
+    out = {}
+    for label, reads in plane_edge_reads().items():
+        out[label] = tuple(
+            FMIndex(bwt, ns) for bwt, _perm, ns in (
+                sa_mod.build_index_arrays(texts, "sais2", dev)
+                for texts in (reads, [r[::-1] for r in reads])))
+    return out
+
+
+def check_plane_kernel(dev, edges):
     """K2 against its plain version, bit for bit, plane and K: both directions
     of the main path's index, and both directions of every read set of
-    `plane_edge_reads` (the CPU tests' texts), indexed on the card.  Each
+    `plane_edge_reads` (`edges`, indexed on the card).  Each
     case is built PLANE_REPEATS more times in a row on the current stream,
     and once on a second stream while the current stream builds it too: all
     equal to the first (the look-back's flags and ticket are reset for
     every build, and two builds at once keep to their own scratch).
     Returns the largest error."""
     cases = [(f"main path {ext}", FMIndex.load(f"reads.{ext}")) for ext in ("bwt", "rbwt")]
-    for label, reads in plane_edge_reads().items():
-        for direction, texts in (("forward", reads), ("reverse", [r[::-1] for r in reads])):
-            bwt, _perm, ns = sa_mod.build_index_arrays(texts, "sais2", dev)
-            cases.append((f"{label} {direction}", FMIndex(bwt, ns)))
+    for label, hosts in edges.items():
+        cases += [(f"{label} {d}", fmi) for d, fmi in zip(("forward", "reverse"), hosts)]
     side = torch.cuda.Stream(dev)
     err_all = 0
     for label, fmi in cases:
@@ -1097,8 +1184,7 @@ def time_scans(dev):
                 fn()
 
         dev_ms, n_ops, by_name, prof = trace_device(rounds)
-        mine = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and f"{name}_kernel" in e.name]
+        mine = kernel_spans(prof, name)
         if len(mine) != SCAN_ROUNDS:
             print(f"{label}: the trace holds {len(mine)} kernel spans for {SCAN_ROUNDS} calls: "
                   f"kernel device time not measured")
@@ -1204,11 +1290,27 @@ def check_scan_kernel(dev, builder, seqs):
     return row
 
 
-def check_single_kernel(dev, builder, seqs, step_ns):
+def edge_scan_args(hosts, dev, reads, n, groups, mo, devices=None):
+    """A scan of an edge case (`scan_edge_cases`) over the index pair `hosts`:
+    the single-step plane on `dev`, or with `devices` its row shards, and the
+    arguments of `scan_single` (`scan_single_sharded` with `devices`) after
+    the plane (the shards)."""
+    fms = [fm_device.DeviceFM(h, dev) for h in hosts]
+    sc = fm_device.DualScanner(*fms, *groups, pair_step=False, devices=devices)
+    maxlen = search._bucket_len(max(map(len, reads)))
+    la_w, lens = fm_device.pack_reads_2bit(reads, n, maxlen)
+    lim_t = min(maxlen - 1, int(lens.max()) - 1)
+    tail = (sc.pred, sc.length, sc.nblocks, torch.from_numpy(la_w).to(dev),
+            torch.from_numpy(lens).to(dev), lim_t, mo, *groups)
+    return (sc.plane if devices is None else sc.shards), tail
+
+
+def check_single_kernel(dev, builder, seqs, step_ns, edges):
     """K3 against its plain version, bit for bit: the first full chunk (timed,
-    with its bounds; and split over several launches by a small slab budget)
-    and the rmdup lane groups; then the chunk's views through K3 against
-    K1's.  Returns the kernel's row of the JSON line (the first chunk)."""
+    with its bounds; and split over several launches by a small slab budget),
+    the rmdup lane groups and every case of `scan_edge_cases` over `edges`;
+    then the chunk's views through K3 against K1's.  Returns the kernel's
+    row of the JSON line (the first chunk)."""
     chunk = search.chunk_size(len(seqs))
     err_all = 0
     for name, chunk_seqs, groups, mo in (
@@ -1254,20 +1356,34 @@ def check_single_kernel(dev, builder, seqs, step_ns):
               f"rate, chain of {int(live.max()) + 2} dependent row reads at G3's {step_ns:.1f} "
               f"ns {(live.max() + 2) * step_ns / 1e6:.4f} ms")
         row = kernel_row(err, ms, plain_ms, bound, "bytes", None)
+    for label, index, reads, n, groups, mo, slab in scan_edge_cases():
+        plane, tail = edge_scan_args(edges[index], dev, reads, n, groups, mo)
+        before = kernels.launches["scan_single"]
+        got = fm_device.scan_single(plane, *tail, slab_bytes=slab)
+        parts = kernels.launches["scan_single"] - before
+        plain = fm_device.scan_single_plain(plane, *tail)
+        err = max_abs_err(got, plain)
+        err_all = max(err_all, err)
+        lanes = n * (len(groups[0]) + len(groups[1]))
+        print(f"K3 edge case {index}: {label}: {lanes} lanes, lim_t {tail[5]}, {parts} "
+              f"launches, blocks {int(plain[0][0])}, candidates {int(plain[0][1])}, "
+              f"max_abs_err {err}")
+        assert slab is None or parts > 1, parts
     assert err_all == 0
     row["max_abs_err"] = err_all
     return row
 
 
-def check_sharded_kernel(dev, builder, seqs, step_ns):
+def check_sharded_kernel(dev, builder, seqs, step_ns, edges):
     """The index-sharded scan on the main path's index, for D in SHARDS on
     [cuda:0] * D (D separate allocations, so the shard table routes every
     row read): the kernel against its plain version, bit for bit, on the
     rmdup lane groups and, for D = 2, on the first full chunk (timed beside
     its plain version there); the first chunk's views against the
     replicated K3's; its wrapper and K3's in turn (3 rounds of 5 calls),
-    beside the bounds, which are K3's (the same bytes move).  Returns the
-    kernel's row of the JSON line (D = 2, the first chunk)."""
+    beside the bounds, which are K3's (the same bytes move); then against its
+    plain version on every case of `scan_edge_cases` over `edges`.  Returns
+    the kernel's row of the JSON line (D = 2, the first chunk)."""
     fms = (fm_device.DeviceFM(builder.fmi, dev), fm_device.DeviceFM(builder.rfmi, dev))
     k3 = search._cached_scanner(builder, dev, *FWD_REV, pair_step=False)
     card = card_line()
@@ -1324,6 +1440,17 @@ def check_sharded_kernel(dev, builder, seqs, step_ns):
               f"row reads at G3's {step_ns:.1f} ns {chain:.4f} ms [{card}]", flush=True)
         if d == SHARDS[0]:
             row = kernel_row(0, float(np.median(ms)), plain_ms, bound, "bytes", None)
+    cases = scan_edge_cases()
+    for d in SHARDS:
+        err_d = 0
+        for _label, index, reads, n, groups, mo, slab in cases:
+            shards, tail = edge_scan_args(edges[index], dev, reads, n, groups, mo,
+                                          devices=[torch.device("cuda", 0)] * d)
+            got = fm_device.scan_single_sharded(shards, *tail, slab_bytes=slab)
+            err_d = max(err_d, max_abs_err(got, fm_device.scan_single_sharded_plain(shards, *tail)))
+        print(f"sharded K3, D = {d} on [cuda:0] x {d}: {len(cases)} edge cases "
+              f"(scan_edge_cases), max_abs_err {err_d}", flush=True)
+        err_all = max(err_all, err_d)
     assert err_all == 0
     row["max_abs_err"] = err_all
     return row
@@ -1693,9 +1820,8 @@ def main(argv=None) -> int:
     print(f"nvcc_build_s {time.time() - t0:.3f}")
     print(f"lane group: K1 and K7 run G = {kernels.lib().siga_lane_group()} threads a lane "
           f"(csrc/pair_occ.cuh)")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for line in ptxas_summary(report):
+        print("  ptxas:", line)
     t0 = time.time()
     native_lib()
     print(f"native_build_s {time.time() - t0:.3f}")
@@ -1724,7 +1850,8 @@ def main(argv=None) -> int:
         phase("kernels against their plain versions")
         k1 = check_scan_kernel(dev, builder, seqs)
         k5 = check_sw_kernel(dev)
-        k2_err = check_plane_kernel(dev)
+        edges = edge_indexes(dev)
+        k2_err = check_plane_kernel(dev, edges)
         phase("hits of sampled reads against the host engine")
         check_hits(builder, hits, seqs, rng)
         phase("index -a host against -a sais2")
@@ -1746,9 +1873,9 @@ def main(argv=None) -> int:
               f"{max(by_bytes, by_chain):.4f} ms (bytes {by_bytes:.4f} ms; chain of "
               f"{READ_LEN + 1} dependent row reads at {step_ns:.1f} ns {by_chain:.4f} ms)")
         phase("K3 against its plain version, and its views against K1's")
-        k3 = check_single_kernel(dev, builder, seqs, step_ns)
+        k3 = check_single_kernel(dev, builder, seqs, step_ns, edges)
         phase("the index-sharded scan on [cuda:0] x D against its plain version and K3")
-        ks = check_sharded_kernel(dev, builder, seqs, step_ns)
+        ks = check_sharded_kernel(dev, builder, seqs, step_ns, edges)
         phase("the port's multi-device dry run over [cuda:0] x 4")
         for name, n in run_dryrun().items():
             launches[name] += n
@@ -1757,6 +1884,14 @@ def main(argv=None) -> int:
         scan_device_ms = in_child("time_scans")
         k1["device_ms"], k3["device_ms"] = scan_device_ms["scan_pair"], scan_device_ms["scan_single"]
         ks["device_ms"] = scan_device_ms[f"scan_single_sharded D={SHARDS[0]}"]
+        chain = (READ_LEN + 1) * step_ns / 1e6
+        for label, ms in scan_device_ms.items():
+            if not label.startswith("scan_single"):
+                continue  # K1's chain is its supersteps'
+            share = f"{chain / ms:.1%}" if ms else "not measured"
+            print(f"{label} at {PROBE_LANES} lanes: kernel device time {ms} ms, {share} of the "
+                  f"chain bound {chain:.4f} ms ({READ_LEN + 1} dependent row reads at G3's "
+                  f"{step_ns:.1f} ns) [{card_line()}]")
         del builder, hits
         torch.cuda.empty_cache()
         pipe_dir = keep or os.path.join(workdir, "pipeline")

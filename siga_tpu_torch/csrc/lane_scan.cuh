@@ -1,6 +1,7 @@
 // What the stage-A scans K1 (scan_pair.cu) and K3 (scan_single.cu) share: the
-// symbols a lane prepends, read from its 2-bit packed read, and the ballot
-// that writes the lanes' candidate and substring bits.
+// lane groups' transform ids and the ballot that writes the lanes' candidate
+// and substring bits; and K1's reader of the symbols a lane prepends, from
+// its 2-bit packed read (K3 has its own, which loads a step ahead).
 #pragma once
 
 #include <cuda_runtime.h>

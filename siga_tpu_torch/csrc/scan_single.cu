@@ -14,25 +14,38 @@
 // symbol) and the exclusive A, C, G, T checkpoints; the '$' checkpoint is
 // block * 128 minus their sum.
 //
-// The design is K1's (scan_pair.cu, pair_occ.cuh) with one symbol a step:
-//  - a group of kGroup = 8 threads serves one lane; thread j loads symbol word
-//    j and the row's word 8 + j (the '$' mask word j for j < 4, the checkpoint
-//    of rank j - 3 for j >= 4), so a group reads a row as two 32-byte
-//    accesses, and both rows' loads are issued before either is summed;
-//    thread j takes the 16 '$' bits of its symbol word from thread j / 2 by a
-//    shuffle and spreads them to the even bits;
-//  - the group sums the three counts a step uses per row (the symbol's, the
-//    ones below it with '$', and '$'), both rows' six in one butterfly of
-//    shuffles (`step_sums`); the '$' checkpoint enters as block * 128 after
-//    the sums and minus each ACGT checkpoint before them;
+// What bounds it on an H100.  A lane's steps are a chain: the rows of a step
+// are known only once the step before has counted its own, so a lane takes
+// at least its steps times the L2 round trip of a dependent row read (the
+// 25.2 MB stacked plane of the 1 Mb x 25x cell sits in the 50 MB L2).  Where
+// a few long lanes run (the 1,170 contig lanes, up to 38,628 steps) that
+// chain and the work on it set the time; where the lanes fill the card (a
+// chunk of 60,608 lanes of 150 bp reads) the chains overlap and the issue
+// slots of every lane's step work do.
+//
+// The design:
+//  - one thread serves a lane (kGroup; the readings of two threads and of
+//    the earlier eight are at the constant).  A thread reads a row as four
+//    16-byte vectors (symbol words 0-3, symbol words 4-7, the '$' words, the
+//    checkpoints) and counts it alone: the symbols of one code by popcounts
+//    of even-bit match masks below the query's tail, two words a popcount,
+//    and the '$' bits of the mask words.  No shuffle, and no step work done
+//    over again by several threads of a lane;
+//  - only the prepended symbol's counts of the two rows feed the next rows,
+//    so they are taken first, the next rows' loads are issued, and the
+//    counts of the symbols below it and of '$' (the reverse interval, the
+//    '$'-probe) are taken while those loads are in flight;
+//  - when lo - 1 and hi fall in one row, that row is read once, and of a
+//    row only the vectors that hold symbols below the query's tail;
+//  - the reader loads the packed read's word of the next step during the
+//    step before, so no read word is a dependent load on the chain;
 //  - a lane stops after its last live step (t <= len - 2);
-//  - one pass: the leader writes the emitted [lo, rlo, size, t - p1] rows into
-//    the lane's slab of `cap` = lim_t - p1 int4 (one a step at most, only at t
-//    in [p1, lim_t - 1]), the counts and the finals; the caller compacts the
+//  - one pass: the lane writes the emitted [lo, rlo, size, t - p1] rows into
+//    its slab of `cap` = lim_t - p1 int4 (one a step at most, only at t in
+//    [p1, lim_t - 1]), the counts and the finals; the caller compacts the
 //    slabs (ops/fm_device.py::compact_slab) and splits the lanes over several
 //    launches where the slabs do not fit in free device memory;
-//  - the candidate and substring bits are a ballot of the group leaders
-//    (lane_scan.cuh).
+//  - the candidate and substring bits are a ballot (lane_scan.cuh).
 //
 // The index-sharded scan (scan_single_sharded_kernel, launched by the same
 // entry when it is given more than one shard) is the same loop over a
@@ -49,21 +62,32 @@
 // card adds the peer link's latency to each of its row reads.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "lane_scan.cuh"
-#include "pair_occ.cuh"
 
 namespace {
 
-using lane_scan::step_char;
-using pair_occ::group_sum;
-using pair_occ::kGroup;
-using pair_occ::sel5;
-using pair_occ::tail_mask;
-
+// Threads a lane: 1 (a thread a lane) or 2 (a thread a row: thread 0 reads
+// row lo - 1, thread 1 row hi, and a shuffle of each count gives both the
+// step).  Kernel device time on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md;
+// `probes/scan_groups.py` builds this source at each size): one
+// thread 0.1496 ms at the error pipeline's first reads.ec.fa chunk (30,298
+// lanes) and 17.49 ms at its 1,170 contig lanes, two threads 0.1631 and
+// 16.52 ms, the earlier groups of eight (`kernel_ab --scan`) 0.4230 and
+// 21.03 ms.  One thread wins where the lanes fill the card (the fewest
+// instructions a lane-step, and issue bounds it there), two where a few
+// long lanes run (half the count work on a step's chain); one loses less,
+// so it is kept.
+constexpr int kGroup = 1;
 constexpr int kThreads = 64;
+// 8 blocks of 64 an SM at once, so at most 128 registers a thread: a
+// 60,608-lane chunk at one thread a lane (460 threads an SM) runs in one wave
+constexpr int kMinBlocks = 8;
 constexpr int kCols = 16;  // 8 symbol words | 4 '$' words | A, C, G, T checkpoints
 constexpr int kSample = 128;
 constexpr int kMaxShards = 16;  // ops/fm_device.py MAX_SHARDS
+constexpr unsigned kLo = 0x55555555u;
 
 struct SingleArgs {
   const int* plane;     // [2 * nblocks, 16]: forward rows, then reverse rows
@@ -73,23 +97,12 @@ struct SingleArgs {
   int length, nblocks, n, wpr, nfwd, groups_code, lim_t, p1, lanes;
 };
 
-// 16 one-bit flags -> bit 2k of the result for flag k (the even-bit format of
-// the symbol masks).
-__device__ __forceinline__ unsigned spread16(unsigned x) {
-  x &= 0xFFFFu;
-  x = (x | (x << 8)) & 0x00FF00FFu;
-  x = (x | (x << 4)) & 0x0F0F0F0Fu;
-  x = (x | (x << 2)) & 0x33333333u;
-  x = (x | (x << 1)) & 0x55555555u;
-  return x;
-}
-
 // Where row r of the stacked plane lives: one allocation ...
 struct WholePlane {
   const int* plane;
 
-  __device__ __forceinline__ const unsigned* row(int r) const {
-    return reinterpret_cast<const unsigned*>(plane) + static_cast<size_t>(r) * kCols;
+  __device__ __forceinline__ const uint4* row(int r) const {
+    return reinterpret_cast<const uint4*>(plane) + static_cast<size_t>(r) * (kCols / 4);
   }
 };
 
@@ -103,187 +116,351 @@ struct ShardedPlane {
   int bps;
   unsigned inv;
 
-  __device__ __forceinline__ const unsigned* row(int r) const {
+  __device__ __forceinline__ const uint4* row(int r) const {
     int k = static_cast<int>(__umulhi(static_cast<unsigned>(r), inv));
     int local = r - k * bps;
     if (local >= bps) {
       ++k;
       local -= bps;
     }
-    return reinterpret_cast<const unsigned*>(base[k]) + static_cast<size_t>(local) * kCols;
+    return reinterpret_cast<const uint4*>(base[k]) + static_cast<size_t>(local) * (kCols / 4);
   }
 };
 
-// Thread j's share of the row that holds BWT position i (i >= -1) of the
-// table whose rows start at `tab`: symbol word j (0 past the tail) and the
-// row's word 8 + j.
-struct SingleRow {
-  unsigned w, aux, d;  // d: the '$' bits of word j, even-bit format (`finish`)
-  int tail, block0;
-
-  template <class Plane>
-  __device__ __forceinline__ void load(const Plane& plane, int nrows, int tab, int i, int j) {
-    const int pos = i + 1;
-    block0 = pos / kSample;
-    tail = pos - block0 * kSample;
-    const unsigned* row = plane.row(min(max(block0 + tab, 0), nrows - 1));
-    w = 16 * j < tail ? __ldg(row + j) : 0u;
-    aux = (j >= 4 || 32 * j < tail) ? __ldg(row + 8 + j) : 0u;
-  }
-
-  // After `load`, in every thread of the group: '$' word j / 2 is thread
-  // j / 2's aux.
-  __device__ __forceinline__ void finish(int j, unsigned gmask) {
-    const unsigned dw = __shfl_sync(gmask, aux, j >> 1, kGroup);
-    d = spread16(dw >> (16 * (j & 1)));
-  }
+// One single-step row as its four 16-byte vectors.
+struct Row {
+  uint4 s0, s1;  // symbol words 0-3 and 4-7
+  uint4 d;       // '$' mask words 0-3
+  uint4 ck;      // exclusive A, C, G, T checkpoints
 };
 
-// What a step reads from one row, summed over the group: occ_c(i), the sum
-// of occ_r(i) over r < c, and occ_$(i), for a symbol c in 1..4.
-struct StepSums {
-  int s_c, s_below, s_0;
-};
-
-// Thread j's share of a row's three step counts (before the group sum).
-__device__ __forceinline__ void step_counts(const SingleRow& r, int j, int c, unsigned v[3]) {
-  const unsigned wm = tail_mask(r.tail, j);
-  v[0] = __popc(pair_occ::rank_mask(r.w, r.d, c) & wm);
-  v[1] = __popc(pair_occ::below_mask(r.w, r.d, c) & wm);
-  v[2] = __popc(r.d & wm);
-  if (j >= 4) {  // checkpoint of rank j - 3; base_$ = block * 128 - sum of them
-    const int rk = j - 3;
-    v[0] += rk == c ? r.aux : 0u;
-    v[1] += (rk < c ? r.aux : 0u) - r.aux;
-    v[2] -= r.aux;
-  }
-}
-
-// The step sums of both rows of a step (lo - 1 and hi), the six group sums
-// taken by one butterfly: their shuffles are independent and written out
-// side by side, so that they overlap.  (Summed one after another through
-// group_sum, ptxas reused one register for every shuffle's result and
-// serialised them: on an H100 that cost about 0.2 us a step where a lane's
-// steps are the critical path, as at the contigs.)
-__device__ __forceinline__ void step_sums(const SingleRow& r0, const SingleRow& r1, int j, int c,
-                                          unsigned gmask, StepSums& L, StepSums& U) {
-  unsigned v[6];
-  step_counts(r0, j, c, v);
-  step_counts(r1, j, c, v + 3);
-#pragma unroll
-  for (int off = kGroup / 2; off > 0; off /= 2) {
-    unsigned other[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) other[k] = __shfl_xor_sync(gmask, v[k], off, kGroup);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) v[k] += other[k];
-  }
-  const unsigned base0 = static_cast<unsigned>(r0.block0) * kSample;
-  const unsigned base1 = static_cast<unsigned>(r1.block0) * kSample;
-  L = {static_cast<int>(v[0]), static_cast<int>(v[1] + base0), static_cast<int>(v[2] + base0)};
-  U = {static_cast<int>(v[3]), static_cast<int>(v[4] + base1), static_cast<int>(v[5] + base1)};
-}
-
-// All five counts s[c] = occ_c(i) of a row, summed over the group.
-__device__ __forceinline__ void singles(const SingleRow& r, int j, unsigned gmask, int s[5]) {
-  const unsigned wm = tail_mask(r.tail, j);
-  unsigned m[5], v[5];
-  pair_occ::sym_masks(r.w, r.d, m);
-#pragma unroll
-  for (int c = 0; c < 5; ++c) v[c] = __popc(m[c] & wm);
-  if (j >= 4) {
-#pragma unroll
-    for (int c = 1; c < 5; ++c) v[c] += c == j - 3 ? r.aux : 0u;
-    v[0] -= r.aux;
-  }
-  const unsigned base = static_cast<unsigned>(r.block0) * kSample;
-#pragma unroll
-  for (int c = 0; c < 5; ++c) s[c] = static_cast<int>(group_sum(gmask, v[c]) + (c == 0 ? base : 0u));
-}
-
-// The scan of one launch's lanes, its rows read through `plane`.
 template <class Plane>
+__device__ __forceinline__ Row load_row(const Plane& plane, int r) {
+  const uint4* p = plane.row(r);
+  return Row{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+}
+
+// The vectors of row r that counts below `tail` read (a step's rows): the
+// checkpoints, the '$' words and symbol words 0-3 for tail > 0, words 4-7 for
+// tail > 64.  The others keep what they held: every count masks them out.
+template <class Plane>
+__device__ __forceinline__ void load_below(const Plane& plane, int r, int tail, Row& row) {
+  const uint4* p = plane.row(r);
+  row.ck = __ldg(p + 3);
+  if (tail > 0) {
+    row.s0 = __ldg(p);
+    row.d = __ldg(p + 2);
+  }
+  if (tail > 64) row.s1 = __ldg(p + 1);
+}
+
+// Where BWT position i (i >= -1) of the table whose rows start at `tab`
+// is counted: its row, clamped to the plane's `nrows` rows so that no query
+// reads past the plane, its block, and the length of the block's prefix up
+// to and including i (floor division, as the plain version's).
+struct Where {
+  int row, block0, tail;
+};
+
+__device__ __forceinline__ Where where(int i, int tab, int nrows) {
+  static_assert(kSample == 128, "block and tail by shift and mask");
+  const int pos = i + 1;
+  const int block0 = pos >> 7;
+  return Where{min(max(block0 + tab, 0), nrows - 1), block0, pos & (kSample - 1)};
+}
+
+// The bits of 2-bit symbol word k (1-bit '$' word k) that lie below `tail`.
+__device__ __forceinline__ unsigned sym_below(int tail, int k) {
+  return __funnelshift_lc(0xFFFFFFFFu, 0u, static_cast<unsigned>(max(2 * tail - 32 * k, 0)));
+}
+
+__device__ __forceinline__ unsigned dollar_below(int tail, int k) {
+  return __funnelshift_lc(0xFFFFFFFFu, 0u, static_cast<unsigned>(max(tail - 32 * k, 0)));
+}
+
+// Even-bit masks of the symbols of word w whose code equals the code that
+// `pattern` repeats, and whose code is below 2 * k1 + k0 (K1, K0: kLo for a
+// set bit, else 0).
+__device__ __forceinline__ unsigned code_eq(unsigned w, unsigned pattern) {
+  const unsigned x = w ^ pattern;
+  return ~(x | (x >> 1)) & kLo;
+}
+
+__device__ __forceinline__ unsigned code_lt(unsigned w, unsigned K1, unsigned K0) {
+  const unsigned hi = (w >> 1) & kLo, lo = w & kLo;
+  return (~hi & K1) | (~(hi ^ K1) & ~lo & K0);
+}
+
+__device__ __forceinline__ void sym_words(const Row& r, unsigned w[8]) {
+  w[0] = r.s0.x, w[1] = r.s0.y, w[2] = r.s0.z, w[3] = r.s0.w;
+  w[4] = r.s1.x, w[5] = r.s1.y, w[6] = r.s1.z, w[7] = r.s1.w;
+}
+
+// Symbols of the block prefix whose code equals `pattern`'s: two words'
+// even-bit masks share a popcount.
+__device__ __forceinline__ int count_eq(const Row& r, int tail, unsigned pattern) {
+  unsigned w[8];
+  sym_words(r, w);
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k += 2) {
+    n += __popc((code_eq(w[k], pattern) & sym_below(tail, k)) |
+                ((code_eq(w[k + 1], pattern) & sym_below(tail, k + 1)) << 1));
+  }
+  return n;
+}
+
+// Symbols of the block prefix whose code is below 2 * k1 + k0.
+__device__ __forceinline__ int count_lt(const Row& r, int tail, unsigned K1, unsigned K0) {
+  unsigned w[8];
+  sym_words(r, w);
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k += 2) {
+    n += __popc((code_lt(w[k], K1, K0) & sym_below(tail, k)) |
+                ((code_lt(w[k + 1], K1, K0) & sym_below(tail, k + 1)) << 1));
+  }
+  return n;
+}
+
+// '$' bits of the block prefix.
+__device__ __forceinline__ int count_dollar(const Row& r, int tail) {
+  return __popc(r.d.x & dollar_below(tail, 0)) + __popc(r.d.y & dollar_below(tail, 1)) +
+         __popc(r.d.z & dollar_below(tail, 2)) + __popc(r.d.w & dollar_below(tail, 3));
+}
+
+template <typename T>
+__device__ __forceinline__ T sel5(const T a[5], int c) {
+  T out = a[0];
+#pragma unroll
+  for (int r = 1; r < 5; ++r) out = (c == r) ? a[r] : out;
+  return out;
+}
+
+// What a step needs of one row for a symbol of rank c in 1..4.  On the
+// chain: occ_c(i) (`occ_c`, which subtracts the '$' bits from A's count,
+// since '$' packs as A).  Off it: the sum of occ_r(i) over r < c
+// (`below`) and occ_$(i) (`dollar`); base_$ = block * 128 - the ACGT
+// checkpoints.
+struct StepRow {
+  int n_dollar;  // '$' bits of the block prefix
+
+  __device__ __forceinline__ int occ_c(const Row& r, const Where& q, int c) {
+    n_dollar = count_dollar(r, q.tail);
+    const unsigned ck = c == 1 ? r.ck.x : c == 2 ? r.ck.y : c == 3 ? r.ck.z : r.ck.w;
+    return static_cast<int>(ck) + count_eq(r, q.tail, static_cast<unsigned>(c - 1) * kLo) -
+           (c == 1 ? n_dollar : 0);
+  }
+
+  // below: base_$ + the checkpoints of ranks 1..c-1 = block * 128 - those of
+  // ranks c..4; in the block, '$' and A are code 0, so the ranks below
+  // c >= 2 are the codes below c - 1, and below A only '$' counts
+  __device__ __forceinline__ void off_chain(const Row& r, const Where& q, int c, int& below,
+                                            int& dollar) const {
+    const unsigned t4 = r.ck.w, t3 = r.ck.z + t4, t2 = r.ck.y + t3, t1 = r.ck.x + t2;
+    const unsigned from_c = c == 1 ? t1 : c == 2 ? t2 : c == 3 ? t3 : t4;
+    const unsigned base = static_cast<unsigned>(q.block0) * kSample;
+    const unsigned k = static_cast<unsigned>(c - 1);
+    below = static_cast<int>(base - from_c) +
+            count_lt(r, q.tail, (k >> 1) ? kLo : 0u, (k & 1u) ? kLo : 0u) +
+            (c == 1 ? n_dollar : 0);
+    dollar = static_cast<int>(base - t1) + n_dollar;
+  }
+};
+
+// All five counts s[c] = occ_c(i) of a row: the interval that opens a
+// search, and the finals.
+__device__ __forceinline__ void occ_all(const Row& r, const Where& q, int s[5]) {
+  const int n_dollar = count_dollar(r, q.tail);
+  const unsigned base = static_cast<unsigned>(q.block0) * kSample;
+  s[0] = static_cast<int>(base - (r.ck.x + r.ck.y + r.ck.z + r.ck.w)) + n_dollar;
+  s[1] = static_cast<int>(r.ck.x) + count_eq(r, q.tail, 0u) - n_dollar;
+  s[2] = static_cast<int>(r.ck.y) + count_eq(r, q.tail, kLo);
+  s[3] = static_cast<int>(r.ck.z) + count_eq(r, q.tail, 0xAAAAAAAAu);
+  s[4] = static_cast<int>(r.ck.w) + count_eq(r, q.tail, 0xFFFFFFFFu);
+}
+
+// The symbols a lane prepends, one a step, from its left-aligned 2-bit read:
+// s'[l-1], s'[l-2], ... of the lane's transformed read s' (ID: the read
+// from its end; RC: the read from its start, complemented; REV: from its
+// start; COMP: from its end, complemented; as lane_scan::step_char).  It
+// holds the word of the current symbol, and loads the word of the next
+// symbol during the step before the one that reads it (clamped to the
+// read's row), so no read word is a dependent load on the chain.
+struct StepReader {
+  const unsigned* words;
+  int last;       // the row's last word
+  int pos, dir;   // the next symbol, and the direction of the walk
+  unsigned flip;  // 3 to complement (code -> 3 - code)
+  unsigned word;  // the word that holds symbol `pos`
+
+  __device__ __forceinline__ StepReader(const int* w, int wpr, int len, int group)
+      : words(reinterpret_cast<const unsigned*>(w)), last(wpr - 1) {
+    const bool up = group == lane_scan::kRc || group == lane_scan::kRev;
+    flip = (group == lane_scan::kRc || group == lane_scan::kComp) ? 3u : 0u;
+    dir = up ? 1 : -1;
+    pos = up ? 0 : len - 1;
+    word = __ldg(words + min(max(pos >> 4, 0), last));
+  }
+
+  // rank 1..4 of the next symbol
+  __device__ __forceinline__ int next() {
+    const int c = static_cast<int>(((word >> (2 * (pos & 15))) & 3u) ^ flip) + 1;
+    pos += dir;
+    word = __ldg(words + min(max(pos >> 4, 0), last));
+    return c;
+  }
+};
+
+// The scan of one launch's lanes, G threads a lane, its rows read through
+// `plane`.  Thread j of a lane reads the rows q = j, j + G, ... of a step
+// (q = 0: the row of lo - 1, q = 1: that of hi) and of the finals (q = 2:
+// rlo - 1 in the other table, q = 3: rhi).
+template <int G, class Plane>
 __device__ __forceinline__ void scan_lanes(const SingleArgs& a, const Plane& plane, int lane_base,
                                            int nl, int cap, int* lane_counts, int* fall,
                                            unsigned* candmask, unsigned* subwords, int4* slab) {
+  static_assert(G == 1 || G == 2, "a thread a lane, or a thread a row");
+  constexpr int kR = 2 / G;  // a step's rows a thread reads
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = gtid & (kGroup - 1);
-  const int local = gtid / kGroup;  // lane within this launch
+  const int j = gtid & (G - 1);
+  const int local = gtid / G;  // lane within this launch
   const int lane = lane_base + local;
   const bool leader = j == 0;
   bool fvalid = false, substring = false;
   if (local < nl) {
-    const unsigned gmask = pair_occ::group_mask();
+    const unsigned pair_mask = 3u << (threadIdx.x & 30u);  // G = 2: the lane's threads
     const int nrows = 2 * a.nblocks;
     const int g = lane / a.n;
-    const int row = lane - g * a.n;
+    const int read = lane - g * a.n;
     const int group = (a.groups_code >> (2 * g)) & 3;
     const int tab = g < a.nfwd ? 0 : a.nblocks;
-    const int len = __ldg(a.lens + row);
+    const int len = __ldg(a.lens + read);
     int pred[5];
 #pragma unroll
     for (int c = 0; c < 5; ++c) pred[c] = __ldg(a.pred + c);
-    lane_scan::SymReader rd(a.la_words + static_cast<size_t>(row) * a.wpr, len);
+    StepReader rd(a.la_words + static_cast<size_t>(read) * a.wpr, a.wpr, len, group);
 
-    int us[5], ls[5];
-    SingleRow r0, r1;
-    const int c0 = step_char(rd, group, -1);
-    int lo = sel5(pred, c0);
-    r0.load(plane, nrows, tab, a.length - 1, j);
-    r0.finish(j, gmask);
-    singles(r0, j, gmask, us);
-    int hi = lo + sel5(us, c0) - 1;
+    const int c0 = len > 0 ? rd.next() : 0;
+    int lo = sel5(pred, c0), hi;
+    {
+      const Where q = where(a.length - 1, tab, nrows);
+      int s[5];
+      occ_all(load_row(plane, q.row), q, s);
+      hi = lo + sel5(s, c0) - 1;
+    }
     int rlo = lo;
+
+    // this thread's rows of the state, loaded a step ahead
+    Where wq[kR];
+    Row rows[kR];
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int m = 0; m < kR; ++m) rows[m] = Row{zero, zero, zero, zero};
+    auto load_step = [&](int nlo, int nhi) {
+#pragma unroll
+      for (int m = 0; m < kR; ++m) wq[m] = where(j + G * m == 0 ? nlo - 1 : nhi, tab, nrows);
+      if constexpr (G == 1) {  // one row for both: the tail of hi, the longer
+        const bool same = wq[1].row == wq[0].row;
+        load_below(plane, wq[0].row, same ? wq[1].tail : wq[0].tail, rows[0]);
+        if (!same) load_below(plane, wq[1].row, wq[1].tail, rows[1]);
+      } else {
+        load_below(plane, wq[0].row, wq[0].tail, rows[0]);
+      }
+    };
+    // the row of q = 1 (G = 1: the row of q = 0 when both are one row)
+    auto row_hi = [&]() -> Row {
+      if constexpr (G == 2) {
+        return rows[0];
+      } else {
+        const bool same = wq[1].row == wq[0].row;
+        const Row& u = rows[1];
+        const Row& l = rows[0];
+        return Row{same ? l.s0 : u.s0, same ? l.s1 : u.s1, same ? l.d : u.d,
+                   same ? l.ck : u.ck};
+      }
+    };
+    load_step(lo, hi);
 
     int count = 0;
     int4* out = slab + static_cast<size_t>(local) * cap;
     // steps with t <= len - 2; the rest are masked and change nothing
     const int steps = min(a.lim_t, max(len - 1, 0));
     for (int t = 0; t < steps; ++t) {
-      const int c = step_char(rd, group, t);  // t <= len - 2: c in 1..4
-      r0.load(plane, nrows, tab, lo - 1, j);
-      r1.load(plane, nrows, tab, hi, j);
-      r0.finish(j, gmask);
-      r1.finish(j, gmask);
-      StepSums L, U;
-      step_sums(r0, r1, j, c, gmask, L, U);
+      const int c = rd.next();  // t <= len - 2: c in 1..4
+      // on the chain: occ_c of the two rows, then the next rows' loads
+      const Row cur0 = rows[0], cur1 = row_hi();
+      const Where q0 = wq[0], q1 = wq[kR - 1];
+      StepRow st0, st1;
+      const int sc0 = st0.occ_c(cur0, q0, c);
+      int s_lo, s_hi;
+      if constexpr (G == 1) {
+        s_lo = sc0;
+        s_hi = st1.occ_c(cur1, q1, c);
+      } else {
+        const int other = __shfl_xor_sync(pair_mask, sc0, 1);
+        s_lo = j == 0 ? sc0 : other;
+        s_hi = j == 0 ? other : sc0;
+      }
+      const int pc = sel5(pred, c);
+      const int nlo = pc + s_lo, nhi = pc + s_hi - 1;
+      load_step(nlo, nhi);
+      // off the chain: the counts below c and of '$' of this step's rows
+      int b0, d0, b_lo, b_hi, d_lo, d_hi;
+      st0.off_chain(cur0, q0, c, b0, d0);
+      if constexpr (G == 1) {
+        b_lo = b0, d_lo = d0;
+        st1.off_chain(cur1, q1, c, b_hi, d_hi);
+      } else {
+        const int ob = __shfl_xor_sync(pair_mask, b0, 1);
+        const int od = __shfl_xor_sync(pair_mask, d0, 1);
+        b_lo = j == 0 ? b0 : ob, b_hi = j == 0 ? ob : b0;
+        d_lo = j == 0 ? d0 : od, d_hi = j == 0 ? od : d0;
+      }
       // the '$'-probe block of the state at t
-      const int psize = U.s_0 - L.s_0;
+      const int psize = d_hi - d_lo;
       if (t >= a.p1 && psize > 0 && rlo + psize - 1 >= 0) {
         if (leader && count < cap) out[count] = make_int4(lo, rlo, hi - lo, t - a.p1);
         ++count;
       }
-      rlo += U.s_below - L.s_below;
-      lo = sel5(pred, c) + L.s_c;
-      hi = sel5(pred, c) + U.s_c - 1;
+      rlo += b_hi - b_lo;
+      lo = nlo;
+      hi = nhi;
     }
     const int rhi = rlo + hi - lo;  // the intervals keep equal sizes
 
-    // finals: left extensions in the own table, right extensions in the
-    // other one, and the closed-form '$'-probe of the full-length interval
+    // finals: left extensions in the own table (the rows loaded last),
+    // right extensions in the other one, and the closed-form '$'-probe of
+    // the full-length interval; per row, the DNA count and occ_$
     const int other = a.nblocks - tab;
-    SingleRow r2, r3;
-    r0.load(plane, nrows, tab, lo - 1, j);
-    r1.load(plane, nrows, tab, hi, j);
-    r2.load(plane, nrows, other, rlo - 1, j);
-    r3.load(plane, nrows, other, rhi, j);
-    r0.finish(j, gmask);
-    r1.finish(j, gmask);
-    r2.finish(j, gmask);
-    r3.finish(j, gmask);
-    int rl[5], ru[5];
-    singles(r0, j, gmask, ls);
-    singles(r1, j, gmask, us);
-    singles(r2, j, gmask, rl);
-    singles(r3, j, gmask, ru);
-    int lext = 0, rext = 0;
+    int dna[4 / G], dol[4 / G];
 #pragma unroll
-    for (int c = 1; c < 5; ++c) {
-      lext += us[c] - ls[c];
-      rext += ru[c] - rl[c];
+    for (int m = 0; m < 4 / G; ++m) {
+      Where w;
+      Row r;
+      if (m < kR) {  // q = j + G * m < 2
+        w = wq[m < kR ? m : 0];
+        r = m == 0 ? rows[0] : row_hi();
+      } else {
+        w = where(j + G * m == 2 ? rlo - 1 : rhi, other, nrows);
+        r = load_row(plane, w.row);
+      }
+      int s[5];
+      occ_all(r, w, s);
+      dna[m] = s[1] + s[2] + s[3] + s[4];
+      dol[m] = s[0];
     }
+    // rows 0..3 in the leader: G = 1 holds them all, G = 2 takes rows 1
+    // and 3 (and occ_$ of row 1) from the lane's other thread
+    int dna1 = dna[G == 1 ? 1 : 0], dna3 = dna[G == 1 ? 3 : 1], dol1 = dol[G == 1 ? 1 : 0];
+    if constexpr (G == 2) {
+      dna1 = __shfl_xor_sync(pair_mask, dna1, 1);
+      dna3 = __shfl_xor_sync(pair_mask, dna3, 1);
+      dol1 = __shfl_xor_sync(pair_mask, dol1, 1);
+    }
+    const int lext = dna1 - dna[0], rext = dna3 - dna[G == 1 ? 2 : 1];
     substring = lext > 0 || rext > 0;
-    const int l0 = ls[0], u0 = us[0], psize = u0 - l0;
+    const int l0 = dol[0], u0 = dol1, psize = u0 - l0;
     fvalid = psize > 0 && u0 - 1 >= 0 && rlo + psize - 1 >= 0 && rlo + psize - 1 >= rlo;
     if (leader) {
       lane_counts[lane] = count;
@@ -294,14 +471,14 @@ __device__ __forceinline__ void scan_lanes(const SingleArgs& a, const Plane& pla
       fall[4 * a.lanes + lane] = psize;
     }
   }
-  lane_scan::write_lane_bits<kGroup>(leader, fvalid, substring, lane, candmask, subwords);
+  lane_scan::write_lane_bits<G>(leader, fvalid, substring, lane, candmask, subwords);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_single_kernel(SingleArgs a, int lane_base, int nl, int cap, int* lane_counts,
                    int* fall, unsigned* candmask, unsigned* subwords, int4* slab) {
-  scan_lanes(a, WholePlane{a.plane}, lane_base, nl, cap, lane_counts, fall, candmask, subwords,
-             slab);
+  scan_lanes<kGroup>(a, WholePlane{a.plane}, lane_base, nl, cap, lane_counts, fall, candmask,
+                     subwords, slab);
 }
 
 struct ShardTable {
@@ -310,7 +487,7 @@ struct ShardTable {
   unsigned inv;  // floor((2^32 - 1) / bps), see ShardedPlane
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_single_sharded_kernel(SingleArgs a, ShardTable shards, int lane_base, int nl, int cap,
                            int* lane_counts, int* fall, unsigned* candmask, unsigned* subwords,
                            int4* slab) {
@@ -320,8 +497,8 @@ scan_single_sharded_kernel(SingleArgs a, ShardTable shards, int lane_base, int n
     for (int k = 0; k < kMaxShards; ++k) base[k] = shards.base[k];
   }
   __syncthreads();
-  scan_lanes(a, ShardedPlane{base, shards.bps, shards.inv}, lane_base, nl, cap, lane_counts, fall,
-             candmask, subwords, slab);
+  scan_lanes<kGroup>(a, ShardedPlane{base, shards.bps, shards.inv}, lane_base, nl, cap,
+                     lane_counts, fall, candmask, subwords, slab);
 }
 
 int grid_of(int nl) {
@@ -336,8 +513,9 @@ int grid_of(int nl) {
 // (slab [nl, cap] int4, lane-major); the candidate and substring bits are
 // OR-ed into candmask and subwords.  The stacked plane is `nshards` row ranges
 // of `bps` rows: `shards` is a host array of their base pointers (device
-// addresses this card can read, a peer's after siga_enable_peer_access).  One
-// shard is the whole plane and runs scan_single_kernel (K3), more run
+// addresses this card can read, a peer's after siga_enable_peer_access; each
+// 16-byte aligned, as the rows are read as 16-byte vectors).  One shard is
+// the whole plane and runs scan_single_kernel (K3), more run
 // scan_single_sharded_kernel.
 extern "C" int siga_scan_single(
     const void* shards, int nshards, int bps, const void* pred, const void* la_words,
@@ -349,6 +527,11 @@ extern "C" int siga_scan_single(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int* const* given = static_cast<const int* const*>(shards);
+  for (int k = 0; k < nshards; ++k) {
+    if (reinterpret_cast<std::uintptr_t>(given[k]) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
   const SingleArgs a{given[0], static_cast<const int*>(pred),
                      static_cast<const int*>(la_words), static_cast<const int*>(lens),
                      length, nblocks, n, wpr, nfwd, groups_code, lim_t, p1, lanes};

@@ -1,10 +1,10 @@
-"""Time K1 and K7, the gather probes G2 and G4, or the plane build K2, of
-two checkouts of the repo against each other on one card, at the error
-pipeline's own shapes.
+"""Time K1 and K7, the gather probes G2 and G4, the plane build K2, or the
+single-step scan K3, of two checkouts of the repo against each other on one
+card, at the error pipeline's own shapes.
 
     python3 chip_smoke.py --keep-pipeline DIR
     python3 -m siga_tpu_torch.probes.kernel_ab --trees OTHER,. --pipeline DIR \
-        [--probes | --plane] [--order 0,1,1,0] [--out FILE]
+        [--probes | --plane | --scan] [--order 0,1,1,0] [--out FILE]
 
 DIR holds the `benchmark/ecoli_scale.py 1.0 25 0.005` pipeline as
 `chip_smoke.py --keep-pipeline` leaves it.  This process takes the cases'
@@ -28,6 +28,13 @@ directions of DIR/reads.ec's index (the `overlap` stage's), its BWT codes
 already on the card: the wall of a build by CUDA events (PLANE_REPS builds
 in turn, the card held busy while they are enqueued) and, from a
 torch.profiler trace of one build, its device time and device operations.
+With --scan the cases are K3 (`fm_device.scan_single`) and the index-sharded
+K3 (`fm_device.scan_single_sharded`, D in SCAN_SHARDS allocations on
+cuda:0) on K1's two inputs (the reads.ec.fa chunk at -m 85, the contigs at
+-m 10, ID/REV) through the single-step plane: per case the wrapper's wall by
+CUDA events and, from a torch.profiler trace, the median device span of
+the scan kernel alone (the compaction's operations left out), SCAN_REPS
+calls each.
 Each entry of --order runs a fresh worker process on the checkout it names
 (this file is run as a script with that checkout first on sys.path, so an
 older checkout needs no copy of it).  The worker builds that checkout's
@@ -40,6 +47,7 @@ prints one JSON line of all the times.  Needs a card.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -54,6 +62,8 @@ PROBE_SEED = 1
 PROBE_LANES = 60608  # one overlap chunk's lanes
 PROBE_KERNELS = ("take_along", "scale2")
 PLANE_REPS = 20  # K2 builds a timing
+SCAN_REPS = 10  # K3 calls a wall and a trace
+SCAN_SHARDS = (2, 4)  # the sharded K3's shard counts, D allocations on the card each
 K, KMERS, ROUTE_SIZES = 41, 262_144, (110, 3)
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
 K1_CASES = {"K1 reads.ec.fa chunk": ("reads.ec", 85), "K1 contigs": ("primary-contigs.rmdup", 10)}
@@ -201,6 +211,67 @@ def plane_worker(tree: str, pipeline: str) -> dict:
     return out
 
 
+def scan_calls(pipeline: str, dev) -> dict:
+    """{label: (kernel name, call)}: at each of K1_CASES' inputs (read from
+    DIR/kernel_ab/, as `make_inputs` wrote them) through the single-step
+    plane of the case's index with the ID/REV groups, K3 and the sharded K3
+    at each D of SCAN_SHARDS (D allocations on `dev`), each a call of its
+    wrapper.  On CPU tensors the calls run the plain versions."""
+    import torch
+
+    from siga_tpu_torch.ops import fm_device, search
+
+    groups = ((fm_device.GROUP_ID,), (fm_device.GROUP_REV,))
+    calls = {}
+    for name, (prefix, mo) in K1_CASES.items():
+        case = name.split(" ", 1)[1]
+        chunk = _lines(os.path.join(pipeline, "kernel_ab", prefix + ".txt"))
+        path = os.path.join(pipeline, prefix)
+        fms = [fm_device.DeviceFM(fm_device.FMIndex.load(path + ext), dev)
+               for ext in (".bwt", ".rbwt")]
+        maxlen = search._bucket_len(max(map(len, chunk)))
+        la_w, lens = fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
+        reads = (torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev),
+                 min(maxlen - 1, int(lens.max()) - 1), mo, *groups)
+        sc = fm_device.DualScanner(*fms, *groups, pair_step=False)
+        head = (sc.pred, sc.length, sc.nblocks)
+        calls[f"K3 {case}"] = ("scan_single", functools.partial(
+            fm_device.scan_single, sc.plane, *head, *reads))
+        for d in SCAN_SHARDS:
+            sh = fm_device.DualScanner(*fms, *groups, devices=[dev] * d)
+            calls[f"sharded K3 D={d} {case}"] = ("scan_single_sharded", functools.partial(
+                fm_device.scan_single_sharded, sh.shards, *head, *reads))
+    return calls
+
+
+def kernel_spans(prof, name: str) -> list:
+    """The device spans (ms) of the kernel `name`_kernel in the torch.profiler
+    trace `prof`."""
+    import torch
+
+    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and f"{name}_kernel" in e.name]
+
+
+def scan_worker(tree: str, pipeline: str) -> dict:
+    """Times of K3 and the sharded K3 through the wrappers of the checkout
+    at `tree`: each case's wall and its kernel's median device span."""
+    import torch
+
+    from siga_tpu_torch.probes.gather import cuda_ms
+
+    out = _start(tree)
+    for label, (name, fn) in scan_calls(pipeline, torch.device("cuda", 0)).items():
+        out["digests"][label] = _digest(fn())
+        out["times"][label + ", wall"] = cuda_ms(fn, SCAN_REPS)
+        spans = kernel_spans(trace_device(lambda: [fn() for _ in range(SCAN_REPS)])[3], name)
+        if len(spans) != SCAN_REPS:
+            raise RuntimeError(f"{label}: the trace holds {len(spans)} kernel spans for "
+                               f"{SCAN_REPS} calls")
+        out["times"][label + ", kernel device time"] = float(np.median(spans))
+    return out
+
+
 def worker(tree: str, pipeline: str) -> dict:
     """Times of K1 and K7 through the wrappers of the checkout at `tree`."""
     import torch
@@ -260,25 +331,28 @@ def main(argv=None) -> int:
                       help="time the gather probes G2 and G4 instead of K1 and K7")
     mode.add_argument("--plane", action="store_true",
                       help="time the plane build K2 instead of K1 and K7")
+    mode.add_argument("--scan", action="store_true",
+                      help="time K3 and the sharded K3 instead of K1 and K7")
     parser.add_argument("--out", help="also write the JSON line here")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     pipeline = os.path.abspath(args.pipeline)
     if args.worker:
-        fn = probe_worker if args.probes else plane_worker if args.plane else worker
+        fn = (probe_worker if args.probes else plane_worker if args.plane
+              else scan_worker if args.scan else worker)
         run = fn(args.worker, pipeline)
         print("KERNEL_AB " + json.dumps(run), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
     if not (args.probes or args.plane):
         make_inputs(pipeline)
+    mode_args = [f"--{m}" for m in ("probes", "plane", "scan") if getattr(args, m)]
     runs = []
     for k in (int(i) for i in args.order.split(",")):
         env = {**os.environ, "PYTHONPATH": trees[k]}
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", trees[k],
-             "--trees", args.trees, "--pipeline", pipeline,
-             *(["--probes"] if args.probes else []), *(["--plane"] if args.plane else [])],
+             "--trees", args.trees, "--pipeline", pipeline, *mode_args],
             cwd=trees[k], env=env, capture_output=True, text=True, timeout=1800,
         )
         if proc.returncode != 0:

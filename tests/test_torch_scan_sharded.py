@@ -24,8 +24,11 @@ from siga_tpu.parallel.dist import data_mesh
 from siga_tpu_torch import dryrun, kernels
 from siga_tpu_torch.ops import fm_device as tfm
 
+from chip_smoke import plane_edge_reads, scan_edge_cases
 from test_dist_build import _reads as dist_build_reads
 from test_pair_scan import _reads as pair_scan_reads
+
+SCAN_EDGES = {case[0]: case[1:] for case in scan_edge_cases()}
 
 
 def _dist_reads():
@@ -171,6 +174,52 @@ def test_shards_hold_their_rows_only(read_sets, D, monkeypatch):
     assert torch.equal(torch.cat(sc.shards), _stacked(hosts))
     assert sc.pair is False and sc.plane is None and sc.K2 is None
     assert all(fm._occ_plane is None and fm._pair is None for fm in fms)
+
+
+@pytest.fixture(scope="module")
+def edge_hosts():
+    """{index label of `plane_edge_reads`: (forward, reverse) FMIndex}, built
+    lazily."""
+    cache, edges = {}, plane_edge_reads()
+
+    def get(label):
+        if label not in cache:
+            fwd, _p, rev, _rp, ns = jax_sa.build_index_arrays_pair(edges[label], use_device=False)
+            cache[label] = (FMIndex(fwd, ns), FMIndex(rev, ns))
+        return cache[label]
+
+    return get
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the plain scans of a case: the suite's workers
+    share the host's cores, and the parallel regions of many small tensor
+    operations would wait on each other's threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("case", [c for c, args in SCAN_EDGES.items() if args[-1] is None])
+def test_edge_cases_equal_whole_plane(edge_hosts, one_thread, case):
+    """K3's edge cases (`chip_smoke.scan_edge_cases`, where the card holds
+    the sharded kernel to this plain version at D = 2 and 4; the slab-split
+    case is the 2,049-lane one again, for the card): the sharded plain scan
+    over 3 row shards gives every output of the plain scan over the whole
+    stacked plane."""
+    index, reads, n, (fwd, rev), mo, _slab = SCAN_EDGES[case]
+    fms = [tfm.DeviceFM(h, "cpu") for h in edge_hosts(index)]
+    sc = tfm.DualScanner(*fms, fwd, rev, devices=["cpu"] * 3)
+    maxlen = -(-max(map(len, reads)) // 16) * 16
+    la_w, lens = tfm.pack_reads_2bit(reads, n, maxlen)
+    lim_t = min(maxlen - 1, int(lens.max()) - 1)
+    tail = (sc.pred, sc.length, sc.nblocks, torch.from_numpy(la_w), torch.from_numpy(lens),
+            lim_t, mo, fwd, rev)
+    whole = tfm.scan_single_plain(torch.cat(sc.shards), *tail)
+    for x, y in zip(tfm.scan_single_sharded_plain(sc.shards, *tail), whole, strict=True):
+        assert x.dtype == torch.int32 and torch.equal(x, y)
 
 
 def test_device_lists_are_checked(read_sets):

@@ -22,10 +22,11 @@ from siga_tpu_torch import cli as port_cli
 from siga_tpu_torch import kernels
 from siga_tpu_torch.ops import fm_device as tfm
 
-from chip_smoke import plane_edge_reads
+from chip_smoke import SPLIT_SLAB_BYTES, plane_edge_reads, scan_edge_cases
 from test_pair_scan import _reads
 
 EDGE_READS = plane_edge_reads()
+SCAN_EDGES = {case[0]: case[1:] for case in scan_edge_cases()}
 
 
 def _indexes(reads):
@@ -143,6 +144,39 @@ def test_views_match_jax_and_pair_scan(read_sets, name, mo, groups):
     _assert_views_equal(
         _views(tfm.DualScanner(*torch_fms, pair_step=True, **kw), reads, maxlen, mo), single
     )
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the plain scans of a case: the suite's workers
+    share the host's cores, and the parallel regions of many small tensor
+    operations would wait on each other's threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("case", list(SCAN_EDGES))
+def test_edge_cases_match_jax(edge_indexes, one_thread, case):
+    """K3's edge cases (`chip_smoke.scan_edge_cases`, where the card holds
+    the kernels to these plain versions): the plain single-step views equal
+    the JAX single-step scan's (`_scan_packed_core`) on the same index,
+    reads, lane bucket, groups and -m.  The case with a slab budget (the
+    2,049-lane case again, for the card) must split over several launches."""
+    index, reads, n, (fwd, rev), mo, slab = SCAN_EDGES[case]
+    maxlen = -(-max(map(len, reads)) // 16) * 16
+    if slab is not None:
+        lim_t = min(maxlen - 1, max(map(len, reads)) - 1)
+        parts = tfm.lane_parts(n * (len(fwd) + len(rev)), tfm.emit_cap(lim_t, mo), slab)
+        assert slab == SPLIT_SLAB_BYTES and len(parts) > 1
+        return
+    hosts = edge_indexes(index)
+    want = jfm.DualScanner(*(jfm.DeviceFM(h) for h in hosts), fwd_groups=fwd, rev_groups=rev,
+                           pair_step=False)
+    got = tfm.DualScanner(*(tfm.DeviceFM(h, "cpu") for h in hosts), fwd, rev, pair_step=False)
+    _assert_views_equal(want.collect(want.dispatch(reads, n, maxlen, mo)),
+                        got.collect(got.dispatch(reads, n, maxlen, mo)))
 
 
 def test_env_selects_the_route(read_sets, monkeypatch):
