@@ -164,7 +164,8 @@ from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
 from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import dist, dist_build, multihost
 from siga_tpu_torch.probes import gather
-from siga_tpu_torch.probes.kernel_ab import kernel_spans, library_call, trace_device
+from siga_tpu_torch.probes.kernel_ab import (kernel_spans, library_call, single_scan_args,
+                                             trace_device)
 
 SEED = 1
 GENOME = 1_000_000
@@ -1290,21 +1291,6 @@ def check_scan_kernel(dev, builder, seqs):
     return row
 
 
-def edge_scan_args(hosts, dev, reads, n, groups, mo, devices=None):
-    """A scan of an edge case (`scan_edge_cases`) over the index pair `hosts`:
-    the single-step plane on `dev`, or with `devices` its row shards, and the
-    arguments of `scan_single` (`scan_single_sharded` with `devices`) after
-    the plane (the shards)."""
-    fms = [fm_device.DeviceFM(h, dev) for h in hosts]
-    sc = fm_device.DualScanner(*fms, *groups, pair_step=False, devices=devices)
-    maxlen = search._bucket_len(max(map(len, reads)))
-    la_w, lens = fm_device.pack_reads_2bit(reads, n, maxlen)
-    lim_t = min(maxlen - 1, int(lens.max()) - 1)
-    tail = (sc.pred, sc.length, sc.nblocks, torch.from_numpy(la_w).to(dev),
-            torch.from_numpy(lens).to(dev), lim_t, mo, *groups)
-    return (sc.plane if devices is None else sc.shards), tail
-
-
 def check_single_kernel(dev, builder, seqs, step_ns, edges):
     """K3 against its plain version, bit for bit: the first full chunk (timed,
     with its bounds; and split over several launches by a small slab budget),
@@ -1357,7 +1343,8 @@ def check_single_kernel(dev, builder, seqs, step_ns, edges):
               f"ns {(live.max() + 2) * step_ns / 1e6:.4f} ms")
         row = kernel_row(err, ms, plain_ms, bound, "bytes", None)
     for label, index, reads, n, groups, mo, slab in scan_edge_cases():
-        plane, tail = edge_scan_args(edges[index], dev, reads, n, groups, mo)
+        fms = [fm_device.DeviceFM(h, dev) for h in edges[index]]
+        plane, tail = single_scan_args(fms, groups, reads, n, mo, dev)
         before = kernels.launches["scan_single"]
         got = fm_device.scan_single(plane, *tail, slab_bytes=slab)
         parts = kernels.launches["scan_single"] - before
@@ -1444,8 +1431,9 @@ def check_sharded_kernel(dev, builder, seqs, step_ns, edges):
     for d in SHARDS:
         err_d = 0
         for _label, index, reads, n, groups, mo, slab in cases:
-            shards, tail = edge_scan_args(edges[index], dev, reads, n, groups, mo,
-                                          devices=[torch.device("cuda", 0)] * d)
+            fms = [fm_device.DeviceFM(h, dev) for h in edges[index]]
+            shards, tail = single_scan_args(fms, groups, reads, n, mo, dev,
+                                            devices=[torch.device("cuda", 0)] * d)
             got = fm_device.scan_single_sharded(shards, *tail, slab_bytes=slab)
             err_d = max(err_d, max_abs_err(got, fm_device.scan_single_sharded_plain(shards, *tail)))
         print(f"sharded K3, D = {d} on [cuda:0] x {d}: {len(cases)} edge cases "

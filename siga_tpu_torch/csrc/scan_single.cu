@@ -68,17 +68,16 @@
 
 namespace {
 
-// Threads a lane: 1 (a thread a lane) or 2 (a thread a row: thread 0 reads
-// row lo - 1, thread 1 row hi, and a shuffle of each count gives both the
-// step).  Kernel device time on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md;
-// `probes/scan_groups.py` builds this source at each size): one
-// thread 0.1496 ms at the error pipeline's first reads.ec.fa chunk (30,298
-// lanes) and 17.49 ms at its 1,170 contig lanes, two threads 0.1631 and
-// 16.52 ms, the earlier groups of eight (`kernel_ab --scan`) 0.4230 and
-// 21.03 ms.  One thread wins where the lanes fill the card (the fewest
-// instructions a lane-step, and issue bounds it there), two where a few
-// long lanes run (half the count work on a step's chain); one loses less,
-// so it is kept.
+// Threads a lane: one; scan_lanes is written for it.  Kernel device time
+// on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): one thread 0.1496 ms at
+// the error pipeline's first reads.ec.fa chunk (30,298 lanes) and 17.49 ms
+// at its 1,170 contig lanes; two threads, a thread a row (thread 0 reading
+// row lo - 1, thread 1 row hi, a shuffle of each count giving both the
+// step), 0.1631 and 16.52 ms; the earlier groups of eight (`kernel_ab
+// --scan`) 0.4230 and 21.03 ms.  One thread wins where the lanes fill the
+// card (the fewest instructions a lane-step, and issue bounds it there),
+// two where a few long lanes run (half the count work on a step's chain);
+// one loses less, so it is kept.
 constexpr int kGroup = 1;
 constexpr int kThreads = 64;
 // 8 blocks of 64 an SM at once, so at most 128 registers a thread: a
@@ -312,24 +311,17 @@ struct StepReader {
   }
 };
 
-// The scan of one launch's lanes, G threads a lane, its rows read through
-// `plane`.  Thread j of a lane reads the rows q = j, j + G, ... of a step
-// (q = 0: the row of lo - 1, q = 1: that of hi) and of the finals (q = 2:
-// rlo - 1 in the other table, q = 3: rhi).
-template <int G, class Plane>
+// The scan of one launch's lanes, a thread a lane, its rows read through
+// `plane`: of a step the rows of lo - 1 and hi, of the finals also the rows
+// of rlo - 1 and rhi in the other table.
+template <class Plane>
 __device__ __forceinline__ void scan_lanes(const SingleArgs& a, const Plane& plane, int lane_base,
                                            int nl, int cap, int* lane_counts, int* fall,
                                            unsigned* candmask, unsigned* subwords, int4* slab) {
-  static_assert(G == 1 || G == 2, "a thread a lane, or a thread a row");
-  constexpr int kR = 2 / G;  // a step's rows a thread reads
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = gtid & (G - 1);
-  const int local = gtid / G;  // lane within this launch
+  const int local = blockIdx.x * blockDim.x + threadIdx.x;  // lane within this launch
   const int lane = lane_base + local;
-  const bool leader = j == 0;
   bool fvalid = false, substring = false;
   if (local < nl) {
-    const unsigned pair_mask = 3u << (threadIdx.x & 30u);  // G = 2: the lane's threads
     const int nrows = 2 * a.nblocks;
     const int g = lane / a.n;
     const int read = lane - g * a.n;
@@ -351,34 +343,28 @@ __device__ __forceinline__ void scan_lanes(const SingleArgs& a, const Plane& pla
     }
     int rlo = lo;
 
-    // this thread's rows of the state, loaded a step ahead
-    Where wq[kR];
-    Row rows[kR];
+    // the rows of lo - 1 (wq[0], rows[0]) and hi (wq[1], rows[1]), loaded
+    // a step ahead.  As arrays: the same code over four scalars compiles to
+    // 122 registers in place of 123 and ran 4-6% slower on an NVIDIA H100
+    // 80GB HBM3 at 700 W (PERF.md)
+    Where wq[2];
+    Row rows[2];
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-    for (int m = 0; m < kR; ++m) rows[m] = Row{zero, zero, zero, zero};
+    for (int m = 0; m < 2; ++m) rows[m] = Row{zero, zero, zero, zero};
     auto load_step = [&](int nlo, int nhi) {
 #pragma unroll
-      for (int m = 0; m < kR; ++m) wq[m] = where(j + G * m == 0 ? nlo - 1 : nhi, tab, nrows);
-      if constexpr (G == 1) {  // one row for both: the tail of hi, the longer
-        const bool same = wq[1].row == wq[0].row;
-        load_below(plane, wq[0].row, same ? wq[1].tail : wq[0].tail, rows[0]);
-        if (!same) load_below(plane, wq[1].row, wq[1].tail, rows[1]);
-      } else {
-        load_below(plane, wq[0].row, wq[0].tail, rows[0]);
-      }
+      for (int m = 0; m < 2; ++m) wq[m] = where(m == 0 ? nlo - 1 : nhi, tab, nrows);
+      const bool same = wq[1].row == wq[0].row;  // one row for both: the tail of hi, the longer
+      load_below(plane, wq[0].row, same ? wq[1].tail : wq[0].tail, rows[0]);
+      if (!same) load_below(plane, wq[1].row, wq[1].tail, rows[1]);
     };
-    // the row of q = 1 (G = 1: the row of q = 0 when both are one row)
+    // the row of hi (that of lo - 1 when both are one row)
     auto row_hi = [&]() -> Row {
-      if constexpr (G == 2) {
-        return rows[0];
-      } else {
-        const bool same = wq[1].row == wq[0].row;
-        const Row& u = rows[1];
-        const Row& l = rows[0];
-        return Row{same ? l.s0 : u.s0, same ? l.s1 : u.s1, same ? l.d : u.d,
-                   same ? l.ck : u.ck};
-      }
+      const bool same = wq[1].row == wq[0].row;
+      const Row& u = rows[1];
+      const Row& l = rows[0];
+      return Row{same ? l.s0 : u.s0, same ? l.s1 : u.s1, same ? l.d : u.d, same ? l.ck : u.ck};
     };
     load_step(lo, hi);
 
@@ -390,37 +376,21 @@ __device__ __forceinline__ void scan_lanes(const SingleArgs& a, const Plane& pla
       const int c = rd.next();  // t <= len - 2: c in 1..4
       // on the chain: occ_c of the two rows, then the next rows' loads
       const Row cur0 = rows[0], cur1 = row_hi();
-      const Where q0 = wq[0], q1 = wq[kR - 1];
+      const Where q0 = wq[0], q1 = wq[1];
       StepRow st0, st1;
-      const int sc0 = st0.occ_c(cur0, q0, c);
-      int s_lo, s_hi;
-      if constexpr (G == 1) {
-        s_lo = sc0;
-        s_hi = st1.occ_c(cur1, q1, c);
-      } else {
-        const int other = __shfl_xor_sync(pair_mask, sc0, 1);
-        s_lo = j == 0 ? sc0 : other;
-        s_hi = j == 0 ? other : sc0;
-      }
+      const int s_lo = st0.occ_c(cur0, q0, c);
+      const int s_hi = st1.occ_c(cur1, q1, c);
       const int pc = sel5(pred, c);
       const int nlo = pc + s_lo, nhi = pc + s_hi - 1;
       load_step(nlo, nhi);
       // off the chain: the counts below c and of '$' of this step's rows
-      int b0, d0, b_lo, b_hi, d_lo, d_hi;
-      st0.off_chain(cur0, q0, c, b0, d0);
-      if constexpr (G == 1) {
-        b_lo = b0, d_lo = d0;
-        st1.off_chain(cur1, q1, c, b_hi, d_hi);
-      } else {
-        const int ob = __shfl_xor_sync(pair_mask, b0, 1);
-        const int od = __shfl_xor_sync(pair_mask, d0, 1);
-        b_lo = j == 0 ? b0 : ob, b_hi = j == 0 ? ob : b0;
-        d_lo = j == 0 ? d0 : od, d_hi = j == 0 ? od : d0;
-      }
+      int b_lo, b_hi, d_lo, d_hi;
+      st0.off_chain(cur0, q0, c, b_lo, d_lo);
+      st1.off_chain(cur1, q1, c, b_hi, d_hi);
       // the '$'-probe block of the state at t
       const int psize = d_hi - d_lo;
       if (t >= a.p1 && psize > 0 && rlo + psize - 1 >= 0) {
-        if (leader && count < cap) out[count] = make_int4(lo, rlo, hi - lo, t - a.p1);
+        if (count < cap) out[count] = make_int4(lo, rlo, hi - lo, t - a.p1);
         ++count;
       }
       rlo += b_hi - b_lo;
@@ -433,16 +403,16 @@ __device__ __forceinline__ void scan_lanes(const SingleArgs& a, const Plane& pla
     // right extensions in the other one, and the closed-form '$'-probe of
     // the full-length interval; per row, the DNA count and occ_$
     const int other = a.nblocks - tab;
-    int dna[4 / G], dol[4 / G];
+    int dna[4], dol[4];
 #pragma unroll
-    for (int m = 0; m < 4 / G; ++m) {
+    for (int m = 0; m < 4; ++m) {
       Where w;
       Row r;
-      if (m < kR) {  // q = j + G * m < 2
-        w = wq[m < kR ? m : 0];
+      if (m < 2) {
+        w = wq[m];
         r = m == 0 ? rows[0] : row_hi();
       } else {
-        w = where(j + G * m == 2 ? rlo - 1 : rhi, other, nrows);
+        w = where(m == 2 ? rlo - 1 : rhi, other, nrows);
         r = load_row(plane, w.row);
       }
       int s[5];
@@ -450,34 +420,24 @@ __device__ __forceinline__ void scan_lanes(const SingleArgs& a, const Plane& pla
       dna[m] = s[1] + s[2] + s[3] + s[4];
       dol[m] = s[0];
     }
-    // rows 0..3 in the leader: G = 1 holds them all, G = 2 takes rows 1
-    // and 3 (and occ_$ of row 1) from the lane's other thread
-    int dna1 = dna[G == 1 ? 1 : 0], dna3 = dna[G == 1 ? 3 : 1], dol1 = dol[G == 1 ? 1 : 0];
-    if constexpr (G == 2) {
-      dna1 = __shfl_xor_sync(pair_mask, dna1, 1);
-      dna3 = __shfl_xor_sync(pair_mask, dna3, 1);
-      dol1 = __shfl_xor_sync(pair_mask, dol1, 1);
-    }
-    const int lext = dna1 - dna[0], rext = dna3 - dna[G == 1 ? 2 : 1];
+    const int lext = dna[1] - dna[0], rext = dna[3] - dna[2];
     substring = lext > 0 || rext > 0;
-    const int l0 = dol[0], u0 = dol1, psize = u0 - l0;
+    const int l0 = dol[0], u0 = dol[1], psize = u0 - l0;
     fvalid = psize > 0 && u0 - 1 >= 0 && rlo + psize - 1 >= 0 && rlo + psize - 1 >= rlo;
-    if (leader) {
-      lane_counts[lane] = count;
-      fall[lane] = lo;
-      fall[a.lanes + lane] = rlo;
-      fall[2 * a.lanes + lane] = l0;
-      fall[3 * a.lanes + lane] = hi - lo;
-      fall[4 * a.lanes + lane] = psize;
-    }
+    lane_counts[lane] = count;
+    fall[lane] = lo;
+    fall[a.lanes + lane] = rlo;
+    fall[2 * a.lanes + lane] = l0;
+    fall[3 * a.lanes + lane] = hi - lo;
+    fall[4 * a.lanes + lane] = psize;
   }
-  lane_scan::write_lane_bits<G>(leader, fvalid, substring, lane, candmask, subwords);
+  lane_scan::write_lane_bits<kGroup>(true, fvalid, substring, lane, candmask, subwords);
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 scan_single_kernel(SingleArgs a, int lane_base, int nl, int cap, int* lane_counts,
                    int* fall, unsigned* candmask, unsigned* subwords, int4* slab) {
-  scan_lanes<kGroup>(a, WholePlane{a.plane}, lane_base, nl, cap, lane_counts, fall, candmask,
+  scan_lanes(a, WholePlane{a.plane}, lane_base, nl, cap, lane_counts, fall, candmask,
                      subwords, slab);
 }
 
@@ -497,7 +457,7 @@ scan_single_sharded_kernel(SingleArgs a, ShardTable shards, int lane_base, int n
     for (int k = 0; k < kMaxShards; ++k) base[k] = shards.base[k];
   }
   __syncthreads();
-  scan_lanes<kGroup>(a, ShardedPlane{base, shards.bps, shards.inv}, lane_base, nl, cap,
+  scan_lanes(a, ShardedPlane{base, shards.bps, shards.inv}, lane_base, nl, cap,
                      lane_counts, fall, candmask, subwords, slab);
 }
 

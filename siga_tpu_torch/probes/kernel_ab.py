@@ -63,6 +63,7 @@ PROBE_LANES = 60608  # one overlap chunk's lanes
 PROBE_KERNELS = ("take_along", "scale2")
 PLANE_REPS = 20  # K2 builds a timing
 SCAN_REPS = 10  # K3 calls a wall and a trace
+SCAN_TRACES = 3  # traces of a case at most, while one loses kernel spans
 SCAN_SHARDS = (2, 4)  # the sharded K3's shard counts, D allocations on the card each
 K, KMERS, ROUTE_SIZES = 41, 262_144, (110, 3)
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
@@ -211,15 +212,32 @@ def plane_worker(tree: str, pipeline: str) -> dict:
     return out
 
 
+def single_scan_args(fms, groups, reads, n, mo, dev, devices=None):
+    """The arguments of a single-step scan of `reads` (n of them, packed to
+    the 16-symbol bucket) over the DeviceFM pair `fms` with the lane groups
+    `groups` (forward, reverse) at -m `mo`: the stacked single-step plane on
+    `dev`, or with `devices` its row shards, and the arguments of
+    `scan_single` (`scan_single_sharded` with `devices`) after it."""
+    import torch
+
+    from siga_tpu_torch.ops import fm_device, search
+
+    sc = fm_device.DualScanner(*fms, *groups, pair_step=False, devices=devices)
+    maxlen = search._bucket_len(max(map(len, reads)))
+    la_w, lens = fm_device.pack_reads_2bit(reads, n, maxlen)
+    lim_t = min(maxlen - 1, int(lens.max()) - 1)
+    tail = (sc.pred, sc.length, sc.nblocks, torch.from_numpy(la_w).to(dev),
+            torch.from_numpy(lens).to(dev), lim_t, mo, *groups)
+    return (sc.plane if devices is None else sc.shards), tail
+
+
 def scan_calls(pipeline: str, dev) -> dict:
     """{label: (kernel name, call)}: at each of K1_CASES' inputs (read from
     DIR/kernel_ab/, as `make_inputs` wrote them) through the single-step
     plane of the case's index with the ID/REV groups, K3 and the sharded K3
     at each D of SCAN_SHARDS (D allocations on `dev`), each a call of its
     wrapper.  On CPU tensors the calls run the plain versions."""
-    import torch
-
-    from siga_tpu_torch.ops import fm_device, search
+    from siga_tpu_torch.ops import fm_device
 
     groups = ((fm_device.GROUP_ID,), (fm_device.GROUP_REV,))
     calls = {}
@@ -229,18 +247,14 @@ def scan_calls(pipeline: str, dev) -> dict:
         path = os.path.join(pipeline, prefix)
         fms = [fm_device.DeviceFM(fm_device.FMIndex.load(path + ext), dev)
                for ext in (".bwt", ".rbwt")]
-        maxlen = search._bucket_len(max(map(len, chunk)))
-        la_w, lens = fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
-        reads = (torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev),
-                 min(maxlen - 1, int(lens.max()) - 1), mo, *groups)
-        sc = fm_device.DualScanner(*fms, *groups, pair_step=False)
-        head = (sc.pred, sc.length, sc.nblocks)
+        plane, tail = single_scan_args(fms, groups, chunk, len(chunk), mo, dev)
         calls[f"K3 {case}"] = ("scan_single", functools.partial(
-            fm_device.scan_single, sc.plane, *head, *reads))
+            fm_device.scan_single, plane, *tail))
         for d in SCAN_SHARDS:
-            sh = fm_device.DualScanner(*fms, *groups, devices=[dev] * d)
+            shards, tail = single_scan_args(fms, groups, chunk, len(chunk), mo, dev,
+                                            devices=[dev] * d)
             calls[f"sharded K3 D={d} {case}"] = ("scan_single_sharded", functools.partial(
-                fm_device.scan_single_sharded, sh.shards, *head, *reads))
+                fm_device.scan_single_sharded, shards, *tail))
     return calls
 
 
@@ -264,10 +278,14 @@ def scan_worker(tree: str, pipeline: str) -> dict:
     for label, (name, fn) in scan_calls(pipeline, torch.device("cuda", 0)).items():
         out["digests"][label] = _digest(fn())
         out["times"][label + ", wall"] = cuda_ms(fn, SCAN_REPS)
-        spans = kernel_spans(trace_device(lambda: [fn() for _ in range(SCAN_REPS)])[3], name)
-        if len(spans) != SCAN_REPS:
-            raise RuntimeError(f"{label}: the trace holds {len(spans)} kernel spans for "
-                               f"{SCAN_REPS} calls")
+        # a trace can lose a kernel's span (the profiler drops events): take it again
+        for _attempt in range(SCAN_TRACES):
+            spans = kernel_spans(trace_device(lambda: [fn() for _ in range(SCAN_REPS)])[3], name)
+            if len(spans) == SCAN_REPS:
+                break
+        else:
+            raise RuntimeError(f"{label}: each of {SCAN_TRACES} traces lost kernel spans, the "
+                               f"last holds {len(spans)} for {SCAN_REPS} calls")
         out["times"][label + ", kernel device time"] = float(np.median(spans))
     return out
 

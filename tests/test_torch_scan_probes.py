@@ -1,10 +1,9 @@
 """The CPU side of K3's card probes: `probes.kernel_ab --scan` takes its
 arguments as a mode of its own and its cases name both kernels at both of
-the pipeline's shapes; `probes.scan_groups` rebuilds `csrc/scan_single.cu`
-at another lane-group size by changing its one constant; `chip_smoke.py`
-names each kernel of a `-Xptxas -v` report.  (The probes time the kernels on
-the card; here only what they do before a card is needed, with the wrappers'
-plain versions.)
+the pipeline's shapes; `kernel_ab.single_scan_args` builds a scan call's
+arguments; `chip_smoke.py` names each kernel of a `-Xptxas -v` report.
+(The probes time the kernels on the card; here only what they do before a
+card is needed, with the wrappers' plain versions.)
 """
 import os
 
@@ -12,7 +11,7 @@ import pytest
 import torch
 
 from siga_tpu_torch import cli as port_cli
-from siga_tpu_torch.probes import kernel_ab, scan_groups
+from siga_tpu_torch.probes import kernel_ab
 
 from chip_smoke import ptxas_summary
 from test_pair_scan import _reads
@@ -69,19 +68,28 @@ def test_scan_cases_name_both_kernels_at_both_shapes(pipeline):
             assert all(torch.equal(x, y) for x, y in zip(out, outs[0], strict=True))
 
 
-def test_scan_groups_changes_only_the_group_constant():
-    with open(scan_groups.SOURCE) as f:
-        text = f.read()
-    kept = int(text.split("constexpr int kGroup = ", 1)[1].split(";", 1)[0])
-    assert kept in scan_groups.GROUPS and scan_groups.GROUPS == (1, 2)
-    for g in scan_groups.GROUPS:
-        new = scan_groups.with_group(text, g)
-        diff = [(a, b) for a, b in zip(text.splitlines(), new.splitlines()) if a != b]
-        assert len(new.splitlines()) == len(text.splitlines())
-        assert diff == ([] if g == kept else [(f"constexpr int kGroup = {kept};",
-                                               f"constexpr int kGroup = {g};")])
-    with pytest.raises(RuntimeError, match="want one kGroup constant, found 0"):
-        scan_groups.with_group(text.replace("constexpr int kGroup", "constexpr int kLanes"), 2)
+def test_single_scan_args_packs_one_call(pipeline):
+    """The whole plane and its row shards come with the same arguments
+    after them: the reads packed to the 16-symbol bucket, lim_t the longest
+    read's last step, -m and the groups as given."""
+    from siga_tpu_torch.ops import fm_device
+
+    prefix, mo = kernel_ab.K1_CASES["K1 contigs"]
+    reads = kernel_ab._lines(os.path.join(pipeline, "kernel_ab", prefix + ".txt"))
+    fms = [fm_device.DeviceFM(fm_device.FMIndex.load(os.path.join(pipeline, prefix + ext)), "cpu")
+           for ext in (".bwt", ".rbwt")]
+    groups = ((fm_device.GROUP_ID,), (fm_device.GROUP_REV,))
+    plane, tail = kernel_ab.single_scan_args(fms, groups, reads, len(reads), mo, "cpu")
+    shards, sharded_tail = kernel_ab.single_scan_args(fms, groups, reads, len(reads), mo, "cpu",
+                                                      devices=["cpu"] * 3)
+    assert len(shards) == 3 and torch.equal(torch.cat(shards), plane)
+    longest = max(map(len, reads))
+    bucket = -(-longest // 16) * 16
+    assert tail[3].shape == (len(reads), bucket // 16)
+    assert list(tail[4]) == [len(r) for r in reads]
+    assert tail[5:] == (min(bucket - 1, longest - 1), mo, *groups)
+    for x, y in zip(tail, sharded_tail, strict=True):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
 
 
 def test_ptxas_summary_names_each_kernel():

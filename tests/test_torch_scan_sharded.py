@@ -23,6 +23,7 @@ from siga_tpu.ops import fm_device as jfm
 from siga_tpu.parallel.dist import data_mesh
 from siga_tpu_torch import dryrun, kernels
 from siga_tpu_torch.ops import fm_device as tfm
+from siga_tpu_torch.probes.kernel_ab import single_scan_args
 
 from chip_smoke import plane_edge_reads, scan_edge_cases
 from test_dist_build import _reads as dist_build_reads
@@ -211,14 +212,9 @@ def test_edge_cases_equal_whole_plane(edge_hosts, one_thread, case):
     stacked plane."""
     index, reads, n, (fwd, rev), mo, _slab = SCAN_EDGES[case]
     fms = [tfm.DeviceFM(h, "cpu") for h in edge_hosts(index)]
-    sc = tfm.DualScanner(*fms, fwd, rev, devices=["cpu"] * 3)
-    maxlen = -(-max(map(len, reads)) // 16) * 16
-    la_w, lens = tfm.pack_reads_2bit(reads, n, maxlen)
-    lim_t = min(maxlen - 1, int(lens.max()) - 1)
-    tail = (sc.pred, sc.length, sc.nblocks, torch.from_numpy(la_w), torch.from_numpy(lens),
-            lim_t, mo, fwd, rev)
-    whole = tfm.scan_single_plain(torch.cat(sc.shards), *tail)
-    for x, y in zip(tfm.scan_single_sharded_plain(sc.shards, *tail), whole, strict=True):
+    shards, tail = single_scan_args(fms, (fwd, rev), reads, n, mo, "cpu", devices=["cpu"] * 3)
+    whole = tfm.scan_single_plain(torch.cat(shards), *tail)
+    for x, y in zip(tfm.scan_single_sharded_plain(shards, *tail), whole, strict=True):
         assert x.dtype == torch.int32 and torch.equal(x, y)
 
 
