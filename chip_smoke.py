@@ -32,7 +32,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      with its bound; and split over several launches by a small slab
      budget), on a
      chunk of 149 bp reads (even lim_t) and on the rmdup lane groups; K5 at
-     B=4096, query 150, ref 400, and 16 of those pairs against a naive DP;
+     B=4096, query 150, ref 400 (timed, with its bound), 16 of those pairs
+     against a naive DP, on the main path's 4,096 sampled edges (timed) and
+     on every case of `sw.sw_edge_cases`;
      K2's plane and K on both directions of the main path's index and of
      every read set of `plane_edge_reads` (the CPU tests' texts, indexed
      on the card), each also built 3 times in a row and once on a second
@@ -67,7 +69,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      same (index_select, gather, x * 2), G2 and G4 timed in turn with it
      over 5 rounds (median, min-max, share of the bound); G2 and G4 at the
      edge shapes of `gather.edge_cases` (tails, x[1:], one row or output,
-     rows wider than shared memory, every form, broadcast indexes); G3 with
+     rows wider than shared memory, every form, broadcast indexes) and G3's
+     mode sum at those of its rows (both forms, lane counts no group
+     divides; every group G); G3's mode sum with each G at k_scan's shape
+     and on the pair plane, beside the G `gather.chain_plan` picks and the
+     plane's row traffic; G3 with
      32 chains of single-word gathers gives the L2 round trip of one
      dependent step; and G1's device-side range assert in a child process;
  12. K3 against its plain version, bit for bit, on the first full chunk
@@ -138,7 +144,6 @@ import functools
 import gzip
 import json
 import os
-import random
 import re
 import resource
 import shutil
@@ -152,7 +157,6 @@ import numpy as np
 import torch
 
 from siga_tpu_torch import cli, dryrun, kernels
-from siga_tpu_torch.core import dna
 from siga_tpu_torch.device import native_lib
 from siga_tpu_torch.index import sa as sa_mod
 from siga_tpu_torch.index.fm import FMIndex
@@ -165,6 +169,7 @@ from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import dist, dist_build, multihost
 from siga_tpu_torch.probes import gather
 from siga_tpu_torch.probes.kernel_ab import (kernel_spans, library_call, single_scan_args,
+                                             sw_edge_pairs, sw_synthetic_pairs, sw_tensors,
                                              trace_device)
 
 SEED = 1
@@ -431,8 +436,9 @@ def ptxas_summary(report: str) -> list:
                 inner = re.match(r"(\d+)", rest)
                 if inner:
                     name = rest[inner.end() : inner.end() + int(inner.group(1))]
-                    args = re.match(r"ILi(\d+)EE", rest[inner.end() + int(inner.group(1)):])
-                    name += f"<{args.group(1)}>" if args else ""
+                    args = re.match(r"I((?:L[ib]\d+E)+)E", rest[inner.end() + int(inner.group(1)):])
+                    if args:  # template arguments: int (Li) and bool (Lb) literals
+                        name += f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
         elif name and "stack frame" in line:
             frame = line.split(":", 1)[-1].strip()
         elif name and "Used" in line and "registers" in line:
@@ -493,27 +499,6 @@ def naive_sw(q, r, match=2, mis=2, go=3, ge=1):
     return best
 
 
-def edge_pairs(asqg_path, seqs, limit, rng):
-    """(query, ref) pairs from sampled ED records: the overlap substring of
-    the first read, and the second read in the first one's orientation."""
-    edges = []
-    n_vt = 0
-    with gzip.open(asqg_path, "rt") as f:
-        for line in f:
-            if line.startswith("ED\t"):
-                edges.append(line.split("\t")[1].split())
-            elif line.startswith("VT\t"):
-                n_vt += 1
-    picks = rng.choice(len(edges), size=min(limit, len(edges)), replace=False)
-    queries, refs = [], []
-    for k in picks:
-        id1, id2, s1, e1, _l1, _s2, _e2, _l2, comp = edges[k][:9]
-        queries.append(seqs[int(id1[1:])][int(s1) : int(e1) + 1])
-        r = seqs[int(id2[1:])]
-        refs.append(dna.reverse_complement(r) if comp == "1" else r)
-    return n_vt, len(edges), queries, refs
-
-
 def run_main_path(dev, seqs, rng):
     """index -> overlap -> SW scoring of the edges, in the current directory."""
     with open("reads.fa", "w") as f:
@@ -533,7 +518,8 @@ def run_main_path(dev, seqs, rng):
         ["overlap", "--device", dev.type, "-m", str(MIN_OVERLAP), "-p", "reads", "reads.fa"]
     ) == 0
     overlap_s = time.time() - t0
-    n_vt, n_ed, queries, refs = edge_pairs("reads.asqg.gz", seqs, 4096, rng)
+    n_vt, n_ed, queries, refs = sw_edge_pairs(
+        "reads.asqg.gz", {f"r{i}": s for i, s in enumerate(seqs)}, 4096, rng)
     t0 = time.time()
     best, qend, _rend = sw.BatchAligner(*SW_PARAMS, device=dev).scores(queries, refs)
     sw_s = time.time() - t0
@@ -544,7 +530,7 @@ def run_main_path(dev, seqs, rng):
     qlen = np.array([len(q) for q in queries])
     assert (best == 2 * qlen).all() and (qend == qlen - 1).all(), "an edge is not an exact overlap"
     print(f"{len(queries)} sampled edges score 2 x their overlap length")
-    return launches, index_s
+    return launches, index_s, (queries, refs)
 
 
 def check_host_index(index_s):
@@ -875,6 +861,7 @@ def check_probes(dev, plane):
         row["max_abs_err"] = errs[name]
         out[name] = (row, ", ".join(replaces[name]))
     assert all(v[0]["max_abs_err"] == 0 for v in out.values()), out
+    sweep_chain_groups(dev, plane)
     # the L2 round trip a lane's chain pays a step: 32 chains of dependent
     # single-word gathers (G3, mode elem) over one direction's plane
     fwd = plane[: R // 2].reshape(1, -1)
@@ -888,6 +875,59 @@ def check_probes(dev, plane):
     return out, step_ns
 
 
+def sweep_chain_groups(dev, plane):
+    """G3's mode sum with each group G of `gather.CHAIN_GROUPS` at k_scan's
+    shape and on the pair plane (each equal to the plain version), beside
+    the G `gather.chain_plan` picks; then, timed only, at the lane counts
+    and row widths its rule rests on (strided and contiguous rows, few and
+    many random lanes); on the plane also the traffic of its rows with
+    every read fetched again (the 32-byte sectors each row spans, at HBM
+    rate), beside the byte bound."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k_scan = next(args for tpu, _w, _n, args in gather.probe_cases(np.random.default_rng(SEED))
+                  if tpu == "k_scan")
+    on_plane = gather.plane_args(plane, PROBE_LANES, PROBE_STEPS, SEED)["gather_chain"]
+    cases = {"k_scan [24, 8192] x 112": gather.to_device(k_scan, dev),
+             f"the pair plane {tuple(plane.shape)} x {PROBE_STEPS}": on_plane}
+    for label, (table, init, c, steps, mode) in cases.items():
+        want = gather.gather_chain_plain(table, init, c, steps, mode)
+        times = []
+        for G in gather.CHAIN_GROUPS:
+            assert torch.equal(gather.chain_sum(table, init, c, steps, G), want), (label, G)
+            times.append(cuda_ms(lambda: gather.chain_sum(table, init, c, steps, G), 5))
+        plan = gather.chain_plan(table.shape[0], table.stride(0) == 1, init.numel(), sms)
+        print(f"gather_chain (sum) {label}, {init.numel()} lanes, each G equal to plain: "
+              + ", ".join(f"G={G} {ms:.4f} ms" for G, ms in zip(gather.CHAIN_GROUPS, times))
+              + f"; chain_plan picks G={plan} [{card_line()}]")
+    # the lane counts and widths behind chain_plan's rule (timed only)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k_table, _init, k_c, k_steps, _mode = cases["k_scan [24, 8192] x 112"]
+    rule = [("strided W=24 (k_scan's table)", k_table, k_steps, (2048, 16384, 60608)),
+            ("strided W=4", k_table[:4], k_steps, (8192, 60608)),
+            ("strided W=57", torch.randint(-2**31, 2**31 - 1, (57, 8192), dtype=torch.int32,
+                                           device=dev, generator=gen), k_steps, (8192,)),
+            ("the pair plane's rows, W=57", plane.T, PROBE_STEPS, (1170, 16384, 32768, 45056)),
+            ("the pair plane's first words, W=1", plane[:, :1].T, PROBE_STEPS, (8192, 60608))]
+    for label, table, steps, lane_counts in rule:
+        for lanes in lane_counts:
+            init = torch.randint(0, table.shape[1], (lanes,), dtype=torch.int32, device=dev,
+                                 generator=gen)
+            times = [cuda_ms(lambda: gather.chain_sum(table, init, k_c, steps, G), 5)
+                     for G in gather.CHAIN_GROUPS]
+            plan = gather.chain_plan(table.shape[0], table.stride(0) == 1, lanes, sms)
+            print(f"gather_chain (sum) sweep, {label} x {steps}, {lanes} random lanes: "
+                  + ", ".join(f"G={G} {ms:.4f} ms" for G, ms in zip(gather.CHAIN_GROUPS, times))
+                  + f"; chain_plan picks G={plan}")
+    table, init, _c, steps, _mode = on_plane
+    W, R = table.shape
+    starts = plane.data_ptr() % 32 + np.arange(R, dtype=np.int64) * table.stride(1) * 4
+    sectors = float(np.mean((starts % 32 + 4 * W + 31) // 32))
+    traffic = init.numel() * steps * sectors * 32
+    print(f"gather_chain (sum) on the pair plane: {sectors:.3f} sectors a row, row traffic "
+          f"{traffic / 1e9:.3f} GB = {bytes_ms(traffic):.4f} ms at HBM rate (with re-reads), "
+          f"byte bound {bytes_ms(probe_bytes('gather_chain', on_plane)):.4f} ms")
+
+
 def take_form(table, index, axis) -> str:
     """G2's form and block shape for these arguments on this card."""
     A, B, Q, _si0, _si1 = gather.take_along_geometry(table, index, axis)
@@ -897,13 +937,19 @@ def take_form(table, index, axis) -> str:
 
 
 def check_probe_edges(dev):
-    """G2 and G4 against their plain versions at the edge shapes of
-    `gather.edge_cases`, bit for bit.  Returns {kernel: largest error}."""
-    errs = {"take_along": 0, "scale2": 0}
+    """G2, G4 and G3's mode sum (with every group G) against their plain
+    versions at the edge shapes of `gather.edge_cases`, bit for bit.
+    Returns {kernel: largest error}."""
+    errs = {"take_along": 0, "scale2": 0, "gather_chain": 0}
     for label, name, args in gather.edge_cases(np.random.default_rng(SEED), dev):
         fn, plain = gather.WRAPPERS[name]
-        e = max_abs_err([fn(*args)], [plain(*args)])
+        want = plain(*args)
+        e = max_abs_err([fn(*args)], [want])
         extra = f", {take_form(*args)}" if name == "take_along" else ""
+        if name == "gather_chain":  # and every group, not only the plan's
+            e = max([e] + [max_abs_err([gather.chain_sum(*args[:4], G)], [want])
+                           for G in gather.CHAIN_GROUPS])
+            extra = ", every G"
         print(f"edge {label}{extra}: max_abs_err {e}")
         errs[name] = max(errs[name], e)
     assert not any(errs.values()), errs
@@ -1554,22 +1600,13 @@ def check_single_contigs(fms, groups, chunk, maxlen, mo, pair_args, step_ns):
               f"{ms * 1e3 / live.max():.4f} us a step) [{card}]", flush=True)
 
 
-def check_sw_kernel(dev):
-    rng = random.Random(SEED)
-    qs, rs = [], []
-    for _ in range(4096):
-        q = "".join(rng.choice("ACGT") for _ in range(150))
-        r = "".join(rng.choice("ACGT") for _ in range(400))
-        if rng.random() < 0.5:  # a mutated copy of q inside r
-            mq = list(q)
-            for _ in range(rng.randint(0, 8)):
-                mq[rng.randrange(150)] = rng.choice("ACGT")
-            pos = rng.randint(0, 250)
-            r = r[:pos] + "".join(mq) + r[pos + 150 :]
-        qs.append(q)
-        rs.append(r)
-    qt = torch.from_numpy(np.stack([dna.encode(q) for q in qs]).astype(np.int32)).to(dev)
-    rt = torch.from_numpy(np.stack([dna.encode(r) for r in rs]).astype(np.int32)).to(dev)
+def check_sw_kernel(dev, edges):
+    """K5 against its plain version, bit for bit: at B = 4,096, 150 x 400
+    (`kernel_ab.sw_synthetic_pairs`; 16 pairs also against a naive DP), on
+    the main path's edges (`edges`: its sampled (query, ref) strings) and on
+    every case of `sw.sw_edge_cases`; timed at the first two shapes."""
+    qs, rs = sw_synthetic_pairs(SEED)
+    qt, rt = sw_tensors(qs, rs, dev)
     got = sw.sw_wavefront(qt, rt, *SW_PARAMS)
     err = max_abs_err(got, sw.sw_wavefront_plain(qt, rt, *SW_PARAMS))
     assert got[0][:16].cpu().tolist() == [naive_sw(q, r) for q, r in zip(qs[:16], rs[:16])], \
@@ -1579,12 +1616,26 @@ def check_sw_kernel(dev):
     (B, M), N = qt.shape, rt.shape[1]
     bound = max(SW_OPS_PER_CELL * B * M * N / SCALAR_OPS_PER_S * 1e3,
                 bytes_ms((B * M + B * N) * 4 + 3 * B * 4))
-    print(f"K5 B=4096 q=150 r=400: max_abs_err {err}, kernel {ms:.3f} ms, "
+    print(f"K5 B=4096 q=150 r=400: max_abs_err {err}, kernel {ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms (operations: {SW_OPS_PER_CELL} a cell "
-          f"at {SCALAR_OPS_PER_S:.3g}/s); 16 pairs equal the naive DP")
-    assert err == 0
+          f"at {SCALAR_OPS_PER_S:.3g}/s), {bound / ms:.1%} of it; 16 pairs equal the naive DP "
+          f"[{card_line()}]")
+    eq, er = sw_tensors(*edges, dev)
+    e_err = max_abs_err(sw.sw_wavefront(eq, er, *SW_PARAMS), sw.sw_wavefront_plain(eq, er, *SW_PARAMS))
+    e_ms = cuda_ms(lambda: sw.sw_wavefront(eq, er, *SW_PARAMS), 10)
+    (eB, eM), eN = eq.shape, er.shape[1]
+    e_bound = SW_OPS_PER_CELL * eB * eM * eN / SCALAR_OPS_PER_S * 1e3
+    print(f"K5 on the main path's {eB} edges ({eM} x {eN}, queries of "
+          f"{min(map(len, edges[0]))}-{max(map(len, edges[0]))} zero-padded): max_abs_err "
+          f"{e_err}, kernel {e_ms:.4f} ms, bound {e_bound:.4f} ms (operations)")
+    for label, q, r, params in sw.sw_edge_cases():
+        a, b = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+        e = max_abs_err(sw.sw_wavefront(a, b, *params), sw.sw_wavefront_plain(a, b, *params))
+        print(f"K5 edge {label}: max_abs_err {e}")
+        err = max(err, e)
+    err = max(err, e_err)
+    assert err == 0, err
     return kernel_row(err, ms, plain_ms, bound, "operations", None)
-
 
 
 def port_cmd(argv, cwd, timeout=STAGE_TIMEOUT):
@@ -1824,7 +1875,7 @@ def main(argv=None) -> int:
     os.chdir(workdir)
     try:
         phase("main path: index (-a sais2 on cuda) -> overlap -> SW scoring of the edges")
-        launches, index_s = run_main_path(dev, seqs, rng)
+        launches, index_s, sw_edges = run_main_path(dev, seqs, rng)
         n_chunks = -(-len(seqs) // search.chunk_size(len(seqs)))
         assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
         assert launches["sw_wavefront"] >= 1, launches
@@ -1837,7 +1888,7 @@ def main(argv=None) -> int:
         launches["scan_single"] += run_single_step_overlap()["scan_single"]
         phase("kernels against their plain versions")
         k1 = check_scan_kernel(dev, builder, seqs)
-        k5 = check_sw_kernel(dev)
+        k5 = check_sw_kernel(dev, sw_edges)
         edges = edge_indexes(dev)
         k2_err = check_plane_kernel(dev, edges)
         phase("hits of sampled reads against the host engine")

@@ -32,10 +32,25 @@
 // G3 gather_chain: the dependent recurrences of k_scan (probe_gather.py:201,
 //   mode sum: state = (state + sum_w table[w, (state + t) % NB] + c[t % |c|])
 //   % NB) and k_d (probe3.py:173, mode elem: state = (state + table[w, state]
-//   + s) % N).  One thread per lane keeps its state in a register, as K1 does.
-//   Bound: latency, one memory round trip per step per lane (mode sum issues a
-//   step's row loads in batches of 32 before it adds them); the time per step
-//   with all lanes in flight is the floor for K1's chain of row reads.
+//   + s) % N).  Bound: latency, one memory round trip per step per lane; the
+//   time per step with all lanes in flight is the floor for K1's chain of
+//   row reads.
+//   - mode sum spreads a lane's step over a group of G threads (G = 1, 2, 4
+//     or 8, a template width that gather.py's chain_plan picks).  Where a
+//     row's W words are contiguous (sw == 1: the pair plane's transpose,
+//     K1's 228-byte row at any 4-byte offset), the group reads the aligned
+//     16-byte vectors covering [row, row + W) with the edge words masked, G
+//     vectors in flight a round (15 vectors for K1's row); strided words
+//     (k_scan's [24, 8192] table) go out as scalar loads, G a round.  Every
+//     load of a round is issued before the first add, so a step of up to 16
+//     vectors or 32 words costs one round trip; the group sums with
+//     __shfl_xor_sync and each of its threads then holds the same state.
+//     The step's index (state + t) % NB and c's index are kept as counters,
+//     and the floor modulo of the new state is Lemire's multiply-high
+//     remainder with a constant the host computes, so the chain holds no
+//     division.  Readings of every G: PERF.md (chip_smoke.py's sweep).
+//   - mode elem keeps one thread per lane with its state in a register, as
+//     K1 does: one single-word gather a step.
 // G4 scale2: out = 2 * x, the build-and-launch check of probe2.py:67.  Bound:
 //   streaming bandwidth, each byte read once and written once.  A thread
 //   moves one 16-byte int4 vector and exits; the grid covers the vectors
@@ -69,7 +84,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSharedThreads = 1024;      // G2 blocks that copy a row to shared memory
-constexpr int kBatch = 32;                // G3 row loads in flight per thread
 constexpr int kCopyInFlight = 8;          // G2 row-copy loads in flight per thread
 constexpr int kSmemDefault = 48 * 1024;   // above it, opt in per kernel
 
@@ -157,30 +171,131 @@ __global__ void take_along0_kernel(const int* __restrict__ table,
   }
 }
 
-__global__ void chain_sum_kernel(const int* __restrict__ table, long long sw,
-                                 long long sx, int W, int NB,
-                                 const int* __restrict__ init,
-                                 const int* __restrict__ c, int Lc, int steps,
-                                 int L, int* __restrict__ out) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+// floor_mod(v, NB) for any int32 v: (v + 2^31) mod NB by Lemire's
+// multiply-high remainder (magic = 2^64 / NB rounded up, exact for every
+// 32-bit dividend), less 2^31 mod NB, back into [0, NB)
+struct FloorMod {
+  unsigned long long magic;
+  unsigned nb, bias;  // NB and 2^31 mod NB
+};
+
+__device__ __forceinline__ int floor_mod_fast(int v, const FloorMod& m) {
+  const unsigned u = static_cast<unsigned>(v) ^ 0x80000000u;
+  const unsigned r = static_cast<unsigned>(__umul64hi(m.magic * u, m.nb));
+  return r >= m.bias ? static_cast<int>(r - m.bias) : static_cast<int>(r + m.nb - m.bias);
+}
+
+// sum of x[0..n) as a tree (n a power of two), so the adds are log n deep;
+// a recursion, since a halving loop is not unrolled and its array would go
+// to local memory
+template <int n, int size>
+__device__ __forceinline__ unsigned tree_sum(unsigned (&x)[size]) {
+  if constexpr (n == 1) {
+    return x[0];
+  } else {
+#pragma unroll
+    for (int k = 0; k < n / 2; ++k) x[k] += x[k + n / 2];
+    return tree_sum<n / 2>(x);
+  }
+}
+
+// The words [0, W) of a step's row or column, this thread's share: with
+// kRows the aligned 16-byte vectors covering the contiguous row (words
+// outside it masked), kV a thread a round; else the strided words, kS a
+// thread a round.
+template <int G, bool kRows>
+__device__ __forceinline__ unsigned step_share(const int* __restrict__ at, long long sw, int W,
+                                               int g) {
+  unsigned acc = 0;
+  if (kRows) {
+    constexpr int kV = 16 / G;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(at);
+    const int4* vec = reinterpret_cast<const int4*>(a0 & ~static_cast<uintptr_t>(15));
+    const int off = static_cast<int>((a0 >> 2) & 3);  // words before the row in its first vector
+    const int nv = (off + W + 3) >> 2;
+    for (int base = 0; base < nv; base += G * kV) {
+      int4 v[kV];
+#pragma unroll
+      for (int m = 0; m < kV; ++m) {
+        const int vi = base + g + m * G;
+        v[m] = vi < nv ? __ldg(vec + vi) : make_int4(0, 0, 0, 0);
+      }
+      unsigned part[kV];
+#pragma unroll
+      for (int m = 0; m < kV; ++m) {
+        const unsigned w0 = static_cast<unsigned>((base + g + m * G) * 4 - off);
+        const unsigned uw = static_cast<unsigned>(W);
+        part[m] = (w0 < uw ? static_cast<unsigned>(v[m].x) : 0u) +
+                  (w0 + 1 < uw ? static_cast<unsigned>(v[m].y) : 0u) +
+                  (w0 + 2 < uw ? static_cast<unsigned>(v[m].z) : 0u) +
+                  (w0 + 3 < uw ? static_cast<unsigned>(v[m].w) : 0u);
+      }
+      acc += tree_sum<kV>(part);
+    }
+  } else {
+    constexpr int kS = 32 / G;
+    for (int base = 0; base < W; base += G * kS) {
+      unsigned v[kS];
+#pragma unroll
+      for (int m = 0; m < kS; ++m) {
+        const int w = base + g + m * G;
+        v[m] = w < W ? static_cast<unsigned>(__ldg(at + w * sw)) : 0u;
+      }
+      acc += tree_sum<kS>(v);
+    }
+  }
+  return acc;
+}
+
+// Mode sum: lane l is threads [l G, (l + 1) G) of the grid.
+template <int G, bool kRows>
+__global__ void chain_sum_kernel(const int* __restrict__ table, long long sw, long long sx,
+                                 int W, int NB, FloorMod fm, const int* __restrict__ init,
+                                 const int* __restrict__ c, int Lc, int steps, int L,
+                                 int* __restrict__ out) {
+  const long long gt = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long l = gt / G;
+  if (l >= L) return;  // the whole group
+  const int g = static_cast<int>(gt % G);
+  const unsigned group = G == 1 ? 1u : ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
   int state = init[l];
   assert(0 <= state && state < NB);
+  const unsigned nb = static_cast<unsigned>(NB);
+  unsigned tm = 0;  // t % NB
+  int tc = 0;       // t % Lc
   for (int t = 0; t < steps; ++t) {
-    const int* col = table + static_cast<long long>((state + t) % NB) * sx;
-    unsigned acc = static_cast<unsigned>(c[t % Lc]);
-    for (int w0 = 0; w0 < W; w0 += kBatch) {
-      unsigned v[kBatch];
+    unsigned x = static_cast<unsigned>(state) + tm;
+    x = x >= nb ? x - nb : x;
+    unsigned acc = step_share<G, kRows>(table + static_cast<long long>(x) * sx, sw, W, g);
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        v[k] = w0 + k < W ? static_cast<unsigned>(col[(w0 + k) * sw]) : 0u;
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) acc += v[k];
-    }
-    state = floor_mod(wrap_add(state, acc), NB);
+    for (int off = G / 2; off > 0; off /= 2) acc += __shfl_xor_sync(group, acc, off);
+    acc += static_cast<unsigned>(c[tc]);
+    state = floor_mod_fast(wrap_add(state, acc), fm);
+    tm = tm + 1 == nb ? 0 : tm + 1;
+    tc = tc + 1 == Lc ? 0 : tc + 1;
   }
-  out[l] = state;
+  if (g == 0) out[l] = state;
+}
+
+template <int G>
+int launch_chain_sum(bool rows, const int* table, long long sw, long long sx, int W, int NB,
+                     const int* init, const int* c, int Lc, int steps, int L, int* out,
+                     cudaStream_t s) {
+  const unsigned long long nb = static_cast<unsigned long long>(NB);
+  const FloorMod fm{~0ull / nb + 1, static_cast<unsigned>(NB),
+                    static_cast<unsigned>((1ull << 31) % nb)};
+  const long long threads = static_cast<long long>(L) * G;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (rows) {
+    chain_sum_kernel<G, true><<<grid, kThreads, 0, s>>>(table, sw, sx, W, NB, fm, init, c, Lc,
+                                                        steps, L, out);
+  } else {
+    chain_sum_kernel<G, false><<<grid, kThreads, 0, s>>>(table, sw, sx, W, NB, fm, init, c, Lc,
+                                                         steps, L, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void chain_elem_kernel(const int* __restrict__ table, long long sw,
@@ -280,16 +395,28 @@ extern "C" int siga_take_along(const void* table, const void* index, int A, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// `group` (1, 2, 4 or 8 threads a lane) comes from gather.py's chain_plan;
+// rows whose words are contiguous (sw == 1) are read as 16-byte vectors.
 extern "C" int siga_gather_chain_sum(const void* table, long long sw, long long sx,
                                      int W, int NB, const void* init,
-                                     const void* c, int Lc, int steps, int L,
+                                     const void* c, int Lc, int steps, int L, int group,
                                      void* out, void* stream) {
-  chain_sum_kernel<<<(L + kThreads - 1) / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), sw, sx, W, NB,
-      static_cast<const int*>(init), static_cast<const int*>(c), Lc, steps, L,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  if (W < 1 || NB < 1 || Lc < 1 || L < 1 || steps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const int*>(table);
+  const auto* i = static_cast<const int*>(init);
+  const auto* cc = static_cast<const int*>(c);
+  auto* o = static_cast<int*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool rows = sw == 1;
+  switch (group) {
+    case 1: return launch_chain_sum<1>(rows, t, sw, sx, W, NB, i, cc, Lc, steps, L, o, s);
+    case 2: return launch_chain_sum<2>(rows, t, sw, sx, W, NB, i, cc, Lc, steps, L, o, s);
+    case 4: return launch_chain_sum<4>(rows, t, sw, sx, W, NB, i, cc, Lc, steps, L, o, s);
+    case 8: return launch_chain_sum<8>(rows, t, sw, sx, W, NB, i, cc, Lc, steps, L, o, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int siga_gather_chain_elem(const void* table, long long sw, long long sx,

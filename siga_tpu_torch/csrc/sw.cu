@@ -1,117 +1,241 @@
-// K5: batched affine-gap Smith-Waterman by anti-diagonal wavefront, sm_90a.
+// K5: batched affine-gap Smith-Waterman for sm_90a, a warp a pair with the
+// wavefront in registers and DPX max-plus instructions.
 //
 // Replaces the Pallas TPU kernel siga_tpu/ops/sw_pallas.py::_sw_kernel and
 // also returns the end positions that the JAX package took from the XLA
 // version (siga_tpu/ops/sw_device.py::_sw_wavefront);
 // siga_tpu_torch/ops/sw.py::sw_wavefront_plain is the same function in plain
-// PyTorch.  One block per (query, ref) pair, one thread per query row i
-// (cells 0..M); thread i computes cell (i, d - i) of anti-diagonal d.  The H
-// values of the last three diagonals and E of the last two live in shared
-// memory as rings, so each diagonal costs one barrier; F stays in the
-// thread's registers.
+// PyTorch.
 //
-// What bounds it: the m + n - 1 dependent diagonal steps, each a handful of
-// integer ops and one barrier.  Blocks are small (M + 1 threads rounded to a
-// warp), so many pairs run on each SM at once; the reference symbols are read
-// from global memory (neighbouring threads read neighbouring addresses).
+// Work split: one warp per (query, ref) pair, kWarps pairs a block.  Lane t
+// owns the R consecutive query rows tR + 1 .. (t + 1)R, R a template width at
+// least ceil(M / 32), so L = ceil(M / R) lanes hold rows.  For each of its
+// rows a lane keeps in registers H - gap_open and F of the previous ref
+// column, the query symbol, and the row's best so far.
 //
-// Ties resolve as in _sw_wavefront: the first diagonal that reaches the
-// maximum, then the smallest query row on it.  Query code 0 is padding and
-// never matches.
+// Sweep: the warp walks the ref columns; lane t lags t columns behind lane
+// 0, so a pass is N + L - 1 steps.  At a step lane t takes from lane t - 1
+// by __shfl_up_sync the H - go and E of row tR at its own column (lane t - 1
+// computed them the step before); the diagonal H(tR, j - 1) is what it took
+// the step before.  E runs down the lane's rows within the thread; F moves
+// along its registers.  A cell is four DPX instructions and three integer
+// ones:
+//   E = __viaddmax_s32(E_up, -ge, Hg_up)         max(E_up - ge, H_up - go)
+//   F = __viaddmax_s32(F, -ge, Hg_left)          max(F - ge, H_left - go)
+//   H = __vimax3_s32_relu(Hg_diag + (s + go), E, F)
+//   best: __vibmax_s32 and a select of the step
+// with Hg = H - go kept in place of H, so one subtraction serves E below, F
+// to the right and the diagonal (s + go is match + go or go - mismatch).
+// Ref symbols are staged a warp at a time in a 64-entry ring in shared
+// memory (32 loaded every 32 steps, the next 32 in flight meanwhile); lane t
+// reads symbol s - t at step s, so no thread makes a global load per cell.
+// There is no barrier: the warp is the block of work.
+//
+// Boundaries: row 0 and column 0 of H are 0 as a diagonal neighbour and NEG
+// as an E or F neighbour, as in _sw_wavefront.  Hg starts at -go (H = 0 as
+// the diagonal), lane 0 takes H - go = NEG - go and E = NEG from above, and
+// at column 1 F is max(NEG - go, NEG - ge).  Steps where some lane of the
+// L is outside 1..N (the first L and the last L - 1) run the checked body:
+// such a lane keeps its registers and its best; the others run unchecked.
+//
+// Ties: the sweep visits cells column by column, not diagonal by diagonal.
+// A row's best is taken strictly greater, so it is the row's first column
+// reaching it (the smallest d = i + j on that row); the lanes then reduce
+// (h, d, i) by max h, then smallest d, then smallest i: the first diagonal
+// that reaches the maximum, then the smallest query row on it, as
+// _sw_wavefront.  A best h <= 0 gives (0, -1, -1).  Query code <= 0 is
+// padding and never matches (queries <= 0 are read as 0, refs <= 0 as -1).
+//
+// What bounds it: operations, about ten integer instructions a cell with
+// the step's shuffles and ring read shared over R cells; the cells of one
+// step are a dependent chain down the lane's rows (E), hidden by the other
+// warps on the scheduler.  Values are int32; a two-pairs-a-word 16-bit form
+// (__viaddmax_s16x2) would need a range condition on the parameters.
 #include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kNeg = -(1 << 20);
+constexpr int kWarps = 4;  // pairs a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRing = 64;  // ref symbols staged a warp
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void sw_kernel(const int* __restrict__ queries,
-                          const int* __restrict__ refs, int M, int N, int match,
-                          int mismatch, int gap_open, int gap_extend, int* best,
-                          int* qend, int* rend) {
-  extern __shared__ int smem[];
-  const int cp = blockDim.x;  // >= M + 1
-  int* H = smem;              // [3][cp] ring: diagonals d, d-1, d-2
-  int* E = H + 3 * cp;        // [2][cp] ring
-  int* best_h = E + 2 * cp;   // [cp]
-  int* best_d = best_h + cp;  // [cp]
-  const int b = blockIdx.x;
-  const int i = threadIdx.x;
-  const int* ref = refs + static_cast<size_t>(b) * N;
-  const int q = (i >= 1 && i <= M) ? queries[static_cast<size_t>(b) * M + i - 1] : 0;
+struct Params {
+  int go, ge;
+  int s_match, s_mismatch;  // match + go, go - mismatch
+  int f_first;              // F at column 1: max(NEG - go, NEG - ge)
+};
 
-#pragma unroll
-  for (int r = 0; r < 3; ++r) H[r * cp + i] = kNeg;
-  E[i] = kNeg;
-  E[cp + i] = kNeg;
-  int f = kNeg;
-  int bh = INT_MIN, bd = 0;
-  __syncthreads();
+// ref symbol idx of the pair, -1 past the end or for a code <= 0
+__device__ __forceinline__ int ref_symbol(const int* ref, int idx, int N) {
+  if (idx >= N) return -1;
+  const int v = __ldg(ref + idx);
+  return v > 0 ? v : -1;
+}
 
-  for (int d = 2; d <= M + N; ++d) {
-    const int* Hp = H + ((d - 1) % 3) * cp;
-    const int* Hp2 = H + ((d - 2) % 3) * cp;
-    const int* Ep = E + ((d - 1) & 1) * cp;
-    if (i <= M) {
-      const int j = d - i;
-      const bool valid = i >= 1 && j >= 1 && j <= N;
-      const int h_up = i > 0 ? Hp[i - 1] : kNeg;
-      const int e_up = i > 0 ? Ep[i - 1] : kNeg;
-      int e = max(h_up - gap_open, e_up - gap_extend);
-      int fv = max(Hp[i] - gap_open, f - gap_extend);
-      int h_diag = i > 0 ? Hp2[i - 1] : kNeg;
-      if (i == 1) h_diag = 0;               // H[0][j-1] = 0
-      if (j == 1 && i >= 1) h_diag = 0;     // H[i][0] = 0
-      const int r = (j >= 1 && j <= N) ? __ldg(ref + j - 1) : 0;
-      const int sub = (q == r && q > 0) ? match : -mismatch;
-      int h = max(max(h_diag + sub, e), fv);
-      h = max(h, 0);
-      if (!valid) {
-        h = kNeg;
-        e = kNeg;
-        fv = kNeg;
-      } else if (h > bh) {
-        bh = h;
-        bd = d;
-      }
-      H[(d % 3) * cp + i] = h;
-      E[(d & 1) * cp + i] = e;
-      f = fv;
-    }
-    __syncthreads();
+// One step s of the sweep for lane t (column j = s - t + 1).  kEdge: some
+// lane may be outside columns 1..N, so each lane checks its own.
+template <int R, bool kEdge>
+__device__ __forceinline__ void sw_step(int s, int t, int N, int* ring, int& next,
+                                        const int* ref, const int (&q)[R], int (&hg)[R],
+                                        int (&f)[R], int (&bh)[R], int (&bs)[R], int& diag0,
+                                        int& e_last, const Params& p) {
+  if ((s & 31) == 0 && s > 0) {  // the next 32 symbols into the ring
+    __syncwarp();
+    ring[(s + t) & (kRing - 1)] = next;
+    next = ref_symbol(ref, s + 32 + t, N);
+    __syncwarp();
   }
+  const int r = ring[(s - t) & (kRing - 1)];
+  int hg_up = __shfl_up_sync(kFull, hg[R - 1], 1);
+  int e_up = __shfl_up_sync(kFull, e_last, 1);
+  int diag = diag0;
+  diag0 = hg_up;
+  if (t == 0) {  // row 0: NEG above, 0 on the diagonal
+    hg_up = kNeg - p.go;
+    e_up = kNeg;
+    diag = -p.go;
+  }
+  const int j = s - t + 1;
+  const bool active = !kEdge || (j >= 1 && j <= N);
+  const bool first = kEdge && j == 1;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int left = hg[k];
+    const int e = __viaddmax_s32(e_up, -p.ge, hg_up);
+    int fk = __viaddmax_s32(f[k], -p.ge, left);
+    if (first) fk = p.f_first;
+    const int h = __vimax3_s32_relu(diag + (q[k] == r ? p.s_match : p.s_mismatch), e, fk);
+    const int g = h - p.go;
+    if (active) {
+      bool keep;
+      bh[k] = __vibmax_s32(bh[k], g, &keep);
+      bs[k] = keep ? bs[k] : s;
+      hg[k] = g;
+      f[k] = fk;
+    }
+    diag = left;
+    hg_up = g;
+    e_up = e;
+  }
+  e_last = e_up;
+}
 
-  best_h[i] = i <= M ? bh : INT_MIN;
-  best_d[i] = bd;
-  __syncthreads();
-  if (i == 0) {
-    int h = INT_MIN, dd = 0, ii = 0;
-    for (int k = 0; k <= M; ++k) {
-      if (best_h[k] > h || (best_h[k] == h && best_d[k] < dd)) {
-        h = best_h[k];
-        dd = best_d[k];
-        ii = k;
+// (h, d, i) of a cell beats (h2, d2, i2): larger h, then smaller d, then smaller i
+__device__ __forceinline__ bool better(int h, int d, int i, int h2, int d2, int i2) {
+  return h > h2 || (h == h2 && (d < d2 || (d == d2 && i < i2)));
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+sw_kernel(const int* __restrict__ queries, const int* __restrict__ refs, int B, int M, int N,
+          Params p, int* __restrict__ best, int* __restrict__ qend, int* __restrict__ rend) {
+  __shared__ int rings[kWarps][kRing];
+  const int t = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  int* ring = rings[threadIdx.x >> 5];
+  const int* ref = refs + static_cast<size_t>(b) * N;
+  const int* qrow = queries + static_cast<size_t>(b) * M;
+  const int L = (M + R - 1) / R;
+
+  int q[R], hg[R], f[R], bh[R], bs[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int row = t * R + k;
+    q[k] = row < M ? max(qrow[row], 0) : 0;
+    hg[k] = -p.go;
+    f[k] = kNeg;
+    bh[k] = INT_MIN;
+    bs[k] = 0;
+  }
+  ring[t] = ref_symbol(ref, t, N);
+  int next = ref_symbol(ref, 32 + t, N);
+  __syncwarp();
+  int diag0 = -p.go, e_last = kNeg;
+
+  // steps [0, L) and [max(L, N), N + L - 1) are checked; [L, N) are not
+  int s = 0;
+  for (; s < L && s < N + L - 1; ++s)
+    sw_step<R, true>(s, t, N, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p);
+  for (; s < N; ++s)
+    sw_step<R, false>(s, t, N, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p);
+  for (; s < N + L - 1; ++s)
+    sw_step<R, true>(s, t, N, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p);
+
+  int h = INT_MIN, d = INT_MAX, i = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int row = t * R + k + 1;  // query row i of the cell
+    if (row <= M) {
+      const int hk = bh[k] + p.go, dk = row + bs[k] - t + 1;
+      if (better(hk, dk, row, h, d, i)) {
+        h = hk;
+        d = dk;
+        i = row;
       }
     }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int h2 = __shfl_xor_sync(kFull, h, off);
+    const int d2 = __shfl_xor_sync(kFull, d, off);
+    const int i2 = __shfl_xor_sync(kFull, i, off);
+    if (better(h2, d2, i2, h, d, i)) {
+      h = h2;
+      d = d2;
+      i = i2;
+    }
+  }
+  if (t == 0) {
     const bool none = h <= 0;
     best[b] = none ? 0 : h;
-    qend[b] = none ? -1 : ii - 1;
-    rend[b] = none ? -1 : dd - ii - 1;
+    qend[b] = none ? -1 : i - 1;
+    rend[b] = none ? -1 : d - i - 1;
+  }
+}
+
+struct Call {
+  const int* queries;
+  const int* refs;
+  int B, M, N;
+  Params p;
+  int *best, *qend, *rend;
+  cudaStream_t stream;
+};
+
+template <int R>
+int launch(const Call& c) {
+  const int blocks = (c.B + kWarps - 1) / kWarps;
+  sw_kernel<R><<<blocks, kThreads, 0, c.stream>>>(c.queries, c.refs, c.B, c.M, c.N, c.p,
+                                                   c.best, c.qend, c.rend);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the smallest instantiated width R >= rmin
+template <int R, int... Rs>
+int dispatch(int rmin, const Call& c) {
+  if (rmin <= R) return launch<R>(c);
+  if constexpr (sizeof...(Rs) > 0) {
+    return dispatch<Rs...>(rmin, c);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-extern "C" int siga_sw_wavefront(const void* queries, const void* refs, int B,
-                                 int M, int N, int match, int mismatch,
-                                 int gap_open, int gap_extend, void* best,
-                                 void* qend, void* rend, void* stream) {
-  const int threads = ((M + 1 + 31) / 32) * 32;
-  if (threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(7) * threads * sizeof(int);
-  sw_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(queries), static_cast<const int*>(refs), M, N,
-      match, mismatch, gap_open, gap_extend, static_cast<int*>(best),
-      static_cast<int*>(qend), static_cast<int*>(rend));
-  return static_cast<int>(cudaGetLastError());
+// Every M in 1..1023 (R up to 32); N >= 1.
+extern "C" int siga_sw_wavefront(const void* queries, const void* refs, int B, int M, int N,
+                                 int match, int mismatch, int gap_open, int gap_extend,
+                                 void* best, void* qend, void* rend, void* stream) {
+  if (B < 1 || M < 1 || M > 1023 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int f_first = max(kNeg - gap_open, kNeg - gap_extend);
+  const Call c{static_cast<const int*>(queries), static_cast<const int*>(refs), B, M, N,
+               Params{gap_open, gap_extend, match + gap_open, gap_open - mismatch, f_first},
+               static_cast<int*>(best), static_cast<int*>(qend), static_cast<int*>(rend),
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32>((M + 31) / 32, c);
 }

@@ -75,6 +75,51 @@ def sw_wavefront_plain(queries, refs, match, mismatch, gap_open, gap_extend):
     )
 
 
+EDGE_PARAMS = ((2, 2, 3, 1), (1, 3, 5, 2), (5, 4, 10, 1))
+
+
+def sw_edge_cases(seed: int = 0):
+    """K5's edge shapes: [(label, queries int32 [B, M], refs int32 [B, N],
+    (match, mismatch, gap_open, gap_extend))] as numpy arrays.  M in {1, 31,
+    32, 33, 150, 1023} (one lane row a lane up to the kernel's widest lane,
+    the lane count's edges), N in {1, M - 1, 400}, B 1 or 5, the parameter
+    sets of EDGE_PARAMS in turn; then queries padded with 0, pairs with no
+    match (best 0, ends -1), a tie across diagonals, a tie on one diagonal,
+    and two-letter pairs full of ties."""
+    rng = np.random.default_rng(seed)
+
+    def codes(shape, letters=4):
+        return rng.integers(1, letters + 1, shape).astype(np.int32)
+
+    cases = []
+    for M in (1, 31, 32, 33, 150, 1023):
+        for N in sorted({1, M - 1, 400} - {0}):
+            k = len(cases)
+            B = 5 if k % 2 == 0 else 1
+            params = EDGE_PARAMS[k % len(EDGE_PARAMS)]
+            cases.append((f"M={M} N={N} B={B} params={params}", codes((B, M)), codes((B, N)),
+                          params))
+    padded = codes((5, 150))
+    for b, n in enumerate((150, 149, 90, 45, 1)):
+        padded[b, n:] = 0
+    cases.append(("queries padded with 0", padded, codes((5, 400)), EDGE_PARAMS[0]))
+    cases.append(("no match: best 0, ends -1", np.full((5, 33), 1, np.int32),
+                  np.full((5, 40), 2, np.int32), EDGE_PARAMS[1]))
+    cases.append(("padding only: best 0, ends -1", np.zeros((1, 32), np.int32),
+                  codes((1, 400)), EDGE_PARAMS[0]))
+    # ACGT twice in the ref: equal scores on diagonals 8 and 14, the first wins
+    cases.append(("tie across diagonals", np.array([[1, 2, 3, 4]], np.int32),
+                  np.array([[1, 2, 3, 4, 4, 4, 1, 2, 3, 4]], np.int32), EDGE_PARAMS[0]))
+    # AC against CA: 2 at (1, 2) and at (2, 1), both on diagonal 3; row 1 wins
+    cases.append(("tie on one diagonal", np.array([[1, 2]], np.int32),
+                  np.array([[2, 1]], np.int32), EDGE_PARAMS[0]))
+    for M, N, params in ((33, 400, EDGE_PARAMS[2]), (150, 150, EDGE_PARAMS[1]),
+                         (1023, 64, EDGE_PARAMS[0])):
+        cases.append((f"two letters M={M} N={N} params={params}", codes((5, M), 2),
+                      codes((5, N), 2), params))
+    return cases
+
+
 def sw_wavefront(queries, refs, match, mismatch, gap_open, gap_extend):
     """Same arguments and outputs as `sw_wavefront_plain`: the CUDA kernel K5
     on CUDA tensors, the plain version on CPU tensors."""

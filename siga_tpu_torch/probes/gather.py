@@ -201,6 +201,49 @@ def gather_chain_plain(table, init, c: Optional[torch.Tensor], steps: int, mode:
     return state.to(torch.int32)
 
 
+CHAIN_GROUPS = (1, 2, 4, 8)  # threads a lane of G3's mode sum (csrc/gather_probe.cu)
+CHAIN_LATENCY_THREADS = 512  # threads an SM below which G3's lanes are latency-bound
+RESIDENT_THREADS = 2048  # threads an SM of Hopper
+
+
+def chain_plan(W: int, contiguous: bool, L: int, sms: int) -> int:
+    """G3 mode sum's threads a lane, G in CHAIN_GROUPS, for a step that sums
+    W words of a row (`contiguous`: sw == 1, read as 16-byte vectors) or of
+    a strided column, over L lanes on a card of `sms` SMs.
+
+    A warp's step waits for the slowest of its lanes' loads, so where the
+    lanes are few (8 L at most CHAIN_LATENCY_THREADS an SM) a lane takes 8
+    threads and a warp holds 4 lanes.  Where they are many, each thread
+    repeats the step's state update and index arithmetic, so one thread a
+    lane wins, except on rows of 8 or more 16-byte vectors (K1's 57 words
+    span 15), whose loads a group splits: 8 threads while the card holds
+    them all (RESIDENT_THREADS an SM), else 4.  chip_smoke.py times every
+    G on an H100 80GB HBM3 at 700 W (ms, G = 1 / 2 / 4 / 8): k_scan's
+    [24, 8192] x 112, 8,192 lanes, 0.1843 / 0.1374 / 0.0713 / 0.0610; the
+    pair plane's rows x 150, 60,608 lanes, 0.6604 / 0.5499 / 0.4239 /
+    0.4323; its sweep over lane counts and widths, and where the rule
+    misses the fastest G, is in PERF.md."""
+    if 8 * L <= CHAIN_LATENCY_THREADS * sms:
+        return 8
+    if contiguous and (W + 6) // 4 >= 8:  # the most 16-byte vectors a row spans
+        return 8 if 8 * L <= RESIDENT_THREADS * sms else 4
+    return 1
+
+
+def chain_sum(table, init, c, steps: int, group: int):
+    """Launch G3's mode sum with `group` threads a lane (CUDA tensors, checked
+    by `gather_chain`); `gather_chain` takes the group from `chain_plan`."""
+    W, N = table.shape
+    sw, sx = table.stride()
+    out = torch.empty_like(init)
+    kernels.launch(
+        "gather_chain", table.device, kernels.lib().siga_gather_chain_sum,
+        table.data_ptr(), sw, sx, W, N, init.data_ptr(), c.data_ptr(), c.numel(),
+        steps, init.numel(), group, out.data_ptr(),
+    )
+    return out
+
+
 def gather_chain(table, init, c: Optional[torch.Tensor], steps: int, mode: str):
     """G3: `gather_chain_plain` as the CUDA kernel on CUDA tensors; an initial
     state outside [0, N) raises.  The table may be a strided view: the pair
@@ -216,26 +259,22 @@ def gather_chain(table, init, c: Optional[torch.Tensor], steps: int, mode: str):
     _check("table", table, dev, 2, contiguous=False)
     if N + steps >= 2**31 or steps < 0:
         raise ValueError(f"gather_chain: modulus {N} with {steps} steps")
-    sw, sx = table.stride()
-    lib = kernels.lib()
-    out = torch.empty_like(init)
     if mode == "sum":
         _check("init", init, dev, 1)
         _check("c", c, dev, 1)
-        kernels.launch(
-            "gather_chain", dev, lib.siga_gather_chain_sum,
-            table.data_ptr(), sw, sx, W, N, init.data_ptr(), c.data_ptr(), c.numel(),
-            steps, init.numel(), out.data_ptr(),
-        )
-    else:
-        _check("init", init, dev, 2)
-        if init.shape[0] != W:
-            raise ValueError(f"gather_chain: init rows {init.shape[0]} != table rows {W}")
-        kernels.launch(
-            "gather_chain", dev, lib.siga_gather_chain_elem,
-            table.data_ptr(), sw, sx, W, N, init.data_ptr(), init.shape[1], steps,
-            out.data_ptr(),
-        )
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return chain_sum(table, init, c, steps,
+                         chain_plan(W, table.stride(0) == 1, init.numel(), sms))
+    _check("init", init, dev, 2)
+    if init.shape[0] != W:
+        raise ValueError(f"gather_chain: init rows {init.shape[0]} != table rows {W}")
+    sw, sx = table.stride()
+    out = torch.empty_like(init)
+    kernels.launch(
+        "gather_chain", dev, kernels.lib().siga_gather_chain_elem,
+        table.data_ptr(), sw, sx, W, N, init.data_ptr(), init.shape[1], steps,
+        out.data_ptr(),
+    )
     return out
 
 
@@ -327,12 +366,15 @@ def probe_cases(rng: np.random.Generator, scale: int = 1):
 
 
 def edge_cases(rng: np.random.Generator, device):
-    """G2 and G4 at the shapes where a tiling or an alignment split can go
-    wrong: [(label, wrapper name, args as tensors on `device`)].  G4: n of 1,
-    3, 4, 5, 1,023 and 4 * 2**20 + 3, and the view x[1:], 4 bytes off the
-    16-byte boundary.  G2: one table row, one output, output counts that
-    fill no tile, rows wider than shared memory, the shared-memory form,
-    both axes, and an index broadcast along each of its dimensions."""
+    """G2, G4 and G3's mode sum at the shapes where a tiling, a group or an
+    alignment split can go wrong: [(label, wrapper name, args as tensors on
+    `device`)].  G4: n of 1, 3, 4, 5, 1,023 and 4 * 2**20 + 3, and the view
+    x[1:], 4 bytes off the 16-byte boundary.  G2: one table row, one output,
+    output counts that fill no tile, rows wider than shared memory, the
+    shared-memory form, both axes, and an index broadcast along each of its
+    dimensions.  G3: rows of W = 1, 24, 57 and 100 words, contiguous (a
+    plane's transpose, also 4 bytes off its allocation) and strided, 1, 3
+    and 1,001 lanes (no multiple of a group), no steps, c of 1, 5 and 64."""
 
     def ints(lo, hi, shape):
         return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32))
@@ -358,6 +400,27 @@ def edge_cases(rng: np.random.Generator, device):
         ("shared-memory form", full((140, 512)), ints(0, 512, (140, 520)), 1),
     ]
     cases += [(f"take_along {label}", "take_along", (t, i, axis)) for label, t, i, axis in take]
+
+    def rows(nb, w, offset=0):  # the transpose of a row-major [nb, w] plane, `offset` words in
+        return full(nb * w + offset).to(device)[offset:].view(nb, w).T
+
+    chains = [  # (label, table [W, NB], lanes, steps, len(c))
+        ("W=1 contiguous", rows(300, 1), 1, 37, 1),
+        ("W=24 contiguous", rows(500, 24), 3, 37, 64),
+        ("W=57 contiguous (a pair-plane row)", rows(1000, 57), 1001, 37, 64),
+        ("W=57 contiguous, the plane 4 bytes in", rows(1000, 57, 1), 1001, 20, 5),
+        ("W=100 contiguous (two rounds of vectors)", rows(400, 100), 3, 20, 64),
+        ("W=1 strided", full((1, 300)), 3, 37, 1),
+        ("W=24 strided (k_scan's table)", full((24, 1000)), 1001, 37, 64),
+        ("W=57 strided", full((57, 700)), 1, 37, 5),
+        ("W=40 strided (two rounds of words)", full((40, 333)), 1001, 20, 64),
+        ("no steps", full((24, 1000)), 3, 0, 64),
+    ]
+    cases += [
+        (f"gather_chain sum {label}, {lanes} lanes, {steps} steps", "gather_chain",
+         (table, ints(0, table.shape[1], lanes), full(nc), steps, "sum"))
+        for label, table, lanes, steps, nc in chains
+    ]
     return [
         (label, name, tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args))
         for label, name, args in cases

@@ -1,10 +1,10 @@
-"""Time K1 and K7, the gather probes G2 and G4, the plane build K2, or the
-single-step scan K3, of two checkouts of the repo against each other on one
-card, at the error pipeline's own shapes.
+"""Time K1 and K7, the gather probes G2, G3 and G4, the plane build K2, the
+single-step scan K3, or Smith-Waterman K5, of two checkouts of the repo
+against each other on one card, at the error pipeline's own shapes.
 
     python3 chip_smoke.py --keep-pipeline DIR
     python3 -m siga_tpu_torch.probes.kernel_ab --trees OTHER,. --pipeline DIR \
-        [--probes | --plane | --scan] [--order 0,1,1,0] [--out FILE]
+        [--probes | --plane | --scan | --sw] [--order 0,1,1,0] [--out FILE]
 
 DIR holds the `benchmark/ecoli_scale.py 1.0 25 0.005` pipeline as
 `chip_smoke.py --keep-pipeline` leaves it.  This process takes the cases'
@@ -18,16 +18,24 @@ into DIR/kernel_ab/ as plain text, one sequence a line:
     41-mers drawn from reads.pp.fastq, half of them with one base
     substituted, and the wall of one `KmerCounter` call of 110 and of 3
     k-mers (the `correct` route's sizes).
-With --probes the cases are instead G2 (`gather.take_along`) and G4
-(`gather.scale2`) at every Pallas probe shape of `gather.probe_cases` and
-on the stacked pair plane of DIR/reads.ec (the `overlap` stage's index,
-with `gather.plane_args`' 60,608 random rows), each timed beside its
-library call (`torch.gather`, `x * 2`) in the same worker.
+With --probes the cases are instead G2 (`gather.take_along`), G4
+(`gather.scale2`) and G3's mode sum (`gather.gather_chain`) at every Pallas
+probe shape of `gather.probe_cases` and on the stacked pair plane of
+DIR/reads.ec (the `overlap` stage's index, with `gather.plane_args`' 60,608
+random rows, G3 over 150 steps), each timed beside its library call
+(`torch.gather`, `x * 2`; G3 has none) in the same worker.
 With --plane the cases are K2 (`fm_device.build_pair_plane`) on both
 directions of DIR/reads.ec's index (the `overlap` stage's), its BWT codes
 already on the card: the wall of a build by CUDA events (PLANE_REPS builds
 in turn, the card held busy while they are enqueued) and, from a
 torch.profiler trace of one build, its device time and device operations.
+With --sw the cases are K5 (`sw.sw_wavefront`) on the 4,096 synthetic pairs
+of `sw_synthetic_pairs` (chip_smoke.py's K5 check: 150 x 400, half of them
+with a mutated copy of the query in the ref) and on 4,096 edges drawn from
+DIR/reads.ec.asqg.gz (the `overlap` stage's; the overlap substring of the
+first read against the second read, as chip_smoke.py scores the main
+path's edges): per case the wall by CUDA events and, from a torch.profiler
+trace, the kernel's median device span, SW_REPS calls each.
 With --scan the cases are K3 (`fm_device.scan_single`) and the index-sharded
 K3 (`fm_device.scan_single_sharded`, D in SCAN_SHARDS allocations on
 cuda:0) on K1's two inputs (the reads.ec.fa chunk at -m 85, the contigs at
@@ -48,9 +56,11 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gzip
 import hashlib
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -60,11 +70,14 @@ import numpy as np
 KMER_SEED = 3
 PROBE_SEED = 1
 PROBE_LANES = 60608  # one overlap chunk's lanes
-PROBE_KERNELS = ("take_along", "scale2")
+PROBE_KERNELS = ("take_along", "scale2", "gather_chain")
+PROBE_STEPS = 150  # G3's chain on the pair plane, as chip_smoke.py runs it
 PLANE_REPS = 20  # K2 builds a timing
 SCAN_REPS = 10  # K3 calls a wall and a trace
 SCAN_TRACES = 3  # traces of a case at most, while one loses kernel spans
 SCAN_SHARDS = (2, 4)  # the sharded K3's shard counts, D allocations on the card each
+SW_SEED, SW_PAIRS, SW_REPS = 1, 4096, 20  # K5's cases: pairs drawn, calls a wall and a trace
+SW_PARAMS = (2, 2, 3, 1)
 K, KMERS, ROUTE_SIZES = 41, 262_144, (110, 3)
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
 K1_CASES = {"K1 reads.ec.fa chunk": ("reads.ec", 85), "K1 contigs": ("primary-contigs.rmdup", 10)}
@@ -105,6 +118,82 @@ def make_inputs(pipeline: str) -> str:
         kmers.append(w)
     with open(os.path.join(out, "kmers.txt"), "w") as f:
         f.write("\n".join(kmers) + "\n")
+    return out
+
+
+def sw_synthetic_pairs(seed: int = SW_SEED, n: int = SW_PAIRS):
+    """K5's synthetic (query, ref) strings: n random 150-symbol queries and
+    400-symbol refs, half of the refs holding a copy of the query with up to
+    8 substitutions."""
+    rng = random.Random(seed)
+    qs, rs = [], []
+    for _ in range(n):
+        q = "".join(rng.choice("ACGT") for _ in range(150))
+        r = "".join(rng.choice("ACGT") for _ in range(400))
+        if rng.random() < 0.5:  # a mutated copy of q inside r
+            mq = list(q)
+            for _ in range(rng.randint(0, 8)):
+                mq[rng.randrange(150)] = rng.choice("ACGT")
+            pos = rng.randint(0, 250)
+            r = r[:pos] + "".join(mq) + r[pos + 150 :]
+        qs.append(q)
+        rs.append(r)
+    return qs, rs
+
+
+def sw_edge_pairs(asqg_path, seq_of, limit, rng):
+    """(number of VT records, number of ED records, queries, refs) of up to
+    `limit` ED records of the ASQG drawn by `rng` (a numpy Generator): the
+    overlap substring of the first read, and the second read in the first
+    one's orientation; `seq_of` maps a read's name to its sequence."""
+    from ..core import dna
+
+    edges, n_vt = [], 0
+    with gzip.open(asqg_path, "rt") as f:
+        for line in f:
+            if line.startswith("ED\t"):
+                edges.append(line.split("\t")[1].split())
+            elif line.startswith("VT\t"):
+                n_vt += 1
+    picks = rng.choice(len(edges), size=min(limit, len(edges)), replace=False)
+    queries, refs = [], []
+    for k in picks:
+        id1, id2, s1, e1, _l1, _s2, _e2, _l2, comp = edges[k][:9]
+        queries.append(seq_of[id1][int(s1) : int(e1) + 1])
+        r = seq_of[id2]
+        refs.append(dna.reverse_complement(r) if comp == "1" else r)
+    return n_vt, len(edges), queries, refs
+
+
+def make_sw_inputs(pipeline: str) -> str:
+    """K5's edge pairs of the pipeline's `overlap` stage into its kernel_ab/
+    directory (once), a tab-separated (query, ref) a line; returns the file."""
+    from ..io import fastx
+
+    out = os.path.join(pipeline, "kernel_ab", "sw_edges.txt")
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        seq_of = {r.name: r.seq for r in fastx.read_sequences(os.path.join(pipeline, "reads.ec.fa"))}
+        _vt, _ed, qs, rs = sw_edge_pairs(os.path.join(pipeline, "reads.ec.asqg.gz"), seq_of,
+                                         SW_PAIRS, np.random.default_rng(SW_SEED))
+        with open(out, "w") as f:
+            f.write("".join(f"{q}\t{r}\n" for q, r in zip(qs, rs)))
+    return out
+
+
+def sw_tensors(queries, refs, dev):
+    """Queries and refs as int32 rank codes, zero-padded to the longest, on
+    `dev` (as `sw.BatchAligner` lays them out)."""
+    import torch
+
+    from siga_tpu_torch.core import dna
+
+    out = []
+    for seqs in (queries, refs):
+        m = np.zeros((len(seqs), max(map(len, seqs))), dtype=np.int32)
+        for i, x in enumerate(seqs):
+            m[i, : len(x)] = dna.encode(x)
+        out.append(torch.from_numpy(m).to(dev))
     return out
 
 
@@ -159,13 +248,15 @@ def probe_worker(tree: str, pipeline: str) -> dict:
     cases = [(f"{name} as {tpu}", name, gather.to_device(args, dev))
              for tpu, _where, name, args in gather.probe_cases(rng) if name in PROBE_KERNELS]
     plane = gather.stacked_plane(os.path.join(pipeline, "reads.ec"), dev)
-    plane_args = gather.plane_args(plane, PROBE_LANES, 1, PROBE_SEED)
+    plane_args = gather.plane_args(plane, PROBE_LANES, PROBE_STEPS, PROBE_SEED)
     cases += [(f"{name} on the pair plane", name, plane_args[name]) for name in PROBE_KERNELS]
     for label, name, args in cases:
         fn = gather.WRAPPERS[name][0]
         out["digests"][label] = _digest([fn(*args)])
         out["times"][label] = gather.cuda_ms(lambda: fn(*args), 20)
-        out["times"][label + ", library call"] = gather.cuda_ms(library_call(name, args), 20)
+        library = library_call(name, args)
+        if library is not None:
+            out["times"][label + ", library call"] = gather.cuda_ms(library, 20)
     return out
 
 
@@ -267,6 +358,19 @@ def kernel_spans(prof, name: str) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and f"{name}_kernel" in e.name]
 
 
+def median_span(label, name, fn, reps) -> float:
+    """The median device span of the kernel `name`_kernel over `reps` calls
+    of fn, from a torch.profiler trace.  A trace can lose a kernel's span
+    (the profiler drops events): it is taken again, SCAN_TRACES times at
+    most."""
+    for _attempt in range(SCAN_TRACES):
+        spans = kernel_spans(trace_device(lambda: [fn() for _ in range(reps)])[3], name)
+        if len(spans) == reps:
+            return float(np.median(spans))
+    raise RuntimeError(f"{label}: each of {SCAN_TRACES} traces lost kernel spans, the "
+                       f"last holds {len(spans)} for {reps} calls")
+
+
 def scan_worker(tree: str, pipeline: str) -> dict:
     """Times of K3 and the sharded K3 through the wrappers of the checkout
     at `tree`: each case's wall and its kernel's median device span."""
@@ -278,15 +382,37 @@ def scan_worker(tree: str, pipeline: str) -> dict:
     for label, (name, fn) in scan_calls(pipeline, torch.device("cuda", 0)).items():
         out["digests"][label] = _digest(fn())
         out["times"][label + ", wall"] = cuda_ms(fn, SCAN_REPS)
-        # a trace can lose a kernel's span (the profiler drops events): take it again
-        for _attempt in range(SCAN_TRACES):
-            spans = kernel_spans(trace_device(lambda: [fn() for _ in range(SCAN_REPS)])[3], name)
-            if len(spans) == SCAN_REPS:
-                break
-        else:
-            raise RuntimeError(f"{label}: each of {SCAN_TRACES} traces lost kernel spans, the "
-                               f"last holds {len(spans)} for {SCAN_REPS} calls")
-        out["times"][label + ", kernel device time"] = float(np.median(spans))
+        out["times"][label + ", kernel device time"] = median_span(label, name, fn, SCAN_REPS)
+    return out
+
+
+def sw_cases(pipeline: str, dev) -> dict:
+    """{label: (queries, refs)} of K5's cases as tensors on `dev`: the
+    synthetic pairs and the pipeline's edges (DIR/kernel_ab/sw_edges.txt,
+    as `make_sw_inputs` wrote it)."""
+    with open(os.path.join(pipeline, "kernel_ab", "sw_edges.txt")) as f:
+        edges = [line.rstrip("\n").split("\t") for line in f]
+    return {
+        f"K5 synthetic {SW_PAIRS} x 150 x 400": sw_tensors(*sw_synthetic_pairs(), dev),
+        f"K5 {len(edges)} reads.ec edges": sw_tensors(*zip(*edges), dev),
+    }
+
+
+def sw_worker(tree: str, pipeline: str) -> dict:
+    """Times of K5 through the wrapper of the checkout at `tree`: each
+    case's wall and its kernel's median device span."""
+    import torch
+
+    from siga_tpu_torch.ops import sw
+    from siga_tpu_torch.probes.gather import cuda_ms
+
+    out = _start(tree)
+    for label, (queries, refs) in sw_cases(pipeline, torch.device("cuda", 0)).items():
+        label = f"{label} ({tuple(queries.shape)}, {tuple(refs.shape)})"
+        fn = functools.partial(sw.sw_wavefront, queries, refs, *SW_PARAMS)
+        out["digests"][label] = _digest(fn())
+        out["times"][label + ", wall"] = cuda_ms(fn, SW_REPS)
+        out["times"][label + ", kernel device time"] = median_span(label, "sw", fn, SW_REPS)
     return out
 
 
@@ -351,20 +477,24 @@ def main(argv=None) -> int:
                       help="time the plane build K2 instead of K1 and K7")
     mode.add_argument("--scan", action="store_true",
                       help="time K3 and the sharded K3 instead of K1 and K7")
+    mode.add_argument("--sw", action="store_true",
+                      help="time Smith-Waterman K5 instead of K1 and K7")
     parser.add_argument("--out", help="also write the JSON line here")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     pipeline = os.path.abspath(args.pipeline)
     if args.worker:
         fn = (probe_worker if args.probes else plane_worker if args.plane
-              else scan_worker if args.scan else worker)
+              else scan_worker if args.scan else sw_worker if args.sw else worker)
         run = fn(args.worker, pipeline)
         print("KERNEL_AB " + json.dumps(run), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
-    if not (args.probes or args.plane):
+    if args.sw:
+        make_sw_inputs(pipeline)
+    elif not (args.probes or args.plane):
         make_inputs(pipeline)
-    mode_args = [f"--{m}" for m in ("probes", "plane", "scan") if getattr(args, m)]
+    mode_args = [f"--{m}" for m in ("probes", "plane", "scan", "sw") if getattr(args, m)]
     runs = []
     for k in (int(i) for i in args.order.split(",")):
         env = {**os.environ, "PYTHONPATH": trees[k]}

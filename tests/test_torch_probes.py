@@ -143,6 +143,10 @@ EDGES = {c[0]: c for c in gather.edge_cases(np.random.default_rng(1), "cpu")}
 def _jax_edge(name, args):
     if name == "scale2":
         return np.asarray(jnp.asarray(args[0].numpy()) * 2)
+    if name == "gather_chain":
+        table, init, c, steps, mode = args
+        return np.asarray(_k_scan(jnp.asarray(table.contiguous().numpy()), jnp.asarray(init.numpy()),
+                                  jnp.asarray(c.numpy()), steps, mode))
     table, index, axis = (a.numpy() if isinstance(a, torch.Tensor) else a for a in args)
     shape = gather._take_shape(args[0], args[1], axis)
     return np.asarray(jnp.take_along_axis(jnp.asarray(table),
@@ -278,3 +282,32 @@ def test_take_along_refuses_a_non_contiguous_index():
     table = torch.arange(12, dtype=torch.int32).reshape(3, 4)
     with pytest.raises(ValueError, match="want a contiguous tensor"):
         gather.take_along(table, torch.zeros((4, 3), dtype=torch.int32).T, 1)
+
+
+@pytest.mark.parametrize("W, contiguous, lanes, want", [
+    (1, True, 1, 8), (1, False, 3, 8), (24, False, 8192, 8), (57, True, 1001, 8),
+    (57, False, 8447, 8), (24, True, 8449, 1), (24, False, 8449, 1), (1, True, 60_607, 1),
+    (57, False, 60_608, 1), (57, True, 8449, 8), (57, True, 33_792, 8),
+    (57, True, 33_793, 4), (57, True, 60_608, 4), (26, True, 20_001, 8), (25, True, 20_001, 1),
+])
+def test_chain_plan(W, contiguous, lanes, want):
+    """G3's threads a lane on 132 SMs: 8 while 8 threads a lane stay within
+    512 threads an SM (k_scan's 8,192 lanes), then one thread a lane, except
+    rows of 8 or more 16-byte vectors (26 words at a 4-byte offset span up to 8,
+    25 up to 7; the pair plane's 57 up to 15): 8 while the card holds every
+    thread (33,792 lanes), then 4 (the plane's 60,608).  Lane counts that
+    are no multiple of the group make whole groups of threads."""
+    G = gather.chain_plan(W, contiguous, lanes, 132)
+    assert G == want and G in gather.CHAIN_GROUPS
+
+
+def test_chain_edge_cases_cover_the_groups_and_forms():
+    """G3's edge cases: both forms at W = 1, 24 and 57, lane counts that no
+    group divides, a step of two load rounds in each form, and no steps."""
+    chains = [args for label, name, args in EDGES.values() if name == "gather_chain"]
+    forms = {(t.shape[0], t.stride(0) == 1) for t, *_ in chains}
+    assert {(W, c) for W in (1, 24, 57) for c in (True, False)} <= forms
+    assert (100, True) in forms and (40, False) in forms
+    assert any(init.numel() % 8 and init.numel() > 8 for _t, init, *_ in chains)
+    assert any(steps == 0 for *_a, steps, _m in chains)
+    assert any(t.storage_offset() % 4 for t, *_ in chains)

@@ -5,10 +5,11 @@ import random
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from siga_tpu.core import dna
 from siga_tpu.ops.sw_device import _sw_wavefront
-from siga_tpu_torch.ops.sw import BatchAligner
+from siga_tpu_torch.ops.sw import EDGE_PARAMS, BatchAligner, sw_edge_cases, sw_wavefront_plain
 
 from test_align import naive_best_score
 
@@ -60,3 +61,39 @@ def test_end_positions():
     # no positive cell: best 0, no end positions
     best, qend, rend = aligner.scores(["AAAA"], ["TTTT"])
     assert (int(best[0]), int(qend[0]), int(rend[0])) == (0, -1, -1)
+
+
+EDGES = {case[0]: case for case in sw_edge_cases()}
+
+
+@pytest.mark.parametrize("label", list(EDGES))
+def test_edge_case_plain_matches_jax(label):
+    """K5's edge shapes (which chip_smoke.py holds the kernel to on the
+    card): the plain version equals JAX's _sw_wavefront, scores and ends."""
+    _label, queries, refs, params = EDGES[label]
+    got = sw_wavefront_plain(torch.from_numpy(queries), torch.from_numpy(refs), *params)
+    want = _sw_wavefront(jnp.asarray(queries), jnp.asarray(refs), *params)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_edge_cases_cover_the_kernel_widths():
+    """Every M of the wrapper's edges (one row a lane, a full warp, one row
+    past it, the main path's 150, the widest 1,023) with N of 1, M - 1 and
+    400, both batch sizes and all three parameter sets; the ties and the
+    empty alignments are among them, and score as named."""
+    shapes = {(q.shape[1], r.shape[1]) for _l, q, r, _p in EDGES.values()}
+    for M in (1, 31, 32, 33, 150, 1023):
+        assert {(M, N) for N in {1, M - 1, 400} - {0}} <= shapes
+    assert {q.shape[0] for _l, q, _r, _p in EDGES.values()} == {1, 5}
+    assert {p for _l, _q, _r, p in EDGES.values()} == set(EDGE_PARAMS)
+    ends = {label: [x.tolist() for x in sw_wavefront_plain(
+        torch.from_numpy(q), torch.from_numpy(r), *p)] for label, (_l, q, r, p) in EDGES.items()
+        if q.shape[1] <= 4}
+    assert ends["tie across diagonals"] == [[8], [3], [3]]
+    assert ends["tie on one diagonal"] == [[2], [0], [1]]
+    for label in ("no match: best 0, ends -1", "padding only: best 0, ends -1"):
+        _l, q, r, p = EDGES[label]
+        best, qend, rend = sw_wavefront_plain(torch.from_numpy(q), torch.from_numpy(r), *p)
+        assert not best.any() and (qend == -1).all() and (rend == -1).all()
