@@ -33,8 +33,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      budget), on a
      chunk of 149 bp reads (even lim_t) and on the rmdup lane groups; K5 at
      B=4096, query 150, ref 400 (timed, with its bound), 16 of those pairs
-     against a naive DP, on the main path's 4,096 sampled edges (timed) and
-     on every case of `sw.sw_edge_cases`;
+     against a naive DP, on the main path's 4,096 sampled edges (timed), on
+     every case of `sw.sw_edge_cases` (queries up to 3,000, in strips past
+     1,023) and at 4,096 x 1,500 x 400 (two strips; timed);
      K2's plane and K on both directions of the main path's index and of
      every read set of `plane_edge_reads` (the CPU tests' texts, indexed
      on the card), each also built 3 times in a row and once on a second
@@ -76,6 +77,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      plane's row traffic; G3 with
      32 chains of single-word gathers gives the L2 round trip of one
      dependent step; and G1's device-side range assert in a child process;
+     then K9 (the stage-A scan with '$'-probes) against its plain version,
+     bit for bit in all four outputs, at 60,608 ID lanes x 149 steps of the
+     main path's reads (timed beside its bytes and chain bounds) and on
+     every case of `stage_a_edge_cases`;
  12. K3 against its plain version, bit for bit, on the first full chunk
      (60,608 lanes; timed, with its bounds; split over several launches by
      a small slab budget), on the rmdup lane groups and on every case of
@@ -89,14 +94,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      plain version bit for bit on the rmdup lane groups and every case of
      `scan_edge_cases` (and for D = 2 at the first chunk), its views at the
      first chunk equal K3's, its wrapper
-     timed in turn with K3's beside the bounds; then the dry run
+     timed in turn with K3's beside the bounds; then the compile-check
+     entry (`dryrun.entry`) on cuda:0 and the dry run
      (`siga_tpu_torch/dryrun.py`) over [cuda:0] * 4, counts reset just
-     before it (the sharded scan must launch); then K1, K3 and the sharded
-     scan (D = 2, 4) at that chunk in a process of their own, each wrapper
-     call split by a torch.profiler trace into the scan kernel's device
-     time and the compaction's, beside its wall by CUDA events (5 calls in
-     turn with the others), and K3's device time as a share of its chain
-     bound (151 dependent row reads at G3's step);
+     before them (K9 and the sharded scan must launch); then K1, K3 and the
+     sharded scan (D = 2, 4) at that chunk in a process of their own, each
+     wrapper call split by a torch.profiler trace into the scan kernel's
+     device time and the compaction's, beside its wall by CUDA events (5
+     calls in turn with the others), and K3's device time as a share of its
+     chain bound (151 dependent row reads at G3's step), and in that
+     process K9's kernel device time at its 60,608 lanes by torch.profiler;
  13. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
      (its genome and generator), its eleven stages (PIPE_STAGES) through
      `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
@@ -283,9 +290,9 @@ def scan_bound(lens, lim_t, n_groups, nblocks, wpr, emitted, single=False):
 
 
 def stage_a_bound(nblocks, step_ns, lanes=PROBE_LANES, steps=READ_LEN - 1):
-    """The bound of the JAX package's single-step stage A
-    (`siga_tpu/ops/fm_device.py::_scan_stage_a`, not ported: no command
-    calls it) at one overlap chunk's shape, from its code: bytes (the int32
+    """The bound of the stage-A scan with '$'-probes (K9, port of
+    `siga_tpu/ops/fm_device.py::_scan_stage_a`) at one overlap chunk's
+    shape, from its code: bytes (the int32
     chars [lanes, steps + 1] and lens read, the [steps, lanes, 3] int32
     emissions and [steps, lanes] validity written, the final [lanes, 8] and
     lext [lanes, 5] int32 written, each single-step plane row of 64 B read
@@ -403,6 +410,100 @@ def scan_edge_cases() -> list:
     cases.append(("reads of 1, 2 and 160 symbols, 5 padding lanes", three_label, short,
                   len(short) + 5, FWD_REV, 10, None))
     return cases
+
+
+GOLDEN_READS = ["ACGTACGTAC", "CGTACGTACC", "TTACGGACGT", "ACGTACGTAC", "GGGTTTACAC"]
+STAGE_A_LANES = PROBE_LANES  # K9 at one overlap chunk's lanes (ID lanes of the main path's reads)
+
+
+def genome_reads(n, lengths, genome_len, seed=0):
+    """n reads of the given lengths (cycled) from one random genome of
+    genome_len (seed): reads that overlap, so that a scan emits blocks."""
+    rng = np.random.default_rng(seed)
+    genome = "".join("ACGT"[c] for c in rng.integers(0, 4, genome_len))
+    out = []
+    for k in range(n):
+        length = lengths[k % len(lengths)]
+        start = int(rng.integers(0, genome_len - length + 1))
+        out.append(genome[start : start + length])
+    return out
+
+
+def stage_a_index_reads() -> dict:
+    """{label: reads} of the indexes K9's edge cases scan: the dry run's tiny
+    problems (8 and 16 random reads of 24 bp), the five 10 bp golden reads
+    (tests/golden/fixed.*), 64 reads of 100 bp from a 2 kb genome, and 40
+    reads of 1-60 bp from a 600 bp genome."""
+    return {
+        "tiny 8 reads": dryrun.tiny_reads(8),
+        "tiny 16 reads": dryrun.tiny_reads(16),
+        "golden 5 reads": GOLDEN_READS,
+        "64 reads of 100 bp": genome_reads(64, [100], 2000),
+        "40 reads of 1-60 bp": genome_reads(40, [1, 2, 60, 17, 3, 45, 59, 30], 600, seed=1),
+    }
+
+
+def stage_a_edge_cases() -> list:
+    """K9's edge cases: (label, index label, lanes, tab, max_t or None,
+    min_overlap, garbage).  Every index's reads through its forward
+    single-step plane (tab "one index") and through the stacked forward and
+    reverse planes with the reversed reads as the lanes of the second half
+    (tab "stacked": lane_tab 0, then nblocks; a full interval there reaches
+    the plane's last row); then on the 1-60 bp reads: random symbols in 0..4
+    past l - 2 (`garbage`, with lanes of 1 and 2 symbols), max_t = 0,
+    min_overlap 0 and 1, L = 1 and 33, lane_tab nblocks over one index's
+    plane (every row index past it, clamped), and an N (rank 0) in every
+    lane's live steps.  The CPU tests hold the plain version to the JAX
+    package on these; `chip_smoke.py` holds K9 to the plain version."""
+    index = stage_a_index_reads()
+    cases = []
+    for label, reads in index.items():
+        mo = 5 if label.startswith("golden") else 8
+        for tab in ("one index", "stacked"):
+            cases.append((f"{label}, {tab}", label, reads, tab, None, mo, False))
+    mixed_label = "40 reads of 1-60 bp"
+    mixed = index[mixed_label]
+    with_n = [r[:1] + "N" + r[2:] if len(r) > 2 else r for r in mixed]
+    cases += [
+        ("garbage past l - 2, lanes of 1 and 2 symbols", mixed_label, mixed, "stacked", None, 10,
+         True),
+        ("max_t = 0", mixed_label, mixed, "stacked", 0, 10, False),
+        ("min_overlap 0", mixed_label, mixed, "one index", None, 0, False),
+        ("min_overlap 1", mixed_label, mixed, "stacked", None, 1, False),
+        ("L = 1", mixed_label, mixed[2:3], "one index", None, 5, False),
+        ("L = 33", mixed_label, mixed[:33], "one index", None, 5, True),
+        ("lane_tab past the plane's last row", mixed_label, mixed, "past", None, 5, False),
+        ("an N in the live steps", mixed_label, with_n, "stacked", None, 5, False),
+    ]
+    return cases
+
+
+def stage_a_args(case, fms, dev):
+    """The arguments of `fm_device.scan_stage_a` for a case of
+    `stage_a_edge_cases` over the DeviceFM pair `fms` (forward, reverse) of
+    its index: (max_t, min_overlap, plane, pred, length, chars, lens,
+    lane_tab), the tensors on `dev`."""
+    _label, _index, lanes, tab, max_t, mo, garbage = case
+    n = len(lanes)
+    if tab == "stacked":
+        lanes = list(lanes) + [s[::-1] for s in lanes]
+    chars, lens = dryrun.stage_a_chars(lanes, max_t)
+    max_t = chars.shape[1] - 1
+    if garbage:
+        rng = np.random.default_rng(7)
+        past = np.arange(max_t)[None, :] >= np.maximum(lens - 1, 0)[:, None]
+        chars[:, :max_t] = np.where(past, rng.integers(0, 5, (len(lanes), max_t)),
+                                    chars[:, :max_t])
+    nblocks = fms[0].nblocks
+    if tab == "stacked":
+        plane = torch.cat([fms[0].occ_plane, fms[1].occ_plane]).contiguous()
+        lane_tab = torch.tensor([0] * n + [nblocks] * n, dtype=torch.int32, device=dev)
+    else:
+        plane = fms[0].occ_plane
+        lane_tab = (torch.full((n,), nblocks, dtype=torch.int32, device=dev)
+                    if tab == "past" else None)
+    return (max_t, mo, plane, fms[0].pred_dev, fms[0].length,
+            torch.from_numpy(chars).to(dev), torch.from_numpy(lens).to(dev), lane_tab)
 
 
 def pipeline_stages(r1, r2, device=None):
@@ -1071,11 +1172,12 @@ def peak_bytes(fn) -> int:
     return peak
 
 
-def edge_indexes(dev) -> dict:
+def edge_indexes(dev, read_sets=None) -> dict:
     """{label: (forward FMIndex, reverse FMIndex)} of every read set of
-    `plane_edge_reads` (the CPU tests' texts), indexed on the card."""
+    `read_sets` (default `plane_edge_reads`, the CPU tests' texts), indexed
+    on the card."""
     out = {}
-    for label, reads in plane_edge_reads().items():
+    for label, reads in (read_sets or plane_edge_reads()).items():
         out[label] = tuple(
             FMIndex(bwt, ns) for bwt, _perm, ns in (
                 sa_mod.build_index_arrays(texts, "sais2", dev)
@@ -1201,7 +1303,8 @@ def time_scans(dev):
     and one synchronisation.  A torch.profiler trace of SCAN_ROUNDS calls
     of each gives every call's kernel device time and the device time of
     the rest; CUDA events give each wrapper's wall over SCAN_ROUNDS calls in
-    turn with the others.  Returns {label: median kernel device ms}."""
+    turn with the others.  Then K9 at `stage_a_chunk_args` (`trace_stage_a`).
+    Returns {label: median kernel device ms}."""
     seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
     chunk = seqs[: search.chunk_size(len(seqs))]
     maxlen = search._bucket_len(max(map(len, chunk)))
@@ -1246,6 +1349,7 @@ def time_scans(dev):
               f"the wrapper's wall (CUDA events, {SCAN_ROUNDS} calls in turn with the others) "
               f"{spread(walls[label])}, the card idle for "
               f"{np.median(walls[label]) - kernel_ms[label] - rest:.4f} ms of it [{card}]")
+    kernel_ms["scan_stage_a"] = trace_stage_a(stage_a_chunk_args(seqs, fms[0], dev))
     return kernel_ms
 
 
@@ -1490,15 +1594,132 @@ def check_sharded_kernel(dev, builder, seqs, step_ns, edges):
     return row
 
 
+def stage_a_chunk_args(seqs, fm, dev):
+    """K9's arguments at one overlap chunk's shape: the first STAGE_A_LANES
+    of the main path's reads `seqs` as lanes (the reads as they are: ID
+    lanes; 149 steps) over the forward single-step plane of `fm` (the main
+    path's forward DeviceFM), at -m MIN_OVERLAP."""
+    chars, lens = dryrun.stage_a_chars(seqs[:STAGE_A_LANES])
+    return (chars.shape[1] - 1, MIN_OVERLAP, fm.occ_plane, fm.pred_dev, fm.length,
+            torch.from_numpy(chars).to(dev), torch.from_numpy(lens).to(dev), None)
+
+
+def once_ms(fn):
+    """(fn(), its ms by CUDA events): one call, the card synchronised first."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def stage_a_err(got, want) -> int:
+    """Largest difference of K9's four outputs from the plain version's;
+    shapes and types must be equal."""
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    return max_abs_err(got, want)
+
+
+def check_stage_a_kernel(dev, builder, seqs, step_ns):
+    """K9 against its plain version, bit for bit in all four outputs: at one
+    overlap chunk's shape (`stage_a_chunk_args`; timed beside its bounds,
+    the plain version by the one call compared), then on every case of
+    `stage_a_edge_cases` (their indexes built on the card).  Returns the
+    kernel's row of the JSON line (the chunk)."""
+    args = stage_a_chunk_args(seqs, fm_device.DeviceFM(builder.fmi, dev), dev)
+    max_t, L, nblocks = args[0], args[5].shape[0], args[2].shape[0]
+    plain, plain_ms = once_ms(lambda: fm_device.scan_stage_a_plain(*args))
+    err = stage_a_err(fm_device.scan_stage_a(*args), plain)
+    ms = cuda_ms(lambda: fm_device.scan_stage_a(*args), 10)
+    by_bytes, by_chain = stage_a_bound(nblocks, step_ns, L, max_t)
+    print(f"K9 scan_stage_a at {L} lanes x {max_t} steps (-m {MIN_OVERLAP}): valid "
+          f"{int(plain[1].sum())}, max_abs_err {err}; kernel {ms:.4f} ms (CUDA events, 10 calls); "
+          f"plain {plain_ms:.3f} ms (one call); bound {by_bytes:.4f} ms by bytes, "
+          f"{by_bytes / ms:.1%} of it; "
+          f"chain of {max_t + 2} dependent row reads at G3's {step_ns:.1f} ns "
+          f"{by_chain:.4f} ms [{card_line()}]", flush=True)
+    indexes = edge_indexes(dev, stage_a_index_reads())
+    fms = {label: [fm_device.DeviceFM(h, dev) for h in pair] for label, pair in indexes.items()}
+    err_all = err
+    for case in stage_a_edge_cases():
+        case_args = stage_a_args(case, fms[case[1]], dev)
+        e = stage_a_err(fm_device.scan_stage_a(*case_args),
+                        fm_device.scan_stage_a_plain(*case_args))
+        print(f"K9 edge case {case[0]}: {case_args[5].shape[0]} lanes, max_t {case_args[0]}, "
+              f"-m {case_args[1]}, max_abs_err {e}")
+        err_all = max(err_all, e)
+    assert err_all == 0, err_all
+    return kernel_row(err_all, ms, plain_ms, by_bytes, "bytes", None)
+
+
+def trace_stage_a(args) -> float | None:
+    """K9 at `args` (`stage_a_chunk_args`): the kernel's device span of
+    SCAN_ROUNDS calls by a torch.profiler trace, beside the wrapper's wall by
+    CUDA events.  Returns the median device ms, or None when the trace holds
+    another number of K9 spans."""
+    wall = [cuda_ms(lambda: fm_device.scan_stage_a(*args), 1) for _ in range(SCAN_ROUNDS)]
+
+    def rounds():
+        for _ in range(SCAN_ROUNDS):
+            fm_device.scan_stage_a(*args)
+
+    dev_ms, n_ops, by_name, prof = trace_device(rounds)
+    mine = kernel_spans(prof, "scan_stage_a")
+    if len(mine) != SCAN_ROUNDS:
+        print(f"K9: the trace holds {len(mine)} kernel spans for {SCAN_ROUNDS} calls: kernel "
+              f"device time not measured")
+        return None
+    rest = (dev_ms - sum(mine)) / SCAN_ROUNDS
+    print(f"K9 scan_stage_a at {args[5].shape[0]} lanes x {args[0]} steps, in time_scans' "
+          f"process: kernel device time (torch.profiler, {SCAN_ROUNDS} calls) {spread(mine)}; the rest of "
+          f"a call's device time {rest:.4f} ms in {(n_ops - len(mine)) / SCAN_ROUNDS:.0f} "
+          f"operations; the wrapper's wall (CUDA events, one call each) {spread(wall)} "
+          f"[{card_line()}]")
+    return float(np.median(mine))
+
+
+def time_sw_long(dev):
+    """K5 at B = 4,096 pairs of a 1,500-symbol query and a 400-symbol ref
+    (random codes, seed SEED): two strips a pair; bit for bit against its
+    plain version, each timed by CUDA events (the plain version by the one
+    call compared) beside the operations bound."""
+    rng = np.random.default_rng(SEED)
+    B, M, N = 4096, 1500, 400
+    q = torch.from_numpy(rng.integers(1, 5, (B, M)).astype(np.int32)).to(dev)
+    r = torch.from_numpy(rng.integers(1, 5, (B, N)).astype(np.int32)).to(dev)
+    before = kernels.launches["sw_wavefront"]
+    got = sw.sw_wavefront(q, r, *SW_PARAMS)
+    strips = kernels.launches["sw_wavefront"] - before
+    plain, plain_ms = once_ms(lambda: sw.sw_wavefront_plain(q, r, *SW_PARAMS))
+    err = max_abs_err(got, plain)
+    ms = cuda_ms(lambda: sw.sw_wavefront(q, r, *SW_PARAMS), 5)
+    bound = SW_OPS_PER_CELL * B * M * N / SCALAR_OPS_PER_S * 1e3
+    print(f"K5 B={B} q={M} r={N} ({strips} strips, {len(sw.sw_strips(M))} expected): max_abs_err "
+          f"{err}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (one call), bound {bound:.4f} ms "
+          f"(operations), {bound / ms:.1%} of it [{card_line()}]", flush=True)
+    assert err == 0 and strips == len(sw.sw_strips(M)) == 2, (err, strips)
+    return err
+
+
 def run_dryrun():
-    """The port's multi-device dry run over [cuda:0] * 4, counts reset just
-    before it: the index-sharded scan must launch.  Returns its counts."""
+    """The port's compile-check entry on cuda:0 and its multi-device dry run
+    over [cuda:0] * 4, counts reset just before them: K9 (the entry and the
+    dry run's stage-A step, 4 parts and the whole batch) and the
+    index-sharded scan must launch.  Returns their counts."""
     kernels.reset_launches()
     t0 = time.time()
+    fn, example = dryrun.entry(torch.device("cuda", 0))
+    emitted, valid, final, lext = fn(*example)
+    torch.cuda.synchronize()
     out = dryrun.dryrun_multidevice([torch.device("cuda", 0)] * 4)
     ran = dict(kernels.launches)
-    print(f"dryrun_multidevice([cuda:0] x 4): {time.time() - t0:.3f} s, {out}; launches {ran}")
-    assert ran["scan_single_sharded"] >= 1, ran
+    print(f"dryrun.entry(cuda:0): emitted {tuple(emitted.shape)}, valid {int(valid.sum())}, "
+          f"final {tuple(final.shape)}, lext {tuple(lext.shape)}; "
+          f"dryrun_multidevice([cuda:0] x 4): {time.time() - t0:.3f} s, {out}; launches {ran}")
+    assert ran["scan_single_sharded"] >= 1 and ran["scan_stage_a"] >= 6, ran
     return ran
 
 
@@ -1889,6 +2110,7 @@ def main(argv=None) -> int:
         phase("kernels against their plain versions")
         k1 = check_scan_kernel(dev, builder, seqs)
         k5 = check_sw_kernel(dev, sw_edges)
+        k5["max_abs_err"] = max(k5["max_abs_err"], time_sw_long(dev))
         edges = edge_indexes(dev)
         k2_err = check_plane_kernel(dev, edges)
         phase("hits of sampled reads against the host engine")
@@ -1906,11 +2128,8 @@ def main(argv=None) -> int:
         phase("gather probes against their plain versions")
         probes, step_ns = check_probes(dev, search._cached_scanner(builder, dev, *FWD_REV).plane)
         check_probe_range_assert()
-        nblocks = FMIndex.load("reads.bwt").length // fm_device.SAMPLE + 1
-        by_bytes, by_chain = stage_a_bound(nblocks, step_ns)
-        print(f"_scan_stage_a (not ported) at {PROBE_LANES} lanes x {READ_LEN - 1} steps: bound "
-              f"{max(by_bytes, by_chain):.4f} ms (bytes {by_bytes:.4f} ms; chain of "
-              f"{READ_LEN + 1} dependent row reads at {step_ns:.1f} ns {by_chain:.4f} ms)")
+        phase("K9 (the stage-A scan with '$'-probes) against its plain version")
+        k9 = check_stage_a_kernel(dev, builder, seqs, step_ns)
         phase("K3 against its plain version, and its views against K1's")
         k3 = check_single_kernel(dev, builder, seqs, step_ns, edges)
         phase("the index-sharded scan on [cuda:0] x D against its plain version and K3")
@@ -1923,6 +2142,7 @@ def main(argv=None) -> int:
         scan_device_ms = in_child("time_scans")
         k1["device_ms"], k3["device_ms"] = scan_device_ms["scan_pair"], scan_device_ms["scan_single"]
         ks["device_ms"] = scan_device_ms[f"scan_single_sharded D={SHARDS[0]}"]
+        k9["device_ms"] = scan_device_ms.pop("scan_stage_a")
         chain = (READ_LEN + 1) * step_ns / 1e6
         for label, ms in scan_device_ms.items():
             if not label.startswith("scan_single"):
@@ -1963,6 +2183,7 @@ def main(argv=None) -> int:
         ("scan_single", "siga_tpu_torch/csrc/scan_single.cu", "siga_tpu/ops/fm_device.py:504", k3),
         ("scan_single_sharded", "siga_tpu_torch/csrc/scan_single.cu",
          "siga_tpu/ops/fm_device.py:1165", ks),
+        ("scan_stage_a", "siga_tpu_torch/csrc/stage_a.cu", "siga_tpu/ops/fm_device.py:1210", k9),
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
         ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:23", k7),
     ] + [

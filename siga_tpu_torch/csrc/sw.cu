@@ -46,6 +46,19 @@
 // _sw_wavefront.  A best h <= 0 gives (0, -1, -1).  Query code <= 0 is
 // padding and never matches (queries <= 0 are read as 0, refs <= 0 as -1).
 //
+// Long queries: a query of M > 1,023 rows runs as strips of kStripRows =
+// 992 rows (31 lanes of 32; the last strip takes the rest at its own width),
+// one launch a strip, in order.  Strip k's last lane writes, at every ref
+// column j, the H - go and E of the strip's last row into a carry buffer
+// ([2, B, N] int32: H - go, then E); strip k + 1's lane 0 takes them from
+// above in place of row 0's NEG - go and NEG (loading column j + 1's during
+// column j's step), and the H - go it took the step before is its diagonal,
+// as a lane takes lane t - 1's.  Two buffers alternate, so a launch never
+// reads what it writes.  A strip's best carries global rows; all but the
+// last strip write it raw (h, d, i) into best / qend / rend, and the next
+// joins it by the same rule (sw_strip_kernel).  M <= 1,023 is one launch of
+// sw_kernel, with no carry.
+//
 // What bounds it: operations, about ten integer instructions a cell with
 // the step's shuffles and ring read shared over R cells; the cells of one
 // step are a dependent chain down the lane's rows (E), hidden by the other
@@ -61,11 +74,25 @@ constexpr int kWarps = 4;  // pairs a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRing = 64;  // ref symbols staged a warp
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxRows = 1023;   // rows one launch takes; ops/sw.py MAX_ROWS
+constexpr int kStripRows = 992;  // rows of a strip that carries on; ops/sw.py STRIP_ROWS
+constexpr int kStripR = kStripRows / 31;  // its width: 31 lanes of 32 rows
 
 struct Params {
   int go, ge;
   int s_match, s_mismatch;  // match + go, go - mismatch
   int f_first;              // F at column 1: max(NEG - go, NEG - ge)
+};
+
+// The row above a strip, from the strip before (in: H - go and E of each ref
+// column, of this pair), and the strip's last row for the next (out).  `hg`
+// and `e` hold column j + 1's in-values during column j's step, in lane 0.
+struct Carry {
+  const int* in_hg;
+  const int* in_e;
+  int* out_hg;
+  int* out_e;
+  int hg, e;
 };
 
 // ref symbol idx of the pair, -1 past the end or for a code <= 0
@@ -76,12 +103,14 @@ __device__ __forceinline__ int ref_symbol(const int* ref, int idx, int N) {
 }
 
 // One step s of the sweep for lane t (column j = s - t + 1).  kEdge: some
-// lane may be outside columns 1..N, so each lane checks its own.
-template <int R, bool kEdge>
-__device__ __forceinline__ void sw_step(int s, int t, int N, int* ring, int& next,
+// lane may be outside columns 1..N, so each lane checks its own.  kIn: the
+// row above comes from the carry, not row 0; kOut: lane L - 1, which holds
+// the strip's last row, writes it to the carry.
+template <int R, bool kEdge, bool kIn, bool kOut>
+__device__ __forceinline__ void sw_step(int s, int t, int N, int L, int* ring, int& next,
                                         const int* ref, const int (&q)[R], int (&hg)[R],
                                         int (&f)[R], int (&bh)[R], int (&bs)[R], int& diag0,
-                                        int& e_last, const Params& p) {
+                                        int& e_last, const Params& p, Carry& c) {
   if ((s & 31) == 0 && s > 0) {  // the next 32 symbols into the ring
     __syncwarp();
     ring[(s + t) & (kRing - 1)] = next;
@@ -92,11 +121,23 @@ __device__ __forceinline__ void sw_step(int s, int t, int N, int* ring, int& nex
   int hg_up = __shfl_up_sync(kFull, hg[R - 1], 1);
   int e_up = __shfl_up_sync(kFull, e_last, 1);
   int diag = diag0;
-  diag0 = hg_up;
-  if (t == 0) {  // row 0: NEG above, 0 on the diagonal
-    hg_up = kNeg - p.go;
-    e_up = kNeg;
-    diag = -p.go;
+  if constexpr (kIn) {
+    if (t == 0) {  // the strip before's last row, at column s + 1
+      hg_up = c.hg;
+      e_up = c.e;
+      if (s + 1 < N) {
+        c.hg = __ldg(c.in_hg + s + 1);
+        c.e = __ldg(c.in_e + s + 1);
+      }
+    }
+    diag0 = hg_up;
+  } else {
+    diag0 = hg_up;
+    if (t == 0) {  // row 0: NEG above, 0 on the diagonal
+      hg_up = kNeg - p.go;
+      e_up = kNeg;
+      diag = -p.go;
+    }
   }
   const int j = s - t + 1;
   const bool active = !kEdge || (j >= 1 && j <= N);
@@ -121,6 +162,12 @@ __device__ __forceinline__ void sw_step(int s, int t, int N, int* ring, int& nex
     e_up = e;
   }
   e_last = e_up;
+  if constexpr (kOut) {
+    if (t == L - 1 && active) {
+      c.out_hg[j - 1] = hg[R - 1];
+      c.out_e[j - 1] = e_last;
+    }
+  }
 }
 
 // (h, d, i) of a cell beats (h2, d2, i2): larger h, then smaller d, then smaller i
@@ -128,18 +175,37 @@ __device__ __forceinline__ bool better(int h, int d, int i, int h2, int d2, int 
   return h > h2 || (h == h2 && (d < d2 || (d == d2 && i < i2)));
 }
 
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-sw_kernel(const int* __restrict__ queries, const int* __restrict__ refs, int B, int M, int N,
-          Params p, int* __restrict__ best, int* __restrict__ qend, int* __restrict__ rend) {
+// Rows i0 + 1 .. i0 + M of the pairs' queries (stride Q) against their refs.
+template <int R, bool kIn, bool kOut>
+__device__ __forceinline__ void sw_pairs(const int* __restrict__ queries,
+                                         const int* __restrict__ refs, int B, int Q, int N,
+                                         int i0_arg, int M, const Params& p,
+                                         const int* __restrict__ carry_in,
+                                         int* __restrict__ carry_out, int* __restrict__ best,
+                                         int* __restrict__ qend, int* __restrict__ rend) {
   __shared__ int rings[kWarps][kRing];
   const int t = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp
+  // one strip (the whole query): rows from 1, Q == M
+  const int i0 = (kIn || kOut) ? i0_arg : 0;
+  const int stride = (kIn || kOut) ? Q : M;
   int* ring = rings[threadIdx.x >> 5];
   const int* ref = refs + static_cast<size_t>(b) * N;
-  const int* qrow = queries + static_cast<size_t>(b) * M;
+  const int* qrow = queries + static_cast<size_t>(b) * stride + i0;
   const int L = (M + R - 1) / R;
+  const size_t plane = static_cast<size_t>(B) * N;  // H - go, then E
+  Carry c{};
+  if constexpr (kIn) {
+    c.in_hg = carry_in + static_cast<size_t>(b) * N;
+    c.in_e = c.in_hg + plane;
+    c.hg = __ldg(c.in_hg);
+    c.e = __ldg(c.in_e);
+  }
+  if constexpr (kOut) {
+    c.out_hg = carry_out + static_cast<size_t>(b) * N;
+    c.out_e = c.out_hg + plane;
+  }
 
   int q[R], hg[R], f[R], bh[R], bs[R];
 #pragma unroll
@@ -159,17 +225,20 @@ sw_kernel(const int* __restrict__ queries, const int* __restrict__ refs, int B, 
   // steps [0, L) and [max(L, N), N + L - 1) are checked; [L, N) are not
   int s = 0;
   for (; s < L && s < N + L - 1; ++s)
-    sw_step<R, true>(s, t, N, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p);
+    sw_step<R, true, kIn, kOut>(s, t, N, L, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p,
+                                c);
   for (; s < N; ++s)
-    sw_step<R, false>(s, t, N, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p);
+    sw_step<R, false, kIn, kOut>(s, t, N, L, ring, next, ref, q, hg, f, bh, bs, diag0, e_last,
+                                 p, c);
   for (; s < N + L - 1; ++s)
-    sw_step<R, true>(s, t, N, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p);
+    sw_step<R, true, kIn, kOut>(s, t, N, L, ring, next, ref, q, hg, f, bh, bs, diag0, e_last, p,
+                                c);
 
   int h = INT_MIN, d = INT_MAX, i = INT_MAX;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const int row = t * R + k + 1;  // query row i of the cell
-    if (row <= M) {
+    const int row = i0 + t * R + k + 1;  // query row i of the cell
+    if (row <= i0 + M) {
       const int hk = bh[k] + p.go, dk = row + bs[k] - t + 1;
       if (better(hk, dk, row, h, d, i)) {
         h = hk;
@@ -190,52 +259,112 @@ sw_kernel(const int* __restrict__ queries, const int* __restrict__ refs, int B, 
     }
   }
   if (t == 0) {
-    const bool none = h <= 0;
-    best[b] = none ? 0 : h;
-    qend[b] = none ? -1 : i - 1;
-    rend[b] = none ? -1 : d - i - 1;
+    if constexpr (kIn) {
+      if (better(best[b], qend[b], rend[b], h, d, i)) {  // the strips before's, raw
+        h = best[b];
+        d = qend[b];
+        i = rend[b];
+      }
+    }
+    if constexpr (kOut) {
+      best[b] = h;
+      qend[b] = d;
+      rend[b] = i;
+    } else {
+      const bool none = h <= 0;
+      best[b] = none ? 0 : h;
+      qend[b] = none ? -1 : i - 1;
+      rend[b] = none ? -1 : d - i - 1;
+    }
   }
+}
+
+// A whole query of M <= 1,023 rows a pair, with no strip parameters: with
+// them in its signature the same body compiled to another register
+// assignment and schedule and ran 0.4% slower at 4,096 x 150 x 400 (PERF.md)
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+sw_kernel(const int* __restrict__ queries, const int* __restrict__ refs, int B, int M, int N,
+          Params p, int* __restrict__ best, int* __restrict__ qend, int* __restrict__ rend) {
+  sw_pairs<R, false, false>(queries, refs, B, M, N, 0, M, p, nullptr, nullptr, best, qend,
+                            rend);
+}
+
+// One strip of longer queries: kIn after the first strip, kOut before the last.
+template <int R, bool kIn, bool kOut>
+__global__ void __launch_bounds__(kThreads)
+sw_strip_kernel(const int* __restrict__ queries, const int* __restrict__ refs, int B, int Q,
+                int N, int i0, int M, Params p, const int* __restrict__ carry_in,
+                int* __restrict__ carry_out, int* __restrict__ best, int* __restrict__ qend,
+                int* __restrict__ rend) {
+  sw_pairs<R, kIn, kOut>(queries, refs, B, Q, N, i0, M, p, carry_in, carry_out, best, qend,
+                         rend);
 }
 
 struct Call {
   const int* queries;
   const int* refs;
-  int B, M, N;
+  int B, Q, N, i0, M;
   Params p;
+  const int* carry_in;
+  int* carry_out;
   int *best, *qend, *rend;
   cudaStream_t stream;
 };
 
-template <int R>
+template <int R, bool kIn, bool kOut>
 int launch(const Call& c) {
   const int blocks = (c.B + kWarps - 1) / kWarps;
-  sw_kernel<R><<<blocks, kThreads, 0, c.stream>>>(c.queries, c.refs, c.B, c.M, c.N, c.p,
-                                                   c.best, c.qend, c.rend);
+  if constexpr (!kIn && !kOut) {
+    sw_kernel<R><<<blocks, kThreads, 0, c.stream>>>(c.queries, c.refs, c.B, c.M, c.N, c.p,
+                                                     c.best, c.qend, c.rend);
+  } else {
+    sw_strip_kernel<R, kIn, kOut><<<blocks, kThreads, 0, c.stream>>>(
+        c.queries, c.refs, c.B, c.Q, c.N, c.i0, c.M, c.p, c.carry_in, c.carry_out, c.best,
+        c.qend, c.rend);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // the smallest instantiated width R >= rmin
-template <int R, int... Rs>
+template <bool kIn, int R, int... Rs>
 int dispatch(int rmin, const Call& c) {
-  if (rmin <= R) return launch<R>(c);
+  if (rmin <= R) return launch<R, kIn, false>(c);
   if constexpr (sizeof...(Rs) > 0) {
-    return dispatch<Rs...>(rmin, c);
+    return dispatch<kIn, Rs...>(rmin, c);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <bool kIn>
+int dispatch_last(const Call& c) {
+  return dispatch<kIn, 1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32>((c.M + 31) / 32, c);
+}
+
 }  // namespace
 
-// Every M in 1..1023 (R up to 32); N >= 1.
-extern "C" int siga_sw_wavefront(const void* queries, const void* refs, int B, int M, int N,
-                                 int match, int mismatch, int gap_open, int gap_extend,
-                                 void* best, void* qend, void* rend, void* stream) {
-  if (B < 1 || M < 1 || M > 1023 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+// Rows i0 + 1 .. i0 + M of queries [B, Q] against refs [B, N], 1 <= M <=
+// 1,023, N >= 1.  carry_in: null for the first strip, else the carry the
+// strip before wrote; carry_out: null for the last strip, else a carry to
+// write ([2, B, N] int32), and then M is kStripRows.  The last strip writes
+// (best, qend, rend); the others write the raw (h, d, i) the next one joins.
+extern "C" int siga_sw_wavefront(const void* queries, const void* refs, int B, int Q, int N,
+                                 int match, int mismatch, int gap_open, int gap_extend, int i0,
+                                 int M, const void* carry_in, void* carry_out, void* best,
+                                 void* qend, void* rend, void* stream) {
+  if (B < 1 || M < 1 || M > kMaxRows || N < 1 || i0 < 0 || i0 + M > Q ||
+      (carry_in == nullptr) != (i0 == 0) || (carry_out != nullptr && M != kStripRows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int f_first = max(kNeg - gap_open, kNeg - gap_extend);
-  const Call c{static_cast<const int*>(queries), static_cast<const int*>(refs), B, M, N,
+  const Call c{static_cast<const int*>(queries), static_cast<const int*>(refs), B, Q, N, i0, M,
                Params{gap_open, gap_extend, match + gap_open, gap_open - mismatch, f_first},
+               static_cast<const int*>(carry_in), static_cast<int*>(carry_out),
                static_cast<int*>(best), static_cast<int*>(qend), static_cast<int*>(rend),
                static_cast<cudaStream_t>(stream)};
-  return dispatch<1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32>((M + 31) / 32, c);
+  if (carry_out != nullptr) {
+    return carry_in == nullptr ? launch<kStripR, false, true>(c) : launch<kStripR, true, true>(c);
+  }
+  return carry_in == nullptr ? dispatch_last<false>(c) : dispatch_last<true>(c);
 }

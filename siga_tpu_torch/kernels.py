@@ -35,8 +35,8 @@ NVCC_FLAGS = [
 
 launches = {
     "pair_plane": 0, "scan_pair": 0, "scan_single": 0, "scan_single_sharded": 0,
-    "sw_wavefront": 0, "kmer_count": 0, "gather_rows": 0, "take_along": 0, "gather_chain": 0,
-    "scale2": 0,
+    "scan_stage_a": 0, "sw_wavefront": 0, "kmer_count": 0, "gather_rows": 0, "take_along": 0,
+    "gather_chain": 0, "scale2": 0,
 }
 
 _lock = threading.Lock()
@@ -60,13 +60,16 @@ _SIGNATURES = {
     # lane_base, nl, cap, then lane_counts, fall, candmask, subwords, slab,
     # stream
     "siga_scan_single": [_P, _I, _I] + [_P] * 3 + [_I] * 12 + [_P] * 5 + [_P],
+    # plane, nrows, pred, length, chars, lens, lane_tab (or null), L, max_t,
+    # min_overlap, emitted, valid, final, lext, stream
+    "siga_scan_stage_a": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I] + [_P] * 4 + [_P],
     # peer: let the current card read that card's memory
     "siga_enable_peer_access": [_I],
     # threads a lane of siga_scan_pair and a k-mer of siga_kmer_count
     "siga_lane_group": [],
-    # queries, refs, B, M, N, match, mismatch, open, extend, best, qend,
-    # rend, stream
-    "siga_sw_wavefront": [_P] * 2 + [_I] * 7 + [_P] * 3 + [_P],
+    # queries, refs, B, Q, N, match, mismatch, open, extend, i0, M,
+    # carry_in, carry_out, best, qend, rend, stream
+    "siga_sw_wavefront": [_P] * 2 + [_I] * 9 + [_P] * 5 + [_P],
     # plane, idx, R, Q, C, out, stream
     "siga_gather_rows": [_P, _P, _I, _I, _I, _P, _P],
     # table, index, A, B, Q, si0, si1, axis, form, tile, out, stream

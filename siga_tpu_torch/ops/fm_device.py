@@ -31,6 +31,13 @@ by rows over the devices (`shard_plane`), scanned by `scan_single_sharded`
 (K3 reading each row through a table of the shards, on a CUDA tensor;
 `scan_single_sharded_plain`, whose occ is `occ_single_sharded`, on a CPU
 tensor).
+
+`scan_stage_a` is the JAX package's `_scan_stage_a`, the stage-A scan with
+'$'-probes that only its compile check and dry run call (the port's are
+`dryrun.entry` and `dryrun.stage_a_step`): the CUDA kernel K9
+(`csrc/stage_a.cu`) on a CUDA tensor, `scan_stage_a_plain` on a CPU tensor;
+it emits every step's state un-compacted, over a single-step plane of any
+row count.
 """
 from __future__ import annotations
 
@@ -368,6 +375,16 @@ def _below_rank(vec5, c):
     """Sum of vec5[r] for r < c, per lane."""
     r = torch.arange(5, device=c.device)[:, None]
     return torch.where(r < c[None, :], vec5, 0).sum(dim=0)
+
+
+def _update_left(rlo, c, l_c, u_c, pred64):
+    """IntervalPair.updateL of rank c [Q] in 0..4 with the inclusive occ
+    counts [5, Q] at lo - 1 and hi: the new (lo, hi, rlo, rhi).  As
+    `siga_tpu/ops/fm_device.py::_update_left_T`."""
+    diff = u_c - l_c
+    nrlo = rlo + _below_rank(diff, c)
+    return (_sel_rank(pred64[:, None] + l_c, c), _sel_rank(pred64[:, None] + u_c, c) - 1,
+            nrlo, nrlo + _sel_rank(diff, c) - 1)
 
 
 def _unpack_2bit(words: torch.Tensor, lens: torch.Tensor, maxlen: int):
@@ -749,14 +766,14 @@ _NDWORDS = SAMPLE // 32  # single-step plane: '$' mask words a row
 MAX_SHARDS = 16  # rows of the shard table (csrc/scan_single.cu kMaxShards)
 
 
-def _single_rows(nblocks: int, i: torch.Tensor, tabs: torch.Tensor):
-    """(row, block0, tail) of positions i [Q] (>= -1) in the tables of the
-    stacked single-step plane whose rows start at tabs [Q]: the global row
-    that holds each, clamped to the plane's 2 * nblocks rows, so that no
-    query reads past the plane."""
+def _single_rows(nrows: int, i: torch.Tensor, tabs: torch.Tensor):
+    """(row, block0, tail) of positions i [Q] (>= -1) in the tables of a
+    single-step plane of `nrows` rows whose rows start at tabs [Q]: the
+    global row that holds each, clamped to the plane (as JAX's gather
+    clamps), so that no query reads past it."""
     pos = i + 1
     block0 = torch.div(pos, SAMPLE, rounding_mode="floor")
-    return (block0 + tabs).clamp(0, 2 * nblocks - 1), block0, pos - block0 * SAMPLE
+    return (block0 + tabs).clamp(0, nrows - 1), block0, pos - block0 * SAMPLE
 
 
 def _occ_from_single_rows(rowsT: torch.Tensor, block0: torch.Tensor, tail: torch.Tensor):
@@ -783,7 +800,7 @@ def occ_single(plane2: torch.Tensor, nblocks: int, i: torch.Tensor, tabs: torch.
     the table of the stacked single-step plane (int32 [2 * nblocks, 16])
     whose rows start at tabs [Q].  Port of `occ_all_fused_T`.  Position 0
     (i = -1) reads no bit: all zero."""
-    row, block0, tail = _single_rows(nblocks, i, tabs)
+    row, block0, tail = _single_rows(2 * nblocks, i, tabs)
     return _occ_from_single_rows(plane2[row].T.to(torch.int64), block0, tail)
 
 
@@ -814,7 +831,7 @@ def occ_single_sharded(shards, nblocks: int, i: torch.Tensor, tabs: torch.Tensor
     device and summed.  Port of `occ_all_fused_sharded_T`, whose psum over
     the mesh the sum is.  The global row is clamped first, so no shard reads
     past the plane and a short or empty last shard needs no padding."""
-    row, block0, tail = _single_rows(nblocks, i, tabs)
+    row, block0, tail = _single_rows(2 * nblocks, i, tabs)
     bps = shard_rows(nblocks, len(shards))
     total = torch.zeros((5, i.numel()), dtype=torch.int64, device=i.device)
     for k, shard in enumerate(shards):
@@ -892,11 +909,7 @@ def _scan_single_steps(
             psize = diff[0]
             valids.append(((psize > 0) & (rlo + psize - 1 >= 0) & active)[:, None])
             emitted.append(torch.stack([lo, rlo, hi - lo, zeros + (t - p1)], dim=1)[:, None])
-        # updateL(c), as `_update_left_T`
-        nrlo = rlo + _below_rank(diff, c)
-        nrhi = nrlo + _sel_rank(diff, c) - 1
-        nlo = _sel_rank(pred64[:, None] + l_c, c)
-        nhi = _sel_rank(pred64[:, None] + u_c, c) - 1
+        nlo, nhi, nrlo, nrhi = _update_left(rlo, c, l_c, u_c, pred64)
         lo, hi, rlo, rhi = (
             torch.where(active, new, old)
             for new, old in ((nlo, lo), (nhi, hi), (nrlo, rlo), (nrhi, rhi))
@@ -1001,6 +1014,124 @@ def scan_single_sharded(
     name = "scan_single" if len(shards) == 1 else "scan_single_sharded"
     return scan_on_card(name, entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
                         slab_bytes)
+
+
+def occ_stage_a(plane: torch.Tensor, i: torch.Tensor, tab: torch.Tensor):
+    """Inclusive occ counts int64 [5, Q] of positions i [Q] (>= -1) in a
+    single-step plane of any row count (int32 [rows, 16]), each in the table
+    whose rows start at tab [Q].  Port of `occ_all_fused_T`."""
+    row, block0, tail = _single_rows(plane.shape[0], i, tab)
+    return _occ_from_single_rows(plane[row].T.to(torch.int64), block0, tail)
+
+
+def _stage_a_inputs(max_t: int, plane, pred, chars, lens, lane_tab, dev):
+    """Raise unless the inputs of `scan_stage_a` are what it takes: a
+    single-step plane of 16 columns (block 128; no other sample is
+    ported), int32 tensors on `dev` of the shapes that chars [L, max_t + 1]
+    gives, and max_t >= 0."""
+    if plane.dim() != 2 or plane.shape[1] != SINGLE_COLS:
+        raise ValueError(f"plane: shape {tuple(plane.shape)}, want [rows, {SINGLE_COLS}] "
+                         f"(block {SAMPLE}; no other block is ported)")
+    if max_t < 0 or chars.dim() != 2 or chars.shape[1] != max_t + 1:
+        raise ValueError(f"chars: shape {tuple(chars.shape)}, want [L, max_t + 1 = {max_t + 1}]")
+    L = chars.shape[0]
+    inputs = [("plane", plane, None), ("pred", pred, (5,)), ("chars", chars, None),
+              ("lens", lens, (L,))]
+    if lane_tab is not None:
+        inputs.append(("lane_tab", lane_tab, (L,)))
+    for name, x, shape in inputs:
+        if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous int32 tensor on {dev}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)} != {shape}")
+
+
+def scan_stage_a_plain(max_t: int, min_overlap: int, plane, pred, length: int, chars, lens,
+                       lane_tab=None):
+    """The stage-A scan with '$'-probes of the JAX package's compile check and
+    dry run, in plain PyTorch: the reference for the CUDA kernel K9 and the
+    path `scan_stage_a` takes on the CPU.  Mirrors
+    `siga_tpu/ops/fm_device.py::_scan_stage_a` step for step.
+
+    chars int32 [L, max_t + 1]: chars[:, t] the rank step t prepends
+    (seq[l - 2 - t]; anything past l - 2), chars[:, max_t] the read's last
+    symbol, which opens the lane's interval; lens int32 [L]; plane a
+    single-step plane int32 [rows, 16] (one index, or the stacked forward and
+    reverse planes with lane_tab int32 [L] each lane's row offset); pred the
+    C array (int32 [5]).  Step t (t <= len - 2 live, the others keep the
+    state) emits the state before it and its '$'-probe's validity (size > 0,
+    rlo + size - 1 >= 0, t + 1 >= min_overlap).  Returns emitted int32
+    [max_t, L, 3] ([lo, rlo, hi - lo]), valid bool [max_t, L], final int32
+    [L, 8] ([lo, hi, rlo, rhi] of the full-length interval and of its
+    '$'-probe) and lext int32 [L, 5] (u - l of the counts there)."""
+    dev = chars.device
+    _stage_a_inputs(max_t, plane, pred, chars, lens, lane_tab, dev)
+    L = chars.shape[0]
+    chars64, lens64 = chars.to(torch.int64), lens.to(torch.int64)
+    tab = torch.zeros(L, dtype=torch.int64, device=dev) if lane_tab is None else (
+        lane_tab.to(torch.int64))
+    tab2 = torch.cat([tab, tab])
+    pred64 = pred.to(torch.int64)
+
+    c0 = chars64[:, max_t]
+    lo = pred64[c0]
+    full = occ_stage_a(plane, torch.full((L,), length - 1, device=dev), tab)
+    hi = lo + _sel_rank(full, c0) - 1
+    rlo, rhi = lo, hi
+    emitted, valids = [], []
+    for t in range(max_t):
+        both = occ_stage_a(plane, torch.cat([lo - 1, hi]), tab2)
+        l_c, u_c = both[:, :L], both[:, L:]
+        active = t <= lens64 - 2
+        # the '$'-probe (rank 0): prlo = rlo, prhi = rlo + size - 1
+        prhi = rlo + u_c[0] - l_c[0] - 1
+        valids.append((prhi >= rlo) & (prhi >= 0) & active & (t + 1 >= min_overlap))
+        emitted.append(torch.stack([lo, rlo, hi - lo], dim=-1))
+        # a symbol past l - 2 is anything: inactive lanes extend by '$', unused
+        c = torch.where(active, chars64[:, t], 0)
+        new = _update_left(rlo, c, l_c, u_c, pred64)
+        lo, hi, rlo, rhi = (torch.where(active, n, o) for n, o in zip(new, (lo, hi, rlo, rhi)))
+    both = occ_stage_a(plane, torch.cat([lo - 1, hi]), tab2)
+    l_c, u_c = both[:, :L], both[:, L:]
+    probe = _update_left(rlo, torch.zeros_like(c0), l_c, u_c, pred64)
+    i32 = torch.int32
+    if emitted:
+        emitted, valid = torch.stack(emitted).to(i32), torch.stack(valids)
+    else:
+        emitted = torch.zeros((0, L, 3), dtype=i32, device=dev)
+        valid = torch.zeros((0, L), dtype=torch.bool, device=dev)
+    final = torch.stack([lo, hi, rlo, rhi, *probe], dim=-1).to(i32)
+    return emitted, valid, final, (u_c - l_c).T.to(i32).contiguous()
+
+
+def scan_stage_a(max_t: int, min_overlap: int, plane, pred, length: int, chars, lens,
+                 lane_tab=None):
+    """The stage-A scan with '$'-probes (`scan_stage_a_plain`'s arguments and
+    outputs): the CUDA kernel K9 (`csrc/stage_a.cu`, one launch, a thread a
+    lane) on CUDA tensors, the plain version on CPU tensors; any other
+    device raises.  Port of `siga_tpu/ops/fm_device.py::_scan_stage_a`.
+    Only a 16-column single-step plane is taken; live symbols are ranks
+    0..4, as `dna.encode` gives them."""
+    dev = chars.device
+    if dev.type == "cpu":
+        return scan_stage_a_plain(max_t, min_overlap, plane, pred, length, chars, lens, lane_tab)
+    if dev.type != "cuda":
+        raise ValueError(f"scan_stage_a: unsupported device {dev}")
+    _stage_a_inputs(max_t, plane, pred, chars, lens, lane_tab, dev)
+    L = chars.shape[0]
+    if L == 0 or plane.shape[0] == 0:
+        raise ValueError("scan_stage_a: no lanes or an empty plane")
+    emitted = torch.empty((max_t, L, 3), dtype=torch.int32, device=dev)
+    valid = torch.empty((max_t, L), dtype=torch.bool, device=dev)
+    final = torch.empty((L, 8), dtype=torch.int32, device=dev)
+    lext = torch.empty((L, 5), dtype=torch.int32, device=dev)
+    kernels.launch(
+        "scan_stage_a", dev, kernels.lib().siga_scan_stage_a,
+        plane.data_ptr(), plane.shape[0], pred.data_ptr(), length, chars.data_ptr(),
+        lens.data_ptr(), None if lane_tab is None else lane_tab.data_ptr(), L, max_t,
+        min_overlap, emitted.data_ptr(), valid.data_ptr(), final.data_ptr(), lext.data_ptr(),
+    )
+    return emitted, valid, final, lext
 
 
 def require_acgt(text: bytes) -> None:

@@ -4,7 +4,8 @@ Port of `siga_tpu/ops/sw_device.py` (the XLA wavefront) and
 `siga_tpu/ops/sw_pallas.py` (its Pallas TPU kernel): affine-gap local
 alignment of many (query, ref) pairs, returning the best score and its end
 positions.  `sw_wavefront` is the CUDA kernel K5 (`csrc/sw.cu`) on CUDA
-tensors and `sw_wavefront_plain` on CPU tensors.
+tensors, at any query length (a query longer than 1,023 runs as strips),
+and `sw_wavefront_plain` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ def sw_edge_cases(seed: int = 0):
     the lane count's edges), N in {1, M - 1, 400}, B 1 or 5, the parameter
     sets of EDGE_PARAMS in turn; then queries padded with 0, pairs with no
     match (best 0, ends -1), a tie across diagonals, a tie on one diagonal,
-    and two-letter pairs full of ties."""
+    two-letter pairs full of ties, and `long_query_cases`."""
     rng = np.random.default_rng(seed)
 
     def codes(shape, letters=4):
@@ -117,12 +118,65 @@ def sw_edge_cases(seed: int = 0):
                          (1023, 64, EDGE_PARAMS[0])):
         cases.append((f"two letters M={M} N={N} params={params}", codes((5, M), 2),
                       codes((5, N), 2), params))
+    return cases + long_query_cases(rng)
+
+
+def long_query_cases(rng):
+    """K5's cases past one launch's 1,023 rows (the tail of `sw_edge_cases`): M in
+    {1024, 1025, 2047, 3000} with N in {1, M - 1, 400}; one alignment of 298
+    symbols across the strips, with a gap down rows 992-993 (the first
+    strip's last row and the second's first); and equal bests in two strips
+    at rows 992/993 and 1023/1024: G x 8 in the query ending at row b, T x 8
+    starting at row b + 1, the ref C but for T x 8 ending at column 100 and G
+    x 8 ending at column 300 (the later rows' diagonal is the smaller, so
+    they win) or 108 (one diagonal: row b wins)."""
+    def codes(shape):
+        return rng.integers(1, 5, shape).astype(np.int32)
+
+    cases = []
+    for M in (1024, 1025, 2047, 3000):
+        for N in (1, M - 1, 400):
+            k = len(cases)
+            B = 5 if k % 2 == 0 else 1
+            params = EDGE_PARAMS[k % len(EDGE_PARAMS)]
+            cases.append((f"M={M} N={N} B={B} params={params}", codes((B, M)), codes((B, N)),
+                          params))
+    query = codes((1, 2047))
+    seg = query[0, 850:1150]
+    ref = codes((1, 400))
+    ref[0, 50:348] = np.concatenate([seg[:141], seg[143:]])  # query rows 992-993 left out
+    cases.append(("one alignment across the strips, a gap down rows 992-993", query, ref,
+                  EDGE_PARAMS[0]))
+    for b in (992, 1023):
+        for label, x_end in (("the later strip's diagonal first", 300), ("one diagonal", 108)):
+            q = np.ones((1, 1100), np.int32)
+            q[0, b - 8 : b] = 3
+            q[0, b : b + 8] = 4
+            r = np.full((1, 400), 2, np.int32)
+            r[0, 92:100] = 4
+            r[0, x_end - 8 : x_end] = 3
+            cases.append((f"tie across rows {b}/{b + 1}: {label}", q, r, EDGE_PARAMS[0]))
     return cases
+
+
+MAX_ROWS = 1023  # query rows one launch of K5 takes (csrc/sw.cu kMaxRows)
+STRIP_ROWS = 992  # rows of each strip but the last of a longer query (kStripRows)
+
+
+def sw_strips(M: int):
+    """The (first row, rows) of each launch of K5 for a query of M rows: one
+    for M <= MAX_ROWS, else strips of STRIP_ROWS and the rest last."""
+    if M <= MAX_ROWS:
+        return [(0, M)]
+    return [(i0, min(STRIP_ROWS, M - i0)) for i0 in range(0, M, STRIP_ROWS)]
 
 
 def sw_wavefront(queries, refs, match, mismatch, gap_open, gap_extend):
     """Same arguments and outputs as `sw_wavefront_plain`: the CUDA kernel K5
-    on CUDA tensors, the plain version on CPU tensors."""
+    on CUDA tensors, the plain version on CPU tensors.  On CUDA a query of M
+    rows runs as the launches of `sw_strips(M)`, in order, each strip taking
+    the H and E of the row above it from the one before through a carry
+    buffer (two [2, B, N] int32 buffers in turn)."""
     dev = queries.device
     if dev.type == "cpu":
         return sw_wavefront_plain(queries, refs, match, mismatch, gap_open, gap_extend)
@@ -135,15 +189,18 @@ def sw_wavefront(queries, refs, match, mismatch, gap_open, gap_extend):
     N = refs.shape[1]
     if refs.shape[0] != B or B == 0 or M == 0 or N == 0:
         raise ValueError(f"sw_wavefront: shapes {tuple(queries.shape)}, {tuple(refs.shape)}")
-    if M + 1 > 1024:
-        raise ValueError(f"sw_wavefront: query length {M} above the kernel's 1023")
     best, qend, rend = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
-    kernels.launch(
-        "sw_wavefront", dev, kernels.lib().siga_sw_wavefront,
-        queries.data_ptr(), refs.data_ptr(), B, M, N,
-        match, mismatch, gap_open, gap_extend,
-        best.data_ptr(), qend.data_ptr(), rend.data_ptr(),
-    )
+    strips = sw_strips(M)
+    carry = torch.empty((2, 2, B, N), dtype=torch.int32, device=dev) if len(strips) > 1 else None
+    for k, (i0, rows) in enumerate(strips):
+        kernels.launch(
+            "sw_wavefront", dev, kernels.lib().siga_sw_wavefront,
+            queries.data_ptr(), refs.data_ptr(), B, M, N,
+            match, mismatch, gap_open, gap_extend, i0, rows,
+            carry[(k - 1) % 2].data_ptr() if k > 0 else None,
+            carry[k % 2].data_ptr() if k < len(strips) - 1 else None,
+            best.data_ptr(), qend.data_ptr(), rend.data_ptr(),
+        )
     return best, qend, rend
 
 

@@ -15,10 +15,95 @@ def test_dryrun_passes(D):
     out = dryrun.dryrun_multidevice(["cpu"] * D)
     assert out["devices"] == ["cpu"] * D and out["reads"] == max(2 * D, 8)
     assert out["hits"] == out["reads"] and len(out["shard_rows"]) == D
+    assert set(out["stage_a"]) == {"valid", "final", "emitted", "lext"}
     assert sum(out["shard_rows"]) == 2 * (out["reads"] * 25 // tfm.SAMPLE + 1)
     # the index step: D segments of one 128-character tile each hold the text
     assert out["segments"] == ([] if D == 1 else dist_build.segment_sizes(out["reads"] * 25, D))
     assert sum(out["segments"]) == (0 if D == 1 else out["reads"] * 25)
+
+
+def _jax_stage_a_sums(n_devices):
+    """The four sums `__graft_entry__.py::dryrun_multichip` reduces from
+    `_scan_stage_a` over an n-device mesh of its lanes (the CPU devices of
+    tests/conftest.py), computed as it computes them."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    import __graft_entry__
+    from siga_tpu.core import dna
+    from siga_tpu.ops.fm_device import DeviceFM, _scan_stage_a
+    from siga_tpu.parallel.dist import data_mesh, pad_to_multiple
+
+    seqs, fmi = __graft_entry__._tiny_problem(num_reads=max(2 * n_devices, 8))
+    dfm = DeviceFM(fmi)
+    max_t = max(len(s) for s in seqs) - 1
+    chars = np.zeros((len(seqs), max_t + 1), dtype=np.int32)
+    lens = np.array([len(s) for s in seqs], dtype=np.int32)
+    for i, s in enumerate(seqs):
+        ranks = dna.encode(s).astype(np.int32)
+        for t in range(len(s) - 1):
+            chars[i, t] = ranks[len(s) - 2 - t]
+        chars[i, max_t] = ranks[len(s) - 1]
+    chars = pad_to_multiple(chars, n_devices)
+    lens = np.maximum(pad_to_multiple(np.maximum(lens, 1), n_devices), 1)
+    mesh = data_mesh(n_devices)
+    repl = NamedSharding(mesh, P())
+
+    @jax.jit
+    def step(plane, pred, chars, lens):
+        emitted, valid, final, lext = _scan_stage_a(
+            max_t, 8, plane, pred, jnp.int32(dfm.length), chars, lens)
+        return valid.sum(), final.sum(), emitted.sum(), lext.sum()
+
+    out = step(jax.device_put(np.asarray(dfm.occ_plane), repl),
+               jax.device_put(np.asarray(dfm.pred), repl),
+               jax.device_put(chars, NamedSharding(mesh, P("data", None))),
+               jax.device_put(lens, NamedSharding(mesh, P("data"))))
+    return dict(zip(("valid", "final", "emitted", "lext"), (int(x) for x in out)))
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_dryrun_stage_a_equals_jax(D):
+    """The stage-A step over [cpu] * D (each part with a copy of the plane,
+    joined in device order, held to one run of the whole batch) returns the
+    sums JAX's dry run reduces over a D-device mesh."""
+    out = dryrun.dryrun_multidevice(["cpu"] * D)
+    assert out["stage_a"] == _jax_stage_a_sums(D)
+
+
+def test_dryrun_stage_a_pads_and_joins(monkeypatch):
+    """With 10 lanes over 4 devices the lanes pad to 12 (lengths 1, never
+    live), each part runs on its own device, and a part that differs from
+    the whole batch's run makes the dry run raise."""
+    from siga_tpu_torch.index import sa
+    from siga_tpu_torch.index.fm import FMIndex
+
+    seqs = _overlapping_reads(num_reads=10)
+    bwt, _perm, ns = sa.build_index_arrays(seqs, "sais2", "cpu")
+    calls = []
+    scan = dryrun.scan_stage_a
+
+    def spy(*args):
+        calls.append((args[5].shape[0], args[6].tolist()))
+        return scan(*args)
+
+    monkeypatch.setattr(dryrun, "scan_stage_a", spy)
+    sums = dryrun.stage_a_step(seqs, FMIndex(bwt, ns), ["cpu"] * 4)
+    assert [n for n, _l in calls] == [3, 3, 3, 3, 12]
+    assert calls[-1][1] == [24] * 10 + [1, 1]
+    assert sums["valid"] > 0  # the reads overlap: valid probes
+
+    def lossy(*args):
+        out = list(scan(*args))
+        if args[5].shape[0] == 3:
+            out[1] = ~out[1]
+        return tuple(out)
+
+    monkeypatch.setattr(dryrun, "scan_stage_a", lossy)
+    with pytest.raises(RuntimeError, match="stage-A scan's valid over 4 devices differs"):
+        dryrun.stage_a_step(seqs, FMIndex(bwt, ns), ["cpu"] * 4)
 
 
 @pytest.mark.parametrize("num_reads", [8, 16])
@@ -105,7 +190,8 @@ def test_dryrun_raises_on_a_wrong_symbol(monkeypatch, what):
 
 def test_cli(capsys):
     assert dryrun.main(["--devices", "cpu,cpu"]) == 0
-    assert "dryrun_multidevice: OK" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "entry on cpu: emitted (23, 8, 3)" in out and "dryrun_multidevice: OK" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             dryrun.main([])

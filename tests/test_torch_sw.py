@@ -9,7 +9,8 @@ import torch
 
 from siga_tpu.core import dna
 from siga_tpu.ops.sw_device import _sw_wavefront
-from siga_tpu_torch.ops.sw import EDGE_PARAMS, BatchAligner, sw_edge_cases, sw_wavefront_plain
+from siga_tpu_torch.ops.sw import (EDGE_PARAMS, STRIP_ROWS, BatchAligner, sw_edge_cases,
+                                   sw_strips, sw_wavefront_plain)
 
 from test_align import naive_best_score
 
@@ -80,11 +81,12 @@ def test_edge_case_plain_matches_jax(label):
 
 def test_edge_cases_cover_the_kernel_widths():
     """Every M of the wrapper's edges (one row a lane, a full warp, one row
-    past it, the main path's 150, the widest 1,023) with N of 1, M - 1 and
+    past it, the main path's 150, the widest 1,023 of one launch, and the
+    strips past it: 1,024, 1,025, 2,047 and 3,000) with N of 1, M - 1 and
     400, both batch sizes and all three parameter sets; the ties and the
     empty alignments are among them, and score as named."""
     shapes = {(q.shape[1], r.shape[1]) for _l, q, r, _p in EDGES.values()}
-    for M in (1, 31, 32, 33, 150, 1023):
+    for M in (1, 31, 32, 33, 150, 1023, 1024, 1025, 2047, 3000):
         assert {(M, N) for N in {1, M - 1, 400} - {0}} <= shapes
     assert {q.shape[0] for _l, q, _r, _p in EDGES.values()} == {1, 5}
     assert {p for _l, _q, _r, p in EDGES.values()} == set(EDGE_PARAMS)
@@ -97,3 +99,24 @@ def test_edge_cases_cover_the_kernel_widths():
         _l, q, r, p = EDGES[label]
         best, qend, rend = sw_wavefront_plain(torch.from_numpy(q), torch.from_numpy(r), *p)
         assert not best.any() and (qend == -1).all() and (rend == -1).all()
+
+
+def test_long_query_strips_and_ties():
+    """A query longer than one launch's 1,023 rows runs as strips of 992
+    (the last takes the rest); the plain version places the equal bests of
+    `long_query_cases` in two strips as named: the later rows' smaller
+    diagonal wins, and on one diagonal the smaller row; the alignment across
+    the strips scores above 2 x 290."""
+    assert sw_strips(1023) == [(0, 1023)]
+    assert sw_strips(1024) == [(0, 992), (992, 32)]
+    assert sw_strips(3000) == [(0, 992), (992, 992), (1984, 992), (2976, 24)]
+    assert sw_strips(2 * STRIP_ROWS) == [(0, 992), (992, 992)]
+    for b in (992, 1023):
+        for label, want in (("the later strip's diagonal first", [[16], [b + 7], [99]]),
+                            ("one diagonal", [[16], [b - 1], [107]])):
+            _l, q, r, p = EDGES[f"tie across rows {b}/{b + 1}: {label}"]
+            got = sw_wavefront_plain(torch.from_numpy(q), torch.from_numpy(r), *p)
+            assert [x.tolist() for x in got] == want, label
+    _l, q, r, p = EDGES["one alignment across the strips, a gap down rows 992-993"]
+    best, qend, _rend = sw_wavefront_plain(torch.from_numpy(q), torch.from_numpy(r), *p)
+    assert int(best[0]) > 2 * 290 and int(qend[0]) >= 1149
