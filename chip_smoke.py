@@ -12,8 +12,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. simulate the 1 Mb x 25x read set (166,667 error-free 150 bp reads from
      both strands of a random genome, fixed seed);
   4. the main path, with the kernels' launch counts reset just before it:
-     `index` (the device suffix sort, -a sais2 on cuda, the default; its
-     peak device memory against the sort's estimate) -> `overlap -m 45`
+     `index` (the device suffix sort, -a sais2 on cuda, the default: every
+     K6 kernel must launch in both directions; its peak device memory
+     against the sort's estimate) -> `overlap -m 45`
      through siga_tpu_torch.cli (the plane build K2 must launch once a
      direction), then the found edges scored with Smith-Waterman through
      BatchAligner (an exact overlap of length k must score 2k); every read
@@ -43,11 +44,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   8. the hits of 256 sampled reads, from the command's hits file and from
      the engine, against the shared host engine (OverlapBuilder.overlap);
   9. `index -a host` (the C++ seed-sort) on the same reads: all four files
-     byte-equal to the device build's; then the device index's layers
-     timed alone for one direction (text build, sort, sort + BWT + perm)
-     beside K6's bound, and a torch.profiler trace of the sort: its device
-     time, operations, torch.sort's share and its five costliest operations;
-     then the distributed index build (K8, `parallel/dist_build.py`) of the
+     byte-equal to the device build's; then K6 (`index/sa.py`, the kernels
+     of `csrc/suffix_sort.cu` around torch.sort) on the main path's forward
+     text and on every text of `sa_edge_reads`: its SA, BWT and permutation
+     equal to the all-torch route's (`suffix_array_plain`,
+     `bwt_perm_plain`) bit for bit, and each step's kernel equal to its
+     plain version on the same inputs (timed at the main path's shape
+     beside its bytes bound and its plain version); the device index's
+     layers timed alone for one direction (text build, sort, sort + BWT +
+     perm) beside K6's loose bound, the launches of each K6 wrapper and the
+     host synchronisations of one build (none), and in a process of its own
+     (`trace_index`) K6's warm walls, a torch.profiler trace of the sort
+     (device time, operations, torch.sort's share and the digit passes of
+     each of its calls) beside the bound of the passes this design runs,
+     and its peak memory against `SORT_BYTES_PER_CHAR`; then the distributed index build (K8, `parallel/dist_build.py`) of the
      same forward text split into D = 2 and 4 segments on [cuda:0] * D: its
      suffix array equal to K6's, its BWT and permutation equal to K6's and
      to reads.bwt / reads.sai, its warm wall (3 builds in turn with K6's),
@@ -175,9 +185,10 @@ from siga_tpu_torch.ops import fm_device, kmer_count, search, sw
 from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import dist, dist_build, multihost
 from siga_tpu_torch.probes import gather
-from siga_tpu_torch.probes.kernel_ab import (kernel_spans, library_call, single_scan_args,
-                                             sw_edge_pairs, sw_synthetic_pairs, sw_tensors,
-                                             trace_device)
+from siga_tpu_torch.probes.kernel_ab import SA_REPS as SA_WALLS
+from siga_tpu_torch.probes.kernel_ab import (host_walls, kernel_spans, library_call, sa_readings,
+                                             single_scan_args, sort_readings, sw_edge_pairs,
+                                             sw_synthetic_pairs, sw_tensors, trace_device)
 
 SEED = 1
 GENOME = 1_000_000
@@ -197,6 +208,11 @@ SCAN_ROUNDS = 5  # K1, K3 and the sharded scan timed in turn and traced, this ma
 SHARDS = (2, 4)  # the index-sharded scan's shard counts, D allocations on cuda:0 each
 SEGMENTS = (2, 4)  # the distributed index build's entries, [cuda:0] * D each
 DIST_ROUNDS = 3  # distributed builds timed in turn with K6's bwt_perm_device
+SA_REPS, SA_PLAIN_REPS = 20, 3  # calls of a K6 kernel, of its plain version, a timing
+# the step each K6 kernel's JSON row times at the main path's shape
+SA_TIMED = {"sa_seed_keys": "sa_seed_keys", "sa_gather": "sa_gather, key_a",
+            "sa_seed_ranks": "sa_seed_ranks", "sa_round_keys": "sa_round_keys",
+            "sa_round_scatter": "sa_round_scatter", "sa_bwt_perm": "sa_bwt_perm"}
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
@@ -649,7 +665,10 @@ def check_host_index(index_s):
 
 def time_index_layers(dev, seqs):
     """The device index's layers for one direction, warm: the text build, the
-    suffix sort alone, and sort + BWT + permutation copied to the host."""
+    suffix sort alone, and sort + BWT + permutation copied to the host; the
+    launches of each K6 wrapper in one `bwt_perm_device` and its host
+    synchronisations; then K6 traced in a process of its own
+    (`trace_index`)."""
     t0 = time.time()
     codes, _starts, _lengths = sa_mod.concat_reads(seqs)
     concat_s = time.time() - t0
@@ -662,48 +681,193 @@ def time_index_layers(dev, seqs):
     t0 = time.time()
     _bwt, perm = sa_mod.bwt_perm_device(codes, dev)
     bwt_perm_s = time.time() - t0
-    # K6's bound: the rank text read once; the suffix array (int32 suffices
-    # below 2**31 characters), the BWT codes and the .sai permutation written
-    # once.  Loose: a sort moves its keys more than once.
+    # K6's loose bound: the rank text read once; the suffix array (int32
+    # suffices below 2**31 characters), the BWT codes and the .sai
+    # permutation written once.  A sort moves its keys more than once:
+    # `trace_index` gives the bound of the passes this design runs.
     k6_bytes = codes.size * (1 + 4 + 1) + perm.size * 4
     print(f"index layers, one direction of {codes.size} chars, warm: concat_reads {concat_s:.3f} s, "
           f"suffix_array_device {sort_s:.3f} s, bwt_perm_device (sort + BWT + perm to the host) "
-          f"{bwt_perm_s:.3f} s; K6 bound {bytes_ms(k6_bytes):.4f} ms ({k6_bytes} B, bytes)")
-    # where K6's device time goes: the stable torch.sort passes against the
-    # key builds, gathers and rank passes around them
-    dev_ms, n_ops, by_name, prof = trace_device(lambda: sa_mod.suffix_array_device(codes, dev))
-    if not n_ops:
-        print("K6 suffix_array_device: device time not measured (the trace holds no device "
+          f"{bwt_perm_s:.3f} s; K6 loose bound {bytes_ms(k6_bytes):.4f} ms ({k6_bytes} B, bytes)")
+    kernels.reset_launches()
+    sites, _out = sync_sites(lambda: sa_mod.index_arrays_device(codes, dev))
+    del _out
+    ran = {name: n for name, n in kernels.launches.items() if n}
+    print(f"K6 index_arrays_device, one direction: launches {ran}; host synchronisations "
+          f"(torch.cuda.set_sync_debug_mode) {len(sites)} {sites} [{card_line()}]")
+    assert not sites, "K6 waits on the card between the text's copy and the outputs'"
+    assert set(ran) == set(SA_TIMED), ran
+    in_child("trace_index")
+
+
+def k6_route_bytes(n: int, plan, passes) -> tuple:
+    """(bytes of the sort passes, bytes of the hand kernels) of one
+    `suffix_array_device` of n characters with `sort_plan`'s plan: each
+    torch.sort call moves its key and its int64 index, read and written
+    once, in each digit pass (`passes`: the trace's count a call, or where
+    the trace lost them one pass a key byte); each kernel its
+    `sa_step_bytes`."""
+    m, rounds = plan.tied, plan.rounds
+    calls = [(n, 1), (n, 8), (n, 8)] + [(m, 8)] * rounds
+    digits = [p[0] for p in passes] if len(passes) == len(calls) and all(
+        p[0] for p in passes) else [key for _, key in calls]
+    sort_bytes = sum(d * 2 * (key + 8) * items for d, (items, key) in zip(digits, calls))
+    seed = n + 17 * n + 4 * n  # the text, the keys, upos (sized n)
+    gathers = (8 + 16) * n + (8 + 32) * n
+    ranks = (33 + 12) * n + 4 * n
+    round_keys = rounds * (12 * m + min(8 * m, 4 * n))
+    scatter = rounds * 24 * m + max(rounds - 1, 0) * 12 * m
+    return sort_bytes, seed + gathers + ranks + round_keys + scatter
+
+
+def trace_index(dev):
+    """K6 on the forward text of the main path's reads (reads.fa) in a
+    process of its own: `kernel_ab.sa_readings` (warm walls, device time and
+    operations, torch.sort's share and its digit passes, peak bytes a
+    character) beside the loose bound and the bound of this design's passes
+    (`k6_route_bytes`).  Returns {"device_ms": ...}."""
+    seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
+    codes = sa_mod.concat_reads(seqs)[0]
+    plan = sa_mod.sort_plan(codes)
+    kernels.lib()
+    times, counts, _digest = sa_readings(codes, dev)
+    card = card_line()
+    dev_ms, sort_ms = times["suffix_array_device device time"], times["torch.sort device time"]
+    sort_bytes, kernel_bytes = k6_route_bytes(codes.size, plan, counts["sort passes"])
+    bound = bytes_ms(sort_bytes + kernel_bytes)
+    walls = "; ".join(f"{name} median {times[name + ' wall median']:.4f} ms (min-max "
+                      f"{times[name + ' wall min']:.4f}-{times[name + ' wall max']:.4f})"
+                      for name in ("suffix_array_device", "bwt_perm_device"))
+    print(f"K6 one direction, {codes.size} chars, plan {tuple(plan)}: warm walls ({SA_WALLS} each, "
+          f"in turn, host clock) {walls} [{card}]")
+    if counts["device operations"]:
+        print(f"K6 suffix_array_device device time (torch.profiler) {dev_ms:.4f} ms in "
+              f"{counts['device operations']} device operations; torch.sort {sort_ms:.4f} ms = "
+              f"{sort_ms / dev_ms:.1%}; digit passes (onesweep kernels, all kernels) of each "
+              f"torch.sort {counts['sort passes']}; {bound / dev_ms:.1%} of the passes' bound "
+              f"[{card}]")
+    else:
+        print("K6 suffix_array_device device time: not measured (the trace holds no device "
               "operation)")
-        return
-    sort_ms = torch_sort_ms(prof)
-    named_ms = sum(ms for name, (ms, _) in by_name.items() if "sort" in name.lower())
-    print(f"K6 suffix_array_device, one direction, device time (torch.profiler) {dev_ms:.4f} ms in "
-          f"{n_ops} device operations; torch.sort's share (its kernels by the trace's op tree) "
-          f"{sort_ms:.4f} ms = {sort_ms / dev_ms:.1%}, kernels named *sort* {named_ms:.4f} ms = "
-          f"{named_ms / dev_ms:.1%}; the key builds, gathers and rank passes the rest")
-    print(f"  K6 costliest device operations: {top_ops(by_name)}")
+    print(f"K6 bound of this design's passes {bound:.4f} ms (bytes: the sorts' digit passes "
+          f"{sort_bytes} B, the hand kernels {kernel_bytes} B); peak device memory of "
+          f"bwt_perm_device {counts['peak bytes a char']:.1f} B a char (estimate "
+          f"{sa_mod.SORT_BYTES_PER_CHAR})")
+    assert counts["peak bytes a char"] <= sa_mod.SORT_BYTES_PER_CHAR
+    return {"device_ms": dev_ms if counts["device operations"] else None}
 
 
-def torch_sort_ms(prof) -> float:
-    """Device ms of the torch.sort calls in a trace (their kernels by the
-    trace's op tree)."""
-    return sum(device_us(e) for e in prof.events() if e.name == "aten::sort"
-               and not any(a.name == "aten::sort" for a in ancestors(e))) / 1e3
+def sa_edge_reads(seed: int = 0) -> dict:
+    """{label: reads} whose texts meet the device suffix sort's edges: the
+    seed alone and one, two and three doubling rounds; one tied group of
+    5,480 suffixes (more than a scan tile) and identical reads; reads of 63,
+    64 and 65 symbols (sentpos at its cap); an N (a '$' in the rank text)
+    and an empty read; one read of one symbol; reads of a small genome over
+    many scan tiles.  The CPU tests hold the route's plain steps to the JAX
+    package on them; `chip_smoke.py` holds the kernels to the plain steps."""
+    rng = np.random.default_rng(seed)
+
+    def reads(n, lengths):
+        return ["".join("ACGT"[c] for c in rng.integers(0, 4, int(rng.choice(lengths))))
+                for _ in range(n)]
+
+    return {
+        "rounds 0 (reads of 1-63)": reads(120, list(range(1, 64))),
+        "rounds 1 (100 bp)": reads(60, [100]),
+        "rounds 2 (37 and 200)": reads(40, [37, 200]),
+        "rounds 3 (300 and 50)": reads(12, [300, 50]),
+        "one tied group of 5,480 (40 x 200 A)": ["A" * 200] * 40,
+        "identical": ["ACGTTGCAAC" * 9] * 6,
+        "63, 64 and 65 symbols": reads(30, [63, 64, 65]) + ["A" * 63, "A" * 64, "A" * 65],
+        "an N and an empty read": ["ACGTNACGT" * 10, "", "ACGT" * 30, "N" * 70],
+        "one symbol": ["A"],
+        "many tiles (600 x 150 bp of a 6 kb genome)": genome_reads(600, [150], 6000, seed),
+    }
 
 
-def host_walls(fns, rounds):
-    """Seconds of each fn() in `rounds` rounds, the fns in turn within each,
-    each from a synchronised card to a synchronised card."""
-    times = [[] for _ in fns]
-    for _ in range(rounds):
-        for t, fn in zip(times, fns):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            t.append(time.perf_counter() - t0)
-    return times
+def _copies(args) -> tuple:
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def _outputs(out) -> list:
+    return [t for t in (out if isinstance(out, tuple) else (out,)) if t is not None]
+
+
+def sa_step_bytes(name: str, args) -> int:
+    """The bytes a K6 step must move with `args`: each input read once (a
+    gathered array at most whole), each output written once."""
+    if name == "sa_seed_keys":
+        c, n, ucap = args
+        return min(c.numel(), n + sa_mod.SEED_READ) + 17 * n + 4 * (ucap or 0)
+    if name == "sa_gather":
+        order, idx, _key = args
+        return 8 * idx.numel() * (3 + 2 * (order is not None))
+    if name == "sa_seed_ranks":
+        idx3, m = args[1], args[5]
+        return 45 * idx3.numel() + 4 * m
+    if name == "sa_round_keys":
+        upos, rank = args[:2]
+        return 12 * upos.numel() + min(8 * upos.numel(), 4 * rank.numel())
+    if name == "sa_round_scatter":
+        m = args[0].numel()
+        return 24 * m + (12 * m if args[5] is not None else 0)
+    if name == "sa_bwt_perm":
+        sa, _c, reads = args
+        return 10 * sa.numel() + 8 * reads
+    raise ValueError(name)
+
+
+def check_sa_steps(record, text: str, timed: bool) -> dict:
+    """Each K6 step `record` holds (`index/sa.py::_step`): its kernel against
+    its plain version on copies of the same inputs, bit for bit; with
+    `timed` each also timed by CUDA events (SA_REPS calls; the plain version
+    SA_PLAIN_REPS) beside its bytes bound.  Returns {kernel: JSON row} of
+    the steps SA_TIMED names (when timed)."""
+    rows = {}
+    for label, (name, args) in record.items():
+        wrapper, plain = sa_mod.STEPS[name]
+        err = max_abs_err(_outputs(wrapper(*_copies(args))), _outputs(plain(*_copies(args))))
+        assert err == 0, f"K6 {label} on {text}: the kernel differs from its plain version ({err})"
+        line = f"K6 {label} on {text}: equal to its plain version"
+        if timed:
+            bound = bytes_ms(sa_step_bytes(name, args))
+            ms = cuda_ms(lambda: wrapper(*args), SA_REPS)
+            plain_ms = cuda_ms(lambda: plain(*args), SA_PLAIN_REPS)
+            line += (f"; {ms:.4f} ms by CUDA events, {bound / ms:.1%} of its {bound:.4f} ms bytes "
+                     f"bound; plain {plain_ms:.4f} ms [{card_line()}]")
+            if SA_TIMED[name] == label:
+                rows[name] = kernel_row(err, ms, plain_ms, bound, "bytes", None)
+        print(line)
+    return rows
+
+
+def check_sa_kernels(dev, seqs) -> dict:
+    """K6 on the card: `index_arrays_device` (the route) on the main path's
+    forward text and on every text of `sa_edge_reads`, its SA equal to
+    `suffix_array_plain`'s and its BWT and permutation to `bwt_perm_plain`'s
+    bit for bit, and each step it ran against its plain version on the same
+    inputs (timed at the main path's shape, `check_sa_steps`).  Returns each
+    K6 kernel's JSON row."""
+    rows, seen = {}, set()
+    for text, reads in {"the main path's forward text": seqs, **sa_edge_reads()}.items():
+        codes = sa_mod.concat_reads(reads)[0]
+        record = {}
+        bwt, perm = sa_mod.index_arrays_device(codes, dev, record)
+        want_bwt, want_perm = sa_mod.bwt_perm_plain(codes, dev)
+        assert np.array_equal(bwt.cpu().numpy(), want_bwt), f"{text}: the BWT differs"
+        assert np.array_equal(perm.cpu().numpy(), want_perm), f"{text}: the permutation differs"
+        del bwt, perm
+        assert torch.equal(sa_mod.suffix_array_device(codes, dev),
+                           sa_mod.suffix_array_plain(codes, dev)), f"{text}: the SA differs"
+        print(f"K6 on {text} ({codes.size} chars, plan {tuple(sa_mod.sort_plan(codes))}): SA "
+              f"equal to suffix_array_plain, BWT and permutation to bwt_perm_plain")
+        timed = not rows
+        rows.update(check_sa_steps(record, text, timed))
+        seen |= {name for name, _args in record.values()}
+        del record
+        torch.cuda.empty_cache()
+    assert seen == set(SA_TIMED) and set(rows) == set(SA_TIMED), (seen, rows)
+    return rows
 
 
 def time_dist_build(dev, seqs):
@@ -745,7 +909,7 @@ def time_dist_build(dev, seqs):
         walls = host_walls([build, k6], DIST_ROUNDS)
         dev_ms, n_ops, by_name, prof = trace_device(build)
         peak = peak_bytes(build)
-        syncs, (_out, stats) = count_syncs(
+        sites, (_out, stats) = sync_sites(
             functools.partial(dist_build.run_distributed, codes, devs, emit_bwt=True))
         del _out
         held = d * (2 * stats["segment"] + dist_build.SEED_HALO)
@@ -757,7 +921,7 @@ def time_dist_build(dev, seqs):
               f"{np.median(walls[1]):.4f} s (min-max {min(walls[1]):.4f}-{max(walls[1]):.4f}) "
               f"[{card}]")
         if n_ops:
-            sort_ms = torch_sort_ms(prof)
+            sort_ms = sort_readings(prof)[0]
             print(f"  K8 D = {d} device time (torch.profiler) {dev_ms:.4f} ms in {n_ops} device "
                   f"operations, {bound / dev_ms:.2%} of the bound; torch.sort {sort_ms:.4f} ms = "
                   f"{sort_ms / dev_ms:.1%}; costliest: {top_ops(by_name)} [{card}]")
@@ -766,7 +930,7 @@ def time_dist_build(dev, seqs):
         print(f"  K8 D = {d} peak device memory {peak} B = {peak / n:.1f} per char (K6 "
               f"{k6_peak / n:.1f}); the memory check's estimate "
               f"{sa_mod.SORT_BYTES_PER_CHAR * held} B; host synchronisations "
-              f"{stats['host_syncs']} by the build's count (bucket sizes, run counts), {syncs} "
+              f"{stats['host_syncs']} by the build's count (bucket sizes, run counts), {len(sites)} "
               f"by torch.cuda.set_sync_debug_mode (all, before the output's copy); moved between entries (pieces out and ranks back), per "
               f"global sort: " + ", ".join(
                   f"{p['phase']} {p['moved_bytes']} B (largest bucket {max(p['buckets'])})"
@@ -774,9 +938,10 @@ def time_dist_build(dev, seqs):
         assert peak <= sa_mod.SORT_BYTES_PER_CHAR * held, "the build's memory estimate is too low"
 
 
-def count_syncs(fn):
-    """(synchronising CUDA calls fn() made, by torch's sync debug mode, which
-    warns at each; fn's result)."""
+def sync_sites(fn):
+    """(the file:line of each synchronising CUDA call fn() made, by torch's
+    sync debug mode, which warns at each; fn's result).  The mode's own
+    first warning (that it is a prototype) is not one of them."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -784,21 +949,8 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing" in str(w.message) for w in caught), out
-
-
-def device_us(event) -> float:
-    """Device microseconds of a CPU-side op in a trace, its children's
-    kernels included."""
-    total = getattr(event, "device_time_total", None)
-    return event.cuda_time_total if total is None else total
-
-
-def ancestors(event):
-    parent = event.cpu_parent
-    while parent is not None:
-        yield parent
-        parent = parent.cpu_parent
+    return [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)], out
 
 
 def run_rmdup(builder, seqs, rng):
@@ -2101,6 +2253,7 @@ def main(argv=None) -> int:
         assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
         assert launches["sw_wavefront"] >= 1, launches
         assert launches["pair_plane"] == 2, launches  # overlap's plane of each direction
+        assert all(launches[name] >= 2 for name in SA_TIMED), launches  # K6, both directions
         phase("engine, warm")
         builder, hits = run_engine(dev, seqs)
         phase("engine with each chunk split over the device list [cuda:0, cuda:0]")
@@ -2117,6 +2270,8 @@ def main(argv=None) -> int:
         check_hits(builder, hits, seqs, rng)
         phase("index -a host against -a sais2")
         check_host_index(index_s)
+        phase("K6 (the device suffix sort) against its plain steps and the all-torch route")
+        k6 = check_sa_kernels(dev, seqs)
         time_index_layers(dev, seqs)
         phase("the distributed index build (K8) on [cuda:0] x D against K6 and the index files")
         time_dist_build(dev, seqs)
@@ -2186,6 +2341,10 @@ def main(argv=None) -> int:
         ("scan_stage_a", "siga_tpu_torch/csrc/stage_a.cu", "siga_tpu/ops/fm_device.py:1210", k9),
         ("sw_wavefront", "siga_tpu_torch/csrc/sw.cu", "siga_tpu/ops/sw_pallas.py:32", k5),
         ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:23", k7),
+    ] + [
+        (name, "siga_tpu_torch/csrc/suffix_sort.cu",
+         "siga_tpu/index/sa.py:" + ("361" if name == "sa_bwt_perm" else "221"), row)
+        for name, row in k6.items()
     ] + [
         (name, "siga_tpu_torch/csrc/gather_probe.cu", replaces, row)
         for name, (row, replaces) in probes.items()

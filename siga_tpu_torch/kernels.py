@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 launches = {
     "pair_plane": 0, "scan_pair": 0, "scan_single": 0, "scan_single_sharded": 0,
     "scan_stage_a": 0, "sw_wavefront": 0, "kmer_count": 0, "gather_rows": 0, "take_along": 0,
-    "gather_chain": 0, "scale2": 0,
+    "gather_chain": 0, "scale2": 0, "sa_seed_keys": 0, "sa_gather": 0, "sa_seed_ranks": 0,
+    "sa_round_keys": 0, "sa_round_scatter": 0, "sa_bwt_perm": 0,
 }
 
 _lock = threading.Lock()
@@ -82,6 +83,20 @@ _SIGNATURES = {
     "siga_scale2": [_P, _L, _L, _L, _P, _P],
     # plane, K, pred, length, nblocks, kmers, Q, k, out, stream
     "siga_kmer_count": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P],
+    # items -> 64-bit words of scratch a suffix-sort scan needs
+    "siga_sa_scan_scratch": [_L],
+    # c, limit, n, sentpos, key_a, key_b, upos, ucap, scratch, stream
+    "siga_sa_seed_keys": [_P, _L, _I, _P, _P, _P, _P, _I, _P, _P],
+    # order, idx, key, n, out_order, out_key, stream
+    "siga_sa_gather": [_P, _P, _P, _L, _P, _P, _P],
+    # order2, idx3, ka_s, key_b, sentpos, n, order, rank, uslot, ucap, scratch, stream
+    "siga_sa_seed_ranks": [_P] * 5 + [_I] + [_P] * 3 + [_I, _P, _P],
+    # upos, rank, h, n, m, key, stream
+    "siga_sa_round_keys": [_P, _P, _L, _I, _I, _P, _P],
+    # idx, skey, upos, uslot, m, order, rank, scratch, stream
+    "siga_sa_round_scatter": [_P] * 4 + [_I] + [_P] * 4,
+    # sa, c, n, reads, bwt, perm, scratch, stream
+    "siga_sa_bwt_perm": [_P, _P, _I, _I, _P, _P, _P, _P],
 }
 
 

@@ -242,7 +242,8 @@ def run_distributed(codes: np.ndarray, devices, emit_bwt: bool) -> tuple:
     seg_levels, carried, perms, payloads, sent_total = [], [], [], [], []
     for k, dev in enumerate(devices):
         ext = torch.from_numpy(_segment_codes(codes, k, s_len)).to(dev)
-        sentpos, key_a, key_b = seed_keys(ext[1:], s_len)
+        sentpos, key_a, key_b, _ = seed_keys(ext[1:], s_len)
+        sentpos = sentpos.to(torch.int64)
         pos = torch.arange(s_len, device=dev)
         if (k + 1) * s_len > n:
             pad = pos >= n - k * s_len

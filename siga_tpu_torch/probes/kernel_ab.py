@@ -1,10 +1,11 @@
 """Time K1 and K7, the gather probes G2, G3 and G4, the plane build K2, the
-single-step scan K3, or Smith-Waterman K5, of two checkouts of the repo
-against each other on one card, at the error pipeline's own shapes.
+single-step scan K3, Smith-Waterman K5 or the device suffix sort K6, of two
+checkouts of the repo against each other on one card, at the error
+pipeline's own shapes.
 
     python3 chip_smoke.py --keep-pipeline DIR
     python3 -m siga_tpu_torch.probes.kernel_ab --trees OTHER,. --pipeline DIR \
-        [--probes | --plane | --scan | --sw] [--order 0,1,1,0] [--out FILE]
+        [--probes | --plane | --scan | --sw | --sa] [--order 0,1,1,0] [--out FILE]
 
 DIR holds the `benchmark/ecoli_scale.py 1.0 25 0.005` pipeline as
 `chip_smoke.py --keep-pipeline` leaves it.  This process takes the cases'
@@ -43,6 +44,16 @@ cuda:0) on K1's two inputs (the reads.ec.fa chunk at -m 85, the contigs at
 CUDA events and, from a torch.profiler trace, the median device span of
 the scan kernel alone (the compaction's operations left out), SCAN_REPS
 calls each.
+With --sa the cases are K6, the device suffix sort (`index/sa.py`), on the
+rank texts of DIR/reads.ec.fa (the `index_ec` stage's forward direction)
+and DIR/primary-contigs.fa (the `index_ctg` stage's): per case the warm
+walls of `suffix_array_device` and `bwt_perm_device` (SA_REPS of each in
+turn, host clock from a synchronised card to a synchronised card), from a
+torch.profiler trace of one `suffix_array_device` its device time and
+device operations, torch.sort's device time and, for each of its calls,
+the onesweep digit-pass kernels it ran, and the peak device memory of one
+`bwt_perm_device` a character; the digests cover the SA, the BWT and the
+permutation.
 Each entry of --order runs a fresh worker process on the checkout it names
 (this file is run as a script with that checkout first on sys.path, so an
 older checkout needs no copy of it).  The worker builds that checkout's
@@ -79,6 +90,8 @@ SCAN_SHARDS = (2, 4)  # the sharded K3's shard counts, D allocations on the card
 SW_SEED, SW_PAIRS, SW_REPS = 1, 4096, 20  # K5's cases: pairs drawn, calls a wall and a trace
 SW_PARAMS = (2, 2, 3, 1)
 K, KMERS, ROUTE_SIZES = 41, 262_144, (110, 3)
+SA_REPS = 5  # warm walls of each K6 entry a case
+SA_CASES = {"K6 reads.ec.fa": "reads.ec.fa", "K6 primary-contigs.fa": "primary-contigs.fa"}
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
 K1_CASES = {"K1 reads.ec.fa chunk": ("reads.ec", 85), "K1 contigs": ("primary-contigs.rmdup", 10)}
 
@@ -277,6 +290,118 @@ def trace_device(fn):
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     return sum(ms for ms, _ in by_name.values()), len(on_card), by_name, prof
+
+
+def ancestors(event):
+    parent = event.cpu_parent
+    while parent is not None:
+        yield parent
+        parent = parent.cpu_parent
+
+
+def device_us(event) -> float:
+    """Device microseconds of a CPU-side op in a trace, its children's
+    kernels included."""
+    total = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if total is None else total
+
+
+def _kernels_below(event) -> list:
+    """Names of the device kernels a CPU-side op launched, its children's
+    included."""
+    names = [k.name for k in event.kernels]
+    for child in event.cpu_children:
+        names += _kernels_below(child)
+    return names
+
+
+def sort_readings(prof) -> tuple:
+    """(device ms of the torch.sort calls in the trace `prof`, for each call
+    [onesweep digit-pass kernels, all its kernels])."""
+    calls = [e for e in prof.events() if e.name == "aten::sort"
+             and not any(a.name == "aten::sort" for a in ancestors(e))]
+    passes = []
+    for e in calls:
+        names = _kernels_below(e)
+        passes.append([sum("Onesweep" in k for k in names), len(names)])
+    return sum(device_us(e) for e in calls) / 1e3, passes
+
+
+def host_walls(fns, rounds):
+    """Seconds of each fn() in `rounds` rounds, the fns in turn within each,
+    each from a synchronised card to a synchronised card."""
+    import torch
+
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+    return times
+
+
+def sa_readings(codes, dev, reps: int = SA_REPS) -> tuple:
+    """K6 on the rank text `codes` through `index/sa.py`'s two entry points
+    (those of any checkout of the port): (times, counts, digest).  times:
+    the warm walls (ms: median, min, max of `reps`, the two in turn), the
+    device time and torch.sort's of one `suffix_array_device` by
+    torch.profiler; counts: its device operations, torch.sort's calls and
+    onesweep digit passes of each, the peak device bytes of one
+    `bwt_perm_device` a character."""
+    import torch
+
+    from siga_tpu_torch.index import sa
+
+    def sort():
+        return sa.suffix_array_device(codes, dev)
+
+    def bwt_perm():
+        return sa.bwt_perm_device(codes, dev)
+
+    order = sort()
+    bwt, perm = bwt_perm()
+    digest = _digest([order, torch.from_numpy(bwt), torch.from_numpy(perm)])
+    del order, bwt, perm
+    walls = host_walls([sort, bwt_perm], reps)
+    times = {}
+    for name, wall in zip(("suffix_array_device", "bwt_perm_device"), walls):
+        ms = sorted(w * 1e3 for w in wall)
+        times[f"{name} wall median"] = float(np.median(ms))
+        times[f"{name} wall min"], times[f"{name} wall max"] = ms[0], ms[-1]
+    dev_ms, n_ops, _by_name, prof = trace_device(sort)
+    sort_ms, passes = sort_readings(prof)
+    times["suffix_array_device device time"] = dev_ms
+    times["torch.sort device time"] = sort_ms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    bwt_perm()
+    counts = {"device operations": n_ops, "sort passes": passes,
+              "peak bytes a char": (torch.cuda.max_memory_allocated() - before) / codes.size}
+    return times, counts, digest
+
+
+def sa_worker(tree: str, pipeline: str) -> dict:
+    """K6 of the checkout at `tree` on SA_CASES' texts."""
+    import torch
+
+    from siga_tpu_torch.index import sa
+    from siga_tpu_torch.io import fastx
+
+    out = _start(tree)
+    out["counts"] = {}
+    for label, name in SA_CASES.items():
+        seqs = [r.seq for r in fastx.read_sequences(os.path.join(pipeline, name))]
+        codes = sa.concat_reads(seqs)[0]
+        label = f"{label} ({codes.size} chars)"
+        times, counts, digest = sa_readings(codes, torch.device("cuda", 0))
+        out["digests"][label] = digest
+        out["times"].update({f"{label}, {k}": v for k, v in times.items()})
+        out["counts"][label] = counts
+    return out
 
 
 def plane_worker(tree: str, pipeline: str) -> dict:
@@ -479,22 +604,25 @@ def main(argv=None) -> int:
                       help="time K3 and the sharded K3 instead of K1 and K7")
     mode.add_argument("--sw", action="store_true",
                       help="time Smith-Waterman K5 instead of K1 and K7")
+    mode.add_argument("--sa", action="store_true",
+                      help="time the device suffix sort K6 instead of K1 and K7")
     parser.add_argument("--out", help="also write the JSON line here")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     pipeline = os.path.abspath(args.pipeline)
     if args.worker:
         fn = (probe_worker if args.probes else plane_worker if args.plane
-              else scan_worker if args.scan else sw_worker if args.sw else worker)
+              else scan_worker if args.scan else sw_worker if args.sw
+              else sa_worker if args.sa else worker)
         run = fn(args.worker, pipeline)
         print("KERNEL_AB " + json.dumps(run), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
     if args.sw:
         make_sw_inputs(pipeline)
-    elif not (args.probes or args.plane):
+    elif not (args.probes or args.plane or args.sa):
         make_inputs(pipeline)
-    mode_args = [f"--{m}" for m in ("probes", "plane", "scan", "sw") if getattr(args, m)]
+    mode_args = [f"--{m}" for m in ("probes", "plane", "scan", "sw", "sa") if getattr(args, m)]
     runs = []
     for k in (int(i) for i in args.order.split(",")):
         env = {**os.environ, "PYTHONPATH": trees[k]}
@@ -509,7 +637,8 @@ def main(argv=None) -> int:
         run = json.loads(line[len("KERNEL_AB "):])
         runs.append(run)
         print(f"{run['tree']}: build {run['build_s']:.1f} s; "
-              + "; ".join(f"{k} {v:.4f} ms" for k, v in run["times"].items()), flush=True)
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in run["times"].items())
+              + "".join(f"; {k}: {v}" for k, v in run.get("counts", {}).items()), flush=True)
     digests = {json.dumps(r["digests"], sort_keys=True) for r in runs}
     assert len(digests) == 1, f"the checkouts' outputs differ: {digests}"
     result = {"runs": runs, "outputs_equal": True}

@@ -20,6 +20,7 @@ from siga_tpu_torch.ops import fm_device as tfm
 from siga_tpu_torch.ops import sw as tsw
 
 from test_pair_scan import _reads
+from test_torch_overlap import port_env
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -151,7 +152,7 @@ def test_overlap_refuses_lowercase_reads(tmp_path):
     reads = [genome[s : s + 80] for s in range(0, 300, 20)]
     reads[3] = reads[3][:40] + reads[3][40:].lower()
     (tmp_path / "reads.fa").write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(reads)))
-    env = {**os.environ, "PYTHONPATH": REPO}
+    env = port_env()
 
     def port(*args):
         return subprocess.run([sys.executable, "-m", "siga_tpu_torch", *args], cwd=tmp_path,

@@ -19,11 +19,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 
 
+def port_env() -> dict:
+    """The environment of a port subprocess: the repo on its path and, unless
+    the environment sets it, its share of the cores as OpenMP threads
+    (torch's CPU ops and the native runtime).  Under the tier-1 run's six
+    pytest-xdist workers on eight cores a child that takes every core spins
+    against the workers' threads: `overlap --device cpu` of the asm780
+    fixture took over 300 s there, and 3.6 s alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = max(1, len(os.sched_getaffinity(0)) // workers)
+    return {"OMP_NUM_THREADS": str(threads), **os.environ, "PYTHONPATH": REPO}
+
+
 def _port(cwd, *args):
     proc = subprocess.run(
         [sys.executable, "-m", "siga_tpu_torch", *args],
-        cwd=cwd, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": REPO},
+        cwd=cwd, capture_output=True, text=True, timeout=300, env=port_env(),
     )
     assert proc.returncode == 0, proc.stderr
 

@@ -18,6 +18,7 @@ from siga_tpu import cli as jax_cli
 
 from chip_smoke import pipeline_stages
 from test_torch_import import BLOCKER
+from test_torch_overlap import port_env
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENOME = 8_000  # bases; the full-size run is 1,000,000 (chip_smoke.py)
@@ -38,7 +39,7 @@ def _port_stage(argv, cwd):
     """Run `argv` through the port's CLI in a blocked child; its stdout."""
     proc = subprocess.run(
         [sys.executable, "-c", _PORT_STAGE, json.dumps(argv)], cwd=cwd,
-        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+        env={**port_env(), "PYTHONPATH": os.pathsep.join(
             p for p in (REPO, os.environ.get("PYTHONPATH")) if p)},
         capture_output=True, text=True, timeout=900,
     )
