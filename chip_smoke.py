@@ -78,15 +78,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      plane (60,608 random rows, one overlap chunk's lanes), each with its
      bound and, for G1, G2 and G4, the one PyTorch call that computes the
      same (index_select, gather, x * 2), G2 and G4 timed in turn with it
-     over 5 rounds (median, min-max, share of the bound); G2 and G4 at the
-     edge shapes of `gather.edge_cases` (tails, x[1:], one row or output,
-     rows wider than shared memory, every form, broadcast indexes) and G3's
+     over 5 rounds (median, min-max, share of the bound); G1, G2 and G4 at
+     the edge shapes of `gather.edge_cases` (tails, x[1:], one row or output,
+     rows of 1, 57 and 128 words, planes off the 16-byte boundary, rows
+     wider than shared memory, every form, broadcast indexes) and G3's
      mode sum at those of its rows (both forms, lane counts no group
      divides; every group G); G3's mode sum with each G at k_scan's shape
      and on the pair plane, beside the G `gather.chain_plan` picks and the
      plane's row traffic; G3 with
      32 chains of single-word gathers gives the L2 round trip of one
-     dependent step; and G1's device-side range assert in a child process;
+     dependent step, and over a 4 KB table the L1's (k_d's chain bound at
+     both); the launch floor (an empty kernel, timed as the kernels are);
+     and G1's device-side range assert in a child process;
      then K9 (the stage-A scan with '$'-probes) against its plain version,
      bit for bit in all four outputs, at 60,608 ID lanes x 149 steps of the
      main path's reads (timed beside its bytes and chain bounds) and on
@@ -430,6 +433,7 @@ def scan_edge_cases() -> list:
 
 GOLDEN_READS = ["ACGTACGTAC", "CGTACGTACC", "TTACGGACGT", "ACGTACGTAC", "GGGTTTACAC"]
 STAGE_A_LANES = PROBE_LANES  # K9 at one overlap chunk's lanes (ID lanes of the main path's reads)
+STAGE_A_TILE = 8  # K9's steps a tile (kTile of csrc/stage_a.cu)
 
 
 def genome_reads(n, lengths, genome_len, seed=0):
@@ -469,8 +473,15 @@ def stage_a_edge_cases() -> list:
     past l - 2 (`garbage`, with lanes of 1 and 2 symbols), max_t = 0,
     min_overlap 0 and 1, L = 1 and 33, lane_tab nblocks over one index's
     plane (every row index past it, clamped), and an N (rank 0) in every
-    lane's live steps.  The CPU tests hold the plain version to the JAX
-    package on these; `chip_smoke.py` holds K9 to the plain version."""
+    lane's live steps; then the edges of K9's step tiles (STAGE_A_TILE) and
+    warps: max_t of 1, a tile less one, a tile and a tile and one (the
+    tiles' records written, the next tile's chars read), L of 63, 64 and 65
+    (a block less one, a block, a block and one: runs of `emitted` and
+    `valid` off the 16-byte boundary, warps of fewer than 32 lanes), lanes
+    whose last live step (len - 2) falls in each of seven tiles, and lanes
+    of 1 symbol beside lanes of 60 across warps.  The CPU tests hold the
+    plain version to the JAX package on these; `chip_smoke.py` holds K9 to
+    the plain version."""
     index = stage_a_index_reads()
     cases = []
     for label, reads in index.items():
@@ -490,6 +501,19 @@ def stage_a_edge_cases() -> list:
         ("L = 33", mixed_label, mixed[:33], "one index", None, 5, True),
         ("lane_tab past the plane's last row", mixed_label, mixed, "past", None, 5, False),
         ("an N in the live steps", mixed_label, with_n, "stacked", None, 5, False),
+    ]
+    tile = STAGE_A_TILE
+    long_reads = [r for r in mixed if len(r) == 60]
+    cases += [(f"max_t = {t}", mixed_label, mixed, "stacked", t, 1, False)
+              for t in (1, tile - 1, tile, tile + 1)]
+    cases += [(f"L = {n}", mixed_label, (mixed * 2)[:n], "one index", None, 3, False)
+              for n in (63, 64, 65)]
+    cases += [
+        ("last live steps in seven tiles", mixed_label,
+         [r[: 2 + 9 * j] for j in range(7) for r in long_reads[:3]], "stacked", None, 2, False),
+        ("lanes of 1 symbol beside lanes of 60", mixed_label,
+         [r if k % 3 else r[:1] for k, r in enumerate(long_reads * 14)], "one index", None, 4,
+         True),
     ]
     return cases
 
@@ -1125,6 +1149,21 @@ def check_probes(dev, plane):
     step_ns = steps_ms * 1e6 / steps
     print(f"gather_chain (elem), 32 chains x {steps} dependent steps over the forward plane "
           f"({fwd.numel() * 4} B): {steps_ms:.4f} ms, {step_ns:.1f} ns a step (the L2 round trip)")
+    # the L1 round trip: the same chains over a 4 KB table, which L1 holds
+    small, small_init = fwd[:, :1024].contiguous(), init % 1024
+    l1_ms = cuda_ms(lambda: gather.gather_chain(small, small_init, None, steps, "elem"), 3)
+    l1_ns = l1_ms * 1e6 / steps
+    k_d = next(args for tpu, _w, _n, args in gather.probe_cases(np.random.default_rng(SEED))
+               if tpu == "k_d")
+    k_d_steps = k_d[3]
+    print(f"gather_chain (elem), 32 chains x {steps} dependent steps over a 4 KB table: "
+          f"{l1_ms:.4f} ms, {l1_ns:.1f} ns a step (the L1 round trip); k_d's chain bound "
+          f"({k_d_steps} dependent loads a chain): {k_d_steps * l1_ns / 1e6:.5f} ms at the L1 "
+          f"round trip, {k_d_steps * step_ns / 1e6:.5f} ms at the L2's [{card_line()}]")
+    # the launch floor: an empty kernel, timed as the kernels above
+    floor_ms = [cuda_ms(lambda: gather.launch_floor(dev), 100) for _ in range(PROBE_ROUNDS)]
+    print(f"launch floor (an empty kernel, CUDA events, 100 launches a timing): "
+          f"{spread(floor_ms)} [{card_line()}]")
     return out, step_ns
 
 
@@ -1190,10 +1229,10 @@ def take_form(table, index, axis) -> str:
 
 
 def check_probe_edges(dev):
-    """G2, G4 and G3's mode sum (with every group G) against their plain
+    """G1, G2, G4 and G3's mode sum (with every group G) against their plain
     versions at the edge shapes of `gather.edge_cases`, bit for bit.
     Returns {kernel: largest error}."""
-    errs = {"take_along": 0, "scale2": 0, "gather_chain": 0}
+    errs = {"gather_rows": 0, "take_along": 0, "scale2": 0, "gather_chain": 0}
     for label, name, args in gather.edge_cases(np.random.default_rng(SEED), dev):
         fn, plain = gather.WRAPPERS[name]
         want = plain(*args)

@@ -26,18 +26,36 @@
 // lanes x 149 steps) it must move about 170 MB (the dense outputs 117 MB,
 // the chars 36 MB, the plane), 0.051 ms at 3.35 TB/s; its chain of 151
 // dependent row reads takes about 0.035 ms at the L2 round trip (PERF.md).
-// The design:
-//  - one thread a lane, its rows read and counted as K3's (single_occ.cuh):
-//    the prepended symbol's counts first, the next rows' loads issued, then
-//    the counts below it and of '$' while those loads are in flight; a row
-//    shared by lo - 1 and hi read once;
-//  - the symbol of step t + 1 is loaded during step t, so the strided
-//    chars load (a lane's row is (max_t + 1) * 4 bytes, not a multiple of
-//    16) is never on the chain;
-//  - outputs step-major: at step t the 32 lanes of a warp write 32
-//    consecutive 12-byte records of `emitted` and 32 consecutive bytes of
-//    `valid`, so each step's stores coalesce; a lane past its last live
-//    step writes its frozen state without reading a row.
+// What held the first design (one thread a lane, every access its own) far
+// above that was the number of cache lines its warp accesses touch: a
+// lane's row, its chars and its records each lie on lines of their own, so
+// each warp load or store of them touched up to 32 lines
+// (probes/stage_a_parts.py splits the time).  The design, per warp of 32
+// lanes, with the warp's buffers in shared memory (9,728 bytes, 8 blocks
+// of 2 warps an SM):
+//  - steps go in tiles of kTile.  A tile's chars of the warp's 32 lanes are
+//    copied one tile ahead (cp.async, 4 bytes a copy, consecutive threads
+//    on consecutive words of a lane's row: the row is (max_t + 1) * 4
+//    bytes, not a multiple of 16, so no 16-byte or tensor copy is legal);
+//    a lane reads its symbol from shared memory;
+//  - a step's records and valid bytes go to shared memory, step-major; at
+//    the tile's end the warp writes each step's 384 contiguous bytes of
+//    `emitted` as 16-byte vectors (4-byte words where the run is not
+//    16-byte aligned or the warp has fewer than 32 lanes) and its 32 bytes
+//    of `valid` as vectors or bytes.  The frozen tail of a lane past
+//    len - 2 goes the same way;
+//  - rows (kCoopRows): the warp fetches its lanes' next rows together, four
+//    threads a 64-byte row as four 16-byte cp.async pieces, so one warp
+//    copy touches 8 rows' lines and not 32; each lane's row indices reach
+//    the fetching threads by 8 shuffles a step, a row shared by lo - 1 and
+//    hi is fetched once, and the pieces land in the lane's two slots of a
+//    per-warp table, swizzled so that the lanes' 16-byte reads of their
+//    slots meet no bank conflict.  The counts (single_occ.cuh) are K3's,
+//    one thread a lane: the prepended symbol's first, then the next rows'
+//    fetch is issued and the counts below it and of '$' run while it is in
+//    flight.  With kCoopRows false each lane loads its own rows into
+//    registers a step ahead, as the first design did (kept for the A/B of
+//    probes/stage_a_parts.py).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -49,7 +67,12 @@ namespace {
 using namespace single_occ;
 
 constexpr int kThreads = 64;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 8;  // at most 128 registers a thread, as K3
+constexpr int kTile = 8;       // steps a tile of chars and records
+constexpr int kCharStride = kTile + 1;  // words a lane's chars in shared memory (odd: no conflict)
+constexpr bool kCoopRows = true;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct StageArgs {
   const int* plane;  // [nrows, 16]
@@ -64,30 +87,201 @@ struct StageArgs {
   int* lext;             // [L, 5]
 };
 
-// occ of rank c in 0..4 of a step's row, on the chain: K3's count for a
-// base, the '$' count (base_$ + the prefix's '$' bits) for c = 0
-__device__ __forceinline__ int occ_rank(StepRow& st, const Row& r, const Where& q, int c) {
-  const int n = st.occ_c(r, q, c);
-  if (c != 0) return n;
-  const unsigned base = static_cast<unsigned>(q.block0) * kSample;
-  return static_cast<int>(base - (r.ck.x + r.ck.y + r.ck.z + r.ck.w)) + st.n_dollar;
+// One warp's buffers.
+struct WarpBuffers {
+  uint4 rows[64][4];                  // slot s < 32: lane s's row of lo - 1; s >= 32: lane s - 32's of hi
+  int chars[2][32 * kCharStride];     // this tile's and the next tile's chars, lane-major
+  int records[kTile][32 * 3];         // the tile's emitted records, step-major
+  unsigned char valid[kTile][32];     // the tile's valid bytes
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// this thread's copies have landed; a __syncwarp after it shows them to the warp
+__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// piece p of slot s sits at p ^ swizzle(s): lanes 8 apart share a bank group
+__device__ __forceinline__ int swizzle(int slot) { return (slot >> 1) & 3; }
+
+__device__ __forceinline__ Row slot_row(const WarpBuffers& b, int slot) {
+  const uint4* p = b.rows[slot];
+  const int x = swizzle(slot);
+  return Row{p[0 ^ x], p[1 ^ x], p[2 ^ x], p[3 ^ x]};
+}
+
+// The warp's rows of the next step into the slots: r0 / r1 is this lane's
+// row of lo - 1 / hi, or -1 for none.  Round m fetches slots 8m..8m+7,
+// thread k piece k % 4 of slot 8m + k / 4.
+__device__ __forceinline__ void fetch_rows(WarpBuffers& b, const WholePlane& plane, int r0, int r1,
+                                           int k) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int slot = 8 * m + (k >> 2);
+    const int r = __shfl_sync(kFull, m < 4 ? r0 : r1, slot & 31);
+    if (r >= 0) copy16(&b.rows[slot][(k & 3) ^ swizzle(slot)], plane.row(r) + (k & 3));
+  }
+  copies_commit();
+}
+
+// Steps [t0, t0 + kTile) of the warp's nl lanes (chars: its first lane's row)
+// into `dst`; steps at or past max_t are never read and not copied.
+__device__ __forceinline__ void stage_chars(int* dst, const int* chars, size_t row_words, int t0,
+                                            int max_t, int nl, int k) {
+  const int n = min(kTile, max_t - t0);
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    const int f = j * 32 + k;
+    const int lane = f / kTile, w = f % kTile;
+    if (lane < nl && w < n) copy4(dst + lane * kCharStride + w, chars + lane * row_words + t0 + w);
+  }
+  copies_commit();
+}
+
+// The tile's n steps of records and valid bytes from shared memory to the
+// warp's runs of `emitted` and `valid` (first lane lane0, nl lanes).
+__device__ __forceinline__ void write_tile(const WarpBuffers& b, const StageArgs& a, int lane0,
+                                           int nl, int t0, int n, int k) {
+  for (int tt = 0; tt < n; ++tt) {
+    const size_t first = static_cast<size_t>(t0 + tt) * a.L + lane0;
+    int* em = a.emitted + first * 3;
+    if (nl == 32 && (reinterpret_cast<std::uintptr_t>(em) & 15) == 0) {
+      if (k < 24) reinterpret_cast<uint4*>(em)[k] = reinterpret_cast<const uint4*>(b.records[tt])[k];
+    } else {
+      for (int w = k; w < 3 * nl; w += 32) em[w] = b.records[tt][w];
+    }
+    unsigned char* va = a.valid + first;
+    if (nl == 32 && (reinterpret_cast<std::uintptr_t>(va) & 15) == 0) {
+      if (k < 2) reinterpret_cast<uint4*>(va)[k] = reinterpret_cast<const uint4*>(b.valid[tt])[k];
+    } else if (k < nl) {
+      va[k] = b.valid[tt][k];
+    }
+  }
+}
+
+// bits [0, s) of a word for s >= 0, all of them from s = 32 on
+__device__ __forceinline__ unsigned low_bits(int s) {
+  unsigned m;
+  asm("bmsk.clamp.b32 %0, 0, %1;" : "=r"(m) : "r"(s));
+  return m;
+}
+
+// What a step needs of a row's block prefix of `tail` symbols, in K9's own
+// count (the counts are single_occ.cuh's count_eq / count_lt /
+// count_dollar, in fewer instructions: the kernel is bound by its integer
+// instructions, PERF.md).  A pair of symbol words gives every code's count
+// at once by three popcounts: the codes' low bits, their high bits, both
+// ('$' packs as A, code 0).  The counts of codes below k and up to k, for
+// k = 0..3, are kept as the bytes of two words, so that a step picks its
+// symbol's from each with one byte permute.
+struct Prefix {
+  unsigned below;  // byte k: the prefix's symbols of codes below k
+  unsigned upto;   // byte k: of codes up to k
+  int dollar;      // '$' bits of the prefix
+};
+
+__device__ __forceinline__ Prefix prefix_counts(const Row& r, int tail) {
+  unsigned w[8];
+  sym_words(r, w);
+  const unsigned d[4] = {r.d.x, r.d.y, r.d.z, r.d.w};
+  int n_lo = 0, n_hi = 0, n_both = 0, n_dollar = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int u = max(tail - 32 * j, 0);  // symbols of the pair's 32 in the prefix
+    const unsigned a0 = w[2 * j] & low_bits(2 * u);
+    const unsigned a1 = w[2 * j + 1] & low_bits(max(2 * u - 32, 0));
+    // word 2j's symbols at the even bits, word 2j + 1's at the odd bits
+    const unsigned lo = (a0 & kLo) | ((a1 << 1) & ~kLo);
+    const unsigned hi = ((a0 >> 1) & kLo) | (a1 & ~kLo);
+    n_lo += __popc(lo);
+    n_hi += __popc(hi);
+    n_both += __popc(lo & hi);
+    n_dollar += __popc(d[j] & low_bits(u));
+  }
+  // codes below k: 0, t - lo - hi + both, t - hi, t - both; up to 3: t
+  const unsigned t = tail, nl = n_lo, nh = n_hi, nb = n_both;
+  return Prefix{t * 0x01010100u - nl * 0x100u - nh * 0x10100u + nb * 0xFF000100u,
+                t * 0x01010101u - nl - nh * 0x101u + nb * 0xFFFF0001u, n_dollar};
+}
+
+// x of rank c in 1..4 from its four values
+__device__ __forceinline__ unsigned of_rank(int c, unsigned x1, unsigned x2, unsigned x3,
+                                            unsigned x4) {
+  unsigned out = x1;
+  out = c == 2 ? x2 : out;
+  out = c == 3 ? x3 : out;
+  out = c == 4 ? x4 : out;
+  return out;
+}
+
+// A step's counts of one row for the symbol of rank c: occ_c (on the
+// chain; c = 0, '$': base_$ + the prefix's '$' bits; a base: its
+// checkpoint + its code's symbols, A's less the '$' bits, since '$' packs
+// as A), the sum of occ_r over r < c (`below`: base_$ + the checkpoints of
+// ranks 1..c-1 = block * 128 - those of ranks c..4, + the codes below
+// c - 1, + the '$' bits for c = 1) and occ_$.  `pick` is the byte permute
+// that takes byte c - 1.
+struct StepCounts {
+  int occ, below, dollar;
+};
+
+__device__ __forceinline__ StepCounts step_counts(const Row& r, const Where& q, const Prefix& p,
+                                                  int c, unsigned pick) {
+  const unsigned t4 = r.ck.w, t3 = r.ck.z + t4, t2 = r.ck.y + t3, t1 = r.ck.x + t2;
+  const unsigned base = static_cast<unsigned>(q.block0) * kSample;
+  const int lt = static_cast<int>(__byte_perm(p.below, 0u, pick));
+  const int le = static_cast<int>(__byte_perm(p.upto, 0u, pick));
+  const int a_dollar = c == 1 ? p.dollar : 0;
+  StepCounts s;
+  s.dollar = static_cast<int>(base - t1) + p.dollar;
+  s.below = static_cast<int>(base - of_rank(c, t1, t2, t3, t4)) + lt + a_dollar;
+  const int occ = static_cast<int>(of_rank(c, r.ck.x, r.ck.y, r.ck.z, r.ck.w)) + (le - lt) - a_dollar;
+  s.occ = c == 0 ? s.dollar : occ;
+  return s;
+}
+
+template <bool kCoop>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_stage_a_kernel(StageArgs a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.L) return;
+  __shared__ WarpBuffers buffers[kWarps];
+  WarpBuffers& b = buffers[threadIdx.x >> 5];
+  const int k = threadIdx.x & 31;
+  const int lane0 = blockIdx.x * kThreads + (threadIdx.x & ~31);
+  if (lane0 >= a.L) return;  // the whole warp
+  const int nl = min(32, a.L - lane0);
+  const bool here = k < nl;  // a lane past L runs the steps on its zeros and writes nothing
+  const int lane = lane0 + k;
   const WholePlane plane{a.plane};
-  const int nrows = a.nrows;
-  const int tab = a.tab != nullptr ? __ldg(a.tab + lane) : 0;
-  const int len = __ldg(a.lens + lane);
-  const int* chars = a.chars + static_cast<size_t>(lane) * (a.max_t + 1);
+  const int nrows = a.nrows, max_t = a.max_t;
+  const size_t row_words = static_cast<size_t>(max_t) + 1;
+  const int* chars = a.chars + static_cast<size_t>(lane0) * row_words;
+  const int tab = here && a.tab != nullptr ? __ldg(a.tab + lane) : 0;
+  const int len = here ? __ldg(a.lens + lane) : 0;
+  // live steps t <= len - 2; the rest keep the state and emit it, not valid.
+  // Steps below the warp's least count are live in every lane.
+  const int steps = min(max_t, max(len - 1, 0));
+  const int all_live = __reduce_min_sync(kFull, here ? steps : max_t);
   int pred[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) pred[c] = __ldg(a.pred + c);
+  if (max_t > 0) stage_chars(b.chars[0], chars, row_words, 0, max_t, nl, k);
 
-  const int c0 = __ldg(chars + a.max_t);
-  int lo = sel5(pred, c0), hi;
-  {
+  int lo = 0, hi = 0;
+  if (here) {
+    const int c0 = __ldg(chars + k * row_words + max_t);
+    lo = sel5(pred, c0);
     const Where q = where(a.length - 1, tab, nrows);
     int s[5];
     occ_all(load_row(plane, q.row), q, s);
@@ -95,83 +289,115 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_stage_a_kernel(Stag
   }
   int rlo = lo;
 
-  // the rows of lo - 1 (wq[0], rows[0]) and hi (wq[1], rows[1]), loaded a
-  // step ahead, as K3's
+  // where lo - 1 (wq[0]) and hi (wq[1]) are counted; their rows, fetched a
+  // step ahead, in the slots (kCoop) or in `rows`
   Where wq[2];
   Row rows[2];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-  for (int m = 0; m < 2; ++m) rows[m] = Row{zero, zero, zero, zero};
-  auto load_step = [&](int nlo, int nhi) {
-#pragma unroll
-    for (int m = 0; m < 2; ++m) wq[m] = where(m == 0 ? nlo - 1 : nhi, tab, nrows);
+  auto plan = [&](int nlo, int nhi) {
+    wq[0] = where(nlo - 1, tab, nrows);
+    wq[1] = where(nhi, tab, nrows);
+  };
+  auto fetch = [&](bool live) {
     const bool same = wq[1].row == wq[0].row;  // one row for both: the tail of hi, the longer
-    load_below(plane, wq[0].row, same ? wq[1].tail : wq[0].tail, rows[0]);
-    if (!same) load_below(plane, wq[1].row, wq[1].tail, rows[1]);
+    if constexpr (kCoop) {
+      fetch_rows(b, plane, live ? wq[0].row : -1, live && !same ? wq[1].row : -1, k);
+    } else if (live) {
+      load_below(plane, wq[0].row, same ? wq[1].tail : wq[0].tail, rows[0]);
+      if (!same) load_below(plane, wq[1].row, wq[1].tail, rows[1]);
+    }
   };
-  auto row_hi = [&]() -> Row {
+  auto fetched = [&](Row& r0, Row& r1) {
     const bool same = wq[1].row == wq[0].row;
-    const Row& u = rows[1];
-    const Row& l = rows[0];
-    return Row{same ? l.s0 : u.s0, same ? l.s1 : u.s1, same ? l.d : u.d, same ? l.ck : u.ck};
+    if constexpr (kCoop) {
+      r0 = slot_row(b, k);
+      r1 = slot_row(b, same ? k : 32 + k);
+    } else {
+      r0 = rows[0];
+      r1 = same ? rows[0] : rows[1];
+    }
   };
-  load_step(lo, hi);
+  if constexpr (!kCoop) {
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) rows[m] = Row{zero, zero, zero, zero};
+  }
+  plan(lo, hi);
+  fetch(here);
+  copies_wait();
+  __syncwarp();
 
-  const size_t stride = static_cast<size_t>(a.L);
-  int* em = a.emitted + static_cast<size_t>(lane) * 3;
-  unsigned char* va = a.valid + lane;
-  // live steps t <= len - 2; the rest keep the state and emit it, not valid
-  const int steps = min(a.max_t, max(len - 1, 0));
-  int c = steps > 0 ? __ldg(chars) : 0;
-  int t = 0;
-  for (; t < steps; ++t) {
-    const int c_next = t + 1 < steps ? __ldg(chars + t + 1) : 0;
-    // on the chain: occ_c of the two rows, then the next rows' loads
-    const Row cur0 = rows[0], cur1 = row_hi();
-    const Where q0 = wq[0], q1 = wq[1];
-    StepRow st0, st1;
-    const int s_lo = occ_rank(st0, cur0, q0, c);
-    const int s_hi = occ_rank(st1, cur1, q1, c);
-    const int pc = sel5(pred, c);
-    const int nlo = pc + s_lo, nhi = pc + s_hi - 1;
-    load_step(nlo, nhi);
-    // off the chain: the counts below c and of '$' of this step's rows
-    int b_lo, b_hi, d_lo, d_hi;
-    st0.off_chain(cur0, q0, c, b_lo, d_lo);
-    st1.off_chain(cur1, q1, c, b_hi, d_hi);
-    // the '$'-probe of the state at t: prhi >= prlo and prhi >= 0
-    const int psize = d_hi - d_lo;
-    const bool ok = psize > 0 && rlo + psize - 1 >= 0 && t + 1 >= a.min_overlap;
-    em[0] = lo;
-    em[1] = rlo;
-    em[2] = hi - lo;
-    *va = ok ? 1 : 0;
-    em += 3 * stride;
-    va += stride;
-    if (c != 0) rlo += b_hi - b_lo;  // nothing ranks below '$'
+  // step t0 + tt of the tile whose chars are `tile_chars`; `live` is a
+  // constant true in the steps every lane runs
+  auto step = [&](const int* tile_chars, int t0, int tt, bool live) {
+    // on the chain: occ_c of the two rows, then the next rows' fetch
+    StepCounts s0, s1;
+    int c = 0, nlo = lo, nhi = hi;
+    if (live) {
+      Row cur0, cur1;
+      fetched(cur0, cur1);
+      c = tile_chars[tt];
+      const unsigned pick = 0x4440u | ((c - 1) & 3);
+      s0 = step_counts(cur0, wq[0], prefix_counts(cur0, wq[0].tail), c, pick);
+      s1 = step_counts(cur1, wq[1], prefix_counts(cur1, wq[1].tail), c, pick);
+      const int pc = sel5(pred, c);
+      nlo = pc + s0.occ;
+      nhi = pc + s1.occ - 1;
+      plan(nlo, nhi);
+    }
+    if constexpr (kCoop) __syncwarp();  // every lane has read its slots
+    fetch(live);
+    // off the chain: the '$'-probe of the state at t (prhi >= prlo and
+    // prhi >= 0) and the new rlo
+    bool ok = false;
+    int nrlo = rlo;
+    if (live) {
+      const int psize = s1.dollar - s0.dollar;
+      ok = psize > 0 && rlo + psize - 1 >= 0 && t0 + tt + 1 >= a.min_overlap;
+      if (c != 0) nrlo += s1.below - s0.below;  // nothing ranks below '$'
+    }
+    int* rec = b.records[tt] + 3 * k;
+    rec[0] = lo;
+    rec[1] = rlo;
+    rec[2] = hi - lo;
+    b.valid[tt][k] = ok ? 1 : 0;
+    rlo = nrlo;
     lo = nlo;
     hi = nhi;
-    c = c_next;
+    if constexpr (kCoop) {
+      copies_wait();
+      __syncwarp();
+    }
+  };
+  for (int t0 = 0; t0 < max_t; t0 += kTile) {
+    const int* tile_chars = b.chars[(t0 / kTile) & 1] + k * kCharStride;
+    const int n = min(kTile, max_t - t0);
+    if (t0 + kTile < max_t) {
+      stage_chars(b.chars[(t0 / kTile + 1) & 1], chars, row_words, t0 + kTile, max_t, nl, k);
+    }
+    if (t0 + n <= all_live) {
+      for (int tt = 0; tt < n; ++tt) step(tile_chars, t0, tt, true);
+    } else {
+      for (int tt = 0; tt < n; ++tt) step(tile_chars, t0, tt, t0 + tt < steps);
+    }
+    __syncwarp();  // the tile's records are in shared memory
+    write_tile(b, a, lane0, nl, t0, n, k);
+    copies_wait();  // the next tile's chars
+    __syncwarp();   // and the records read before the next tile writes them
   }
-  for (; t < a.max_t; ++t) {
-    em[0] = lo;
-    em[1] = rlo;
-    em[2] = hi - lo;
-    *va = 0;
-    em += 3 * stride;
-    va += stride;
-  }
+  if (!here) return;
 
-  // finals: the counts of the rows loaded last (lo - 1 and hi of the
+  // finals: the counts of the rows fetched last (lo - 1 and hi of the
   // full-length interval), the '$'-probe of that interval
+  Row r0, r1;
+  fetched(r0, r1);
   int l[5], u[5];
-  occ_all(rows[0], wq[0], l);
-  occ_all(row_hi(), wq[1], u);
+  occ_all(r0, wq[0], l);
+  occ_all(r1, wq[1], u);
   int* fin = a.finals + static_cast<size_t>(lane) * 8;
   int* ext = a.lext + static_cast<size_t>(lane) * 5;
   const int p0 = u[0] - l[0];
 #pragma unroll
-  for (int k = 0; k < 5; ++k) ext[k] = u[k] - l[k];
+  for (int c = 0; c < 5; ++c) ext[c] = u[c] - l[c];
   fin[0] = lo;
   fin[1] = hi;
   fin[2] = rlo;
@@ -203,6 +429,6 @@ extern "C" int siga_scan_stage_a(const void* plane, int nrows, const void* pred,
                     static_cast<int*>(emitted), static_cast<unsigned char*>(valid),
                     static_cast<int*>(finals), static_cast<int*>(lext)};
   const int grid = static_cast<int>((static_cast<long long>(L) + kThreads - 1) / kThreads);
-  scan_stage_a_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  scan_stage_a_kernel<kCoopRows><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

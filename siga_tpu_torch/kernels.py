@@ -37,7 +37,7 @@ launches = {
     "pair_plane": 0, "scan_pair": 0, "scan_single": 0, "scan_single_sharded": 0,
     "scan_stage_a": 0, "sw_wavefront": 0, "kmer_count": 0, "gather_rows": 0, "take_along": 0,
     "gather_chain": 0, "scale2": 0, "sa_seed_keys": 0, "sa_gather": 0, "sa_seed_ranks": 0,
-    "sa_round_keys": 0, "sa_round_scatter": 0, "sa_bwt_perm": 0,
+    "sa_round_keys": 0, "sa_round_scatter": 0, "sa_bwt_perm": 0, "launch_floor": 0,
 }
 
 _lock = threading.Lock()
@@ -81,6 +81,8 @@ _SIGNATURES = {
     "siga_gather_chain_elem": [_P, _L, _L, _I, _I, _P, _I, _I, _P, _P],
     # x, n, head, nvec, out, stream
     "siga_scale2": [_P, _L, _L, _L, _P, _P],
+    # stream: an empty kernel (the launch floor)
+    "siga_launch_floor": [_P],
     # plane, K, pred, length, nblocks, kmers, Q, k, out, stream
     "siga_kmer_count": [_P, _P, _P, _I, _I, _P, _I, _I, _P, _P],
     # items -> 64-bit words of scratch a suffix-sort scan needs

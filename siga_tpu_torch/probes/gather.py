@@ -366,9 +366,12 @@ def probe_cases(rng: np.random.Generator, scale: int = 1):
 
 
 def edge_cases(rng: np.random.Generator, device):
-    """G2, G4 and G3's mode sum at the shapes where a tiling, a group or an
-    alignment split can go wrong: [(label, wrapper name, args as tensors on
-    `device`)].  G4: n of 1, 3, 4, 5, 1,023 and 4 * 2**20 + 3, and the view
+    """G1, G2, G4 and G3's mode sum at the shapes where a tiling, a group or
+    an alignment split can go wrong: [(label, wrapper name, args as tensors
+    on `device`)].  G1: rows of C = 1, 12, 16, 57 and 128 words (words and
+    16-byte vectors), row counts that fill no warp, more rows than one item
+    a thread covers, planes 4 and 8 bytes off the 16-byte boundary.  G4: n
+    of 1, 3, 4, 5, 1,023 and 4 * 2**20 + 3, and the view
     x[1:], 4 bytes off the 16-byte boundary.  G2: one table row, one output,
     output counts that fill no tile, rows wider than shared memory, the
     shared-memory form, both axes, and an index broadcast along each of its
@@ -382,7 +385,21 @@ def edge_cases(rng: np.random.Generator, device):
     def full(shape):
         return ints(-2**31, 2**31, shape)
 
-    cases = [(f"scale2 n={n}", "scale2", (full(n),)) for n in (1, 3, 4, 5, 1023, 4 * 2**20 + 3)]
+    def rows_off(r, c, offset):  # a row-major [r, c] plane `offset` words into its allocation
+        return full(r * c + offset).to(device)[offset:].view(r, c)
+
+    gathers = [  # (label, plane, rows gathered)
+        ("C=1", full((300, 1)), 1001),
+        ("C=57 (a pair-plane row), 10,007 rows: several items a thread", full((999, 57)), 10_007),
+        ("C=128", full((77, 128)), 301),
+        ("C=16, rows no multiple of a warp's 8", full((500, 16)), 8 * 37 + 3),
+        ("C=16, one row", full((500, 16)), 1),
+        ("C=16, the plane 4 bytes off the 16-byte boundary", rows_off(500, 16, 1), 1003),
+        ("C=12, the plane 8 bytes off the 16-byte boundary", rows_off(90, 12, 2), 515),
+    ]
+    cases = [(f"gather_rows {label}", "gather_rows", (plane, ints(0, plane.shape[0], q)))
+             for label, plane, q in gathers]
+    cases += [(f"scale2 n={n}", "scale2", (full(n),)) for n in (1, 3, 4, 5, 1023, 4 * 2**20 + 3)]
     cases.append(("scale2 x[1:] of 4,097", "scale2", (full(4097).to(device)[1:],)))
     wide = 60_001  # int32 words a row: more than shared memory holds (58,112)
     take = [
@@ -425,6 +442,13 @@ def edge_cases(rng: np.random.Generator, device):
         (label, name, tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args))
         for label, name, args in cases
     ]
+
+
+def launch_floor(device) -> None:
+    """One launch of an empty kernel (`siga_launch_floor`, one thread that
+    does nothing): timed by `cuda_ms` as the kernels are, the least time a
+    kernel's row of the table can show."""
+    kernels.launch("launch_floor", torch.device(device), kernels.lib().siga_launch_floor)
 
 
 # name -> (wrapper, plain version)

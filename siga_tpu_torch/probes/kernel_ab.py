@@ -1,11 +1,12 @@
 """Time K1 and K7, the gather probes G2, G3 and G4, the plane build K2, the
-single-step scan K3, Smith-Waterman K5 or the device suffix sort K6, of two
+single-step scan K3, Smith-Waterman K5, the device suffix sort K6 or the
+stage-A scan K9 with the row gather G1, of two
 checkouts of the repo against each other on one card, at the error
 pipeline's own shapes.
 
     python3 chip_smoke.py --keep-pipeline DIR
     python3 -m siga_tpu_torch.probes.kernel_ab --trees OTHER,. --pipeline DIR \
-        [--probes | --plane | --scan | --sw | --sa] [--order 0,1,1,0] [--out FILE]
+        [--probes | --plane | --scan | --sw | --sa | --stage-a] [--order 0,1,1,0] [--out FILE]
 
 DIR holds the `benchmark/ecoli_scale.py 1.0 25 0.005` pipeline as
 `chip_smoke.py --keep-pipeline` leaves it.  This process takes the cases'
@@ -54,6 +55,15 @@ device operations, torch.sort's device time and, for each of its calls,
 the onesweep digit-pass kernels it ran, and the peak device memory of one
 `bwt_perm_device` a character; the digests cover the SA, the BWT and the
 permutation.
+With --stage-a the cases are K9 (`fm_device.scan_stage_a`) on the first
+60,608 reads of DIR/reads.ec.fa as ID lanes (one overlap chunk's lanes; the
+`overlap` stage's -m 85) over the forward single-step plane of DIR/reads.ec,
+and at `dryrun.entry`'s tiny problem (8 lanes x 23 steps); and G1
+(`gather.gather_rows`) at each of its Pallas probes' shapes and on the
+stacked pair plane of DIR/reads.ec (60,608 random rows): per case the wall
+by CUDA events and, from a torch.profiler trace, the kernel's median device
+span, STAGE_A_REPS calls each; for G1 also its library call
+(`index_select`).
 Each entry of --order runs a fresh worker process on the checkout it names
 (this file is run as a script with that checkout first on sys.path, so an
 older checkout needs no copy of it).  The worker builds that checkout's
@@ -91,6 +101,8 @@ SW_SEED, SW_PAIRS, SW_REPS = 1, 4096, 20  # K5's cases: pairs drawn, calls a wal
 SW_PARAMS = (2, 2, 3, 1)
 K, KMERS, ROUTE_SIZES = 41, 262_144, (110, 3)
 SA_REPS = 5  # warm walls of each K6 entry a case
+STAGE_A_LANES, STAGE_A_MIN_OVERLAP = 60_608, 85  # K9 at one chunk's lanes, the overlap stage's -m
+STAGE_A_REPS = 20  # K9 and G1 calls a wall and a trace
 SA_CASES = {"K6 reads.ec.fa": "reads.ec.fa", "K6 primary-contigs.fa": "primary-contigs.fa"}
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
 K1_CASES = {"K1 reads.ec.fa chunk": ("reads.ec", 85), "K1 contigs": ("primary-contigs.rmdup", 10)}
@@ -511,6 +523,79 @@ def scan_worker(tree: str, pipeline: str) -> dict:
     return out
 
 
+def make_stage_a_inputs(pipeline: str) -> str:
+    """K9's lanes, the first STAGE_A_LANES reads of DIR/reads.ec.fa, into
+    DIR/kernel_ab/stage_a_reads.txt (once); returns the directory."""
+    from ..io import fastx
+
+    out = os.path.join(pipeline, "kernel_ab")
+    path = os.path.join(out, "stage_a_reads.txt")
+    if not os.path.exists(path):
+        os.makedirs(out, exist_ok=True)
+        seqs = []
+        for r in fastx.read_sequences(os.path.join(pipeline, "reads.ec.fa")):
+            seqs.append(r.seq)
+            if len(seqs) == STAGE_A_LANES:
+                break
+        with open(path, "w") as f:
+            f.write("\n".join(seqs) + "\n")
+    return out
+
+
+def stage_a_calls(pipeline: str, dev) -> dict:
+    """{label: (kernel name, call)}: K9 (`fm_device.scan_stage_a`) on the lanes
+    of DIR/kernel_ab/stage_a_reads.txt over the forward single-step plane of
+    DIR/reads.ec at -m STAGE_A_MIN_OVERLAP, and at `dryrun.entry`'s tiny
+    problem; G1 (`gather.gather_rows`) at each of its Pallas probes' shapes
+    and on the stacked pair plane of DIR/reads.ec (`gather.plane_args`' rows).
+    On CPU tensors the calls run the plain versions."""
+    import torch
+
+    from siga_tpu_torch import dryrun
+    from siga_tpu_torch.ops import fm_device
+    from siga_tpu_torch.probes import gather
+
+    seqs = _lines(os.path.join(pipeline, "kernel_ab", "stage_a_reads.txt"))
+    fm = fm_device.DeviceFM(fm_device.FMIndex.load(os.path.join(pipeline, "reads.ec.bwt")), dev)
+    chars, lens = dryrun.stage_a_chars(seqs)
+    args = (chars.shape[1] - 1, STAGE_A_MIN_OVERLAP, fm.occ_plane, fm.pred_dev, fm.length,
+            torch.from_numpy(chars).to(dev), torch.from_numpy(lens).to(dev), None)
+    calls = {f"K9 reads.ec.fa {len(seqs)} lanes x {args[0]} steps": (
+        "scan_stage_a", functools.partial(fm_device.scan_stage_a, *args))}
+    fn, example = dryrun.entry(dev)
+    calls[f"K9 dryrun.entry {example[2].shape[0]} lanes x {example[2].shape[1] - 1} steps"] = (
+        "scan_stage_a", functools.partial(fn, *example))
+    rng = np.random.default_rng(PROBE_SEED)
+    for tpu, _where, name, case in gather.probe_cases(rng):
+        if name == "gather_rows":
+            calls[f"G1 as {tpu}"] = ("gather_rows", functools.partial(
+                gather.gather_rows, *gather.to_device(case, dev)))
+    plane = gather.stacked_plane(os.path.join(pipeline, "reads.ec"), dev)
+    rows = gather.plane_args(plane, PROBE_LANES, PROBE_STEPS, PROBE_SEED)["gather_rows"]
+    calls["G1 on the pair plane"] = ("gather_rows", functools.partial(gather.gather_rows, *rows))
+    return calls
+
+
+def stage_a_worker(tree: str, pipeline: str) -> dict:
+    """Times of K9 and G1 through the wrappers of the checkout at `tree`:
+    each case's wall and its kernel's median device span, and G1's library
+    call (`index_select`) beside it."""
+    import torch
+
+    from siga_tpu_torch.probes.gather import cuda_ms
+
+    out = _start(tree)
+    for label, (name, fn) in stage_a_calls(pipeline, torch.device("cuda", 0)).items():
+        got = fn()
+        out["digests"][label] = _digest(got if isinstance(got, tuple) else [got])
+        out["times"][label + ", wall"] = cuda_ms(fn, STAGE_A_REPS)
+        out["times"][label + ", kernel device time"] = median_span(label, name, fn, STAGE_A_REPS)
+        if name == "gather_rows":
+            out["times"][label + ", library call"] = cuda_ms(
+                library_call(name, fn.args), STAGE_A_REPS)
+    return out
+
+
 def sw_cases(pipeline: str, dev) -> dict:
     """{label: (queries, refs)} of K5's cases as tensors on `dev`: the
     synthetic pairs and the pipeline's edges (DIR/kernel_ab/sw_edges.txt,
@@ -606,6 +691,8 @@ def main(argv=None) -> int:
                       help="time Smith-Waterman K5 instead of K1 and K7")
     mode.add_argument("--sa", action="store_true",
                       help="time the device suffix sort K6 instead of K1 and K7")
+    mode.add_argument("--stage-a", action="store_true",
+                      help="time the stage-A scan K9 and the row gather G1 instead of K1 and K7")
     parser.add_argument("--out", help="also write the JSON line here")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -613,16 +700,19 @@ def main(argv=None) -> int:
     if args.worker:
         fn = (probe_worker if args.probes else plane_worker if args.plane
               else scan_worker if args.scan else sw_worker if args.sw
-              else sa_worker if args.sa else worker)
+              else sa_worker if args.sa else stage_a_worker if args.stage_a else worker)
         run = fn(args.worker, pipeline)
         print("KERNEL_AB " + json.dumps(run), flush=True)
         return 0
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
     if args.sw:
         make_sw_inputs(pipeline)
+    elif args.stage_a:
+        make_stage_a_inputs(pipeline)
     elif not (args.probes or args.plane or args.sa):
         make_inputs(pipeline)
-    mode_args = [f"--{m}" for m in ("probes", "plane", "scan", "sw", "sa") if getattr(args, m)]
+    modes = ("probes", "plane", "scan", "sw", "sa", "stage_a")
+    mode_args = [f"--{m.replace('_', '-')}" for m in modes if getattr(args, m)]
     runs = []
     for k in (int(i) for i in args.order.split(",")):
         env = {**os.environ, "PYTHONPATH": trees[k]}

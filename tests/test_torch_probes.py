@@ -141,6 +141,9 @@ EDGES = {c[0]: c for c in gather.edge_cases(np.random.default_rng(1), "cpu")}
 
 
 def _jax_edge(name, args):
+    if name == "gather_rows":
+        return np.asarray(jnp.take(jnp.asarray(args[0].numpy()), jnp.asarray(args[1].numpy()),
+                                   axis=0))
     if name == "scale2":
         return np.asarray(jnp.asarray(args[0].numpy()) * 2)
     if name == "gather_chain":
@@ -155,8 +158,9 @@ def _jax_edge(name, args):
 
 @pytest.mark.parametrize("label", sorted(EDGES))
 def test_edge_case_matches_jax(label):
-    """G2 and G4 at the edge shapes that chip_smoke.py holds the kernels to
-    on the card: the wrapper (plain version on the CPU) equals jax.numpy."""
+    """G1, G2, G3's mode sum and G4 at the edge shapes that chip_smoke.py
+    holds the kernels to on the card: the wrapper (plain version on the
+    CPU) equals jax.numpy."""
     _label, name, args = EDGES[label]
     got = gather.WRAPPERS[name][0](*args)
     assert got.dtype == torch.int32
@@ -311,3 +315,15 @@ def test_chain_edge_cases_cover_the_groups_and_forms():
     assert any(init.numel() % 8 and init.numel() > 8 for _t, init, *_ in chains)
     assert any(steps == 0 for *_a, steps, _m in chains)
     assert any(t.storage_offset() % 4 for t, *_ in chains)
+
+
+def test_row_gather_edge_cases_cover_both_paths():
+    """G1's edge cases: rows of C = 1, 57 and 128 words, C = 16 with a row
+    count that fills no warp of 8 rows, planes off the 16-byte boundary
+    (the word path at C % 4 == 0), and more items than one a thread on 132
+    SMs x 8 blocks x 256 threads."""
+    rows = [args for label, name, args in EDGES.values() if name == "gather_rows"]
+    assert {1, 57, 128, 16} <= {p.shape[1] for p, _i in rows}
+    assert any(p.shape[1] == 16 and i.numel() % 8 for p, i in rows)
+    assert any(p.shape[1] % 4 == 0 and p.storage_offset() % 4 for p, _i in rows)
+    assert any(i.numel() * p.shape[1] > 132 * 8 * 256 for p, i in rows)
