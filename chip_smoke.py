@@ -433,7 +433,6 @@ def scan_edge_cases() -> list:
 
 GOLDEN_READS = ["ACGTACGTAC", "CGTACGTACC", "TTACGGACGT", "ACGTACGTAC", "GGGTTTACAC"]
 STAGE_A_LANES = PROBE_LANES  # K9 at one overlap chunk's lanes (ID lanes of the main path's reads)
-STAGE_A_TILE = 8  # K9's steps a tile (kTile of csrc/stage_a.cu)
 
 
 def genome_reads(n, lengths, genome_len, seed=0):
@@ -473,15 +472,16 @@ def stage_a_edge_cases() -> list:
     past l - 2 (`garbage`, with lanes of 1 and 2 symbols), max_t = 0,
     min_overlap 0 and 1, L = 1 and 33, lane_tab nblocks over one index's
     plane (every row index past it, clamped), and an N (rank 0) in every
-    lane's live steps; then the edges of K9's step tiles (STAGE_A_TILE) and
-    warps: max_t of 1, a tile less one, a tile and a tile and one (the
-    tiles' records written, the next tile's chars read), L of 63, 64 and 65
-    (a block less one, a block, a block and one: runs of `emitted` and
-    `valid` off the 16-byte boundary, warps of fewer than 32 lanes), lanes
-    whose last live step (len - 2) falls in each of seven tiles, and lanes
-    of 1 symbol beside lanes of 60 across warps.  The CPU tests hold the
-    plain version to the JAX package on these; `chip_smoke.py` holds K9 to
-    the plain version."""
+    lane's live steps; then the edges of K9's warps and blocks (two
+    threads a lane: 16 lanes a warp, 32 a block; the tiled design of the
+    history had 32 and 64, and steps in tiles of 8) and of its steps: max_t
+    of 1, 7, 8 and 9, L of 15, 16, 17, 31, 32, 63, 64 and 65 (warps of
+    fewer lanes than the warp holds, runs of `emitted` and `valid` off the
+    16-byte boundary), lanes whose last live step (len - 2) falls in each
+    of seven spans of 8 steps (one warp's lanes leave its steps at seven
+    places), and lanes of 1 symbol beside lanes of 60 across warps.  The
+    CPU tests hold the plain version to the JAX package on these;
+    `chip_smoke.py` holds K9 to the plain version."""
     index = stage_a_index_reads()
     cases = []
     for label, reads in index.items():
@@ -502,14 +502,12 @@ def stage_a_edge_cases() -> list:
         ("lane_tab past the plane's last row", mixed_label, mixed, "past", None, 5, False),
         ("an N in the live steps", mixed_label, with_n, "stacked", None, 5, False),
     ]
-    tile = STAGE_A_TILE
     long_reads = [r for r in mixed if len(r) == 60]
-    cases += [(f"max_t = {t}", mixed_label, mixed, "stacked", t, 1, False)
-              for t in (1, tile - 1, tile, tile + 1)]
+    cases += [(f"max_t = {t}", mixed_label, mixed, "stacked", t, 1, False) for t in (1, 7, 8, 9)]
     cases += [(f"L = {n}", mixed_label, (mixed * 2)[:n], "one index", None, 3, False)
-              for n in (63, 64, 65)]
+              for n in (15, 16, 17, 31, 32, 63, 64, 65)]
     cases += [
-        ("last live steps in seven tiles", mixed_label,
+        ("last live steps in seven spans of 8 steps", mixed_label,
          [r[: 2 + 9 * j] for j in range(7) for r in long_reads[:3]], "stacked", None, 2, False),
         ("lanes of 1 symbol beside lanes of 60", mixed_label,
          [r if k % 3 else r[:1] for k, r in enumerate(long_reads * 14)], "one index", None, 4,

@@ -108,10 +108,11 @@ __device__ __forceinline__ int wrap_add(int a, unsigned b) {
 // = int): item g of the output is item g % per_row of row idx[g / per_row].
 // A grid-stride loop, kRowsInFlight items a thread a round, their indices
 // and loads issued before the first store.
+constexpr int kRowsInFlight = 4;
+
 template <typename T, typename I>
 __global__ void gather_rows_kernel(const T* __restrict__ plane, const int* __restrict__ idx, int R,
                                    I n, I per_row, T* __restrict__ out) {
-  constexpr int kRowsInFlight = 4;
   const I stride = static_cast<I>(gridDim.x) * blockDim.x;
   for (I g0 = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x; g0 < n;
        g0 += kRowsInFlight * stride) {
@@ -142,7 +143,7 @@ void launch_gather_rows(const void* plane, const void* idx, int R, long long n, 
   const T* p = static_cast<const T*>(plane);
   const int* ix = static_cast<const int*>(idx);
   T* o = static_cast<T*>(out);
-  if (n <= 0xFFFFFFFFLL - static_cast<long long>(blocks) * kThreads * 4) {
+  if (n <= 0xFFFFFFFFLL - static_cast<long long>(blocks) * kThreads * kRowsInFlight) {
     gather_rows_kernel<T, unsigned><<<blocks, kThreads, 0, s>>>(
         p, ix, R, static_cast<unsigned>(n), static_cast<unsigned>(per_row), o);
   } else {

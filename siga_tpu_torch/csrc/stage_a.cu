@@ -66,13 +66,10 @@ namespace {
 
 using namespace single_occ;
 
-constexpr int kThreads = 64;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 8;  // at most 128 registers a thread, as K3
-constexpr int kTile = 8;       // steps a tile of chars and records
-constexpr int kCharStride = kTile + 1;  // words a lane's chars in shared memory (odd: no conflict)
-constexpr bool kCoopRows = true;
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kThreads = 64;    // 32 lanes a block, two threads a lane
+constexpr int kMinBlocks = 16;  // 32 warps an SM: at most 64 registers a thread
+constexpr int kLanes = 16;      // lanes a warp
+constexpr int kTile = 8;        // steps a tile of records in shared memory
 
 struct StageArgs {
   const int* plane;  // [nrows, 16]
@@ -87,106 +84,30 @@ struct StageArgs {
   int* lext;             // [L, 5]
 };
 
-// One warp's buffers.
-struct WarpBuffers {
-  uint4 rows[64][4];                  // slot s < 32: lane s's row of lo - 1; s >= 32: lane s - 32's of hi
-  int chars[2][32 * kCharStride];     // this tile's and the next tile's chars, lane-major
-  int records[kTile][32 * 3];         // the tile's emitted records, step-major
-  unsigned char valid[kTile][32];     // the tile's valid bytes
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// x << s for s >= 0: 0 from s = 64 (32) on, since PTX clamps the shift
+__device__ __forceinline__ unsigned long long shl64(unsigned long long x, int s) {
+  unsigned long long y;
+  asm("shl.b64 %0, %1, %2;" : "=l"(y) : "l"(x), "r"(s));
+  return y;
 }
 
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// this thread's copies have landed; a __syncwarp after it shows them to the warp
-__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// piece p of slot s sits at p ^ swizzle(s): lanes 8 apart share a bank group
-__device__ __forceinline__ int swizzle(int slot) { return (slot >> 1) & 3; }
-
-__device__ __forceinline__ Row slot_row(const WarpBuffers& b, int slot) {
-  const uint4* p = b.rows[slot];
-  const int x = swizzle(slot);
-  return Row{p[0 ^ x], p[1 ^ x], p[2 ^ x], p[3 ^ x]};
-}
-
-// The warp's rows of the next step into the slots: r0 / r1 is this lane's
-// row of lo - 1 / hi, or -1 for none.  Round m fetches slots 8m..8m+7,
-// thread k piece k % 4 of slot 8m + k / 4.
-__device__ __forceinline__ void fetch_rows(WarpBuffers& b, const WholePlane& plane, int r0, int r1,
-                                           int k) {
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int slot = 8 * m + (k >> 2);
-    const int r = __shfl_sync(kFull, m < 4 ? r0 : r1, slot & 31);
-    if (r >= 0) copy16(&b.rows[slot][(k & 3) ^ swizzle(slot)], plane.row(r) + (k & 3));
-  }
-  copies_commit();
-}
-
-// Steps [t0, t0 + kTile) of the warp's nl lanes (chars: its first lane's row)
-// into `dst`; steps at or past max_t are never read and not copied.
-__device__ __forceinline__ void stage_chars(int* dst, const int* chars, size_t row_words, int t0,
-                                            int max_t, int nl, int k) {
-  const int n = min(kTile, max_t - t0);
-#pragma unroll
-  for (int j = 0; j < kTile; ++j) {
-    const int f = j * 32 + k;
-    const int lane = f / kTile, w = f % kTile;
-    if (lane < nl && w < n) copy4(dst + lane * kCharStride + w, chars + lane * row_words + t0 + w);
-  }
-  copies_commit();
-}
-
-// The tile's n steps of records and valid bytes from shared memory to the
-// warp's runs of `emitted` and `valid` (first lane lane0, nl lanes).
-__device__ __forceinline__ void write_tile(const WarpBuffers& b, const StageArgs& a, int lane0,
-                                           int nl, int t0, int n, int k) {
-  for (int tt = 0; tt < n; ++tt) {
-    const size_t first = static_cast<size_t>(t0 + tt) * a.L + lane0;
-    int* em = a.emitted + first * 3;
-    if (nl == 32 && (reinterpret_cast<std::uintptr_t>(em) & 15) == 0) {
-      if (k < 24) reinterpret_cast<uint4*>(em)[k] = reinterpret_cast<const uint4*>(b.records[tt])[k];
-    } else {
-      for (int w = k; w < 3 * nl; w += 32) em[w] = b.records[tt][w];
-    }
-    unsigned char* va = a.valid + first;
-    if (nl == 32 && (reinterpret_cast<std::uintptr_t>(va) & 15) == 0) {
-      if (k < 2) reinterpret_cast<uint4*>(va)[k] = reinterpret_cast<const uint4*>(b.valid[tt])[k];
-    } else if (k < nl) {
-      va[k] = b.valid[tt][k];
-    }
-  }
-}
-
-// bits [0, s) of a word for s >= 0, all of them from s = 32 on
-__device__ __forceinline__ unsigned low_bits(int s) {
-  unsigned m;
-  asm("bmsk.clamp.b32 %0, 0, %1;" : "=r"(m) : "r"(s));
-  return m;
+__device__ __forceinline__ unsigned shl32(unsigned x, int s) {
+  unsigned y;
+  asm("shl.b32 %0, %1, %2;" : "=r"(y) : "r"(x), "r"(s));
+  return y;
 }
 
 // What a step needs of a row's block prefix of `tail` symbols, in K9's own
 // count (the counts are single_occ.cuh's count_eq / count_lt /
 // count_dollar, in fewer instructions: the kernel is bound by its integer
-// instructions, PERF.md).  A pair of symbol words gives every code's count
-// at once by three popcounts: the codes' low bits, their high bits, both
-// ('$' packs as A, code 0).  The counts of codes below k and up to k, for
-// k = 0..3, are kept as the bytes of two words, so that a step picks its
-// symbol's from each with one byte permute.
+// instructions, PERF.md).  A pair of symbol words (32 symbols) gives every
+// code's count at once by three popcounts: the codes' low bits, their high
+// bits, both ('$' packs as A, code 0).  The pair's symbols past the prefix
+// are shifted out of the top rather than masked: an even shift keeps each
+// symbol's two bits together, and a count does not see where they went.
+// The counts of codes below k and up to k, for k = 0..3, are kept as the
+// bytes of two words, so that a step picks its symbol's from each with one
+// byte permute.
 struct Prefix {
   unsigned below;  // byte k: the prefix's symbols of codes below k
   unsigned upto;   // byte k: of codes up to k
@@ -200,16 +121,17 @@ __device__ __forceinline__ Prefix prefix_counts(const Row& r, int tail) {
   int n_lo = 0, n_hi = 0, n_both = 0, n_dollar = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int u = max(tail - 32 * j, 0);  // symbols of the pair's 32 in the prefix
-    const unsigned a0 = w[2 * j] & low_bits(2 * u);
-    const unsigned a1 = w[2 * j + 1] & low_bits(max(2 * u - 32, 0));
-    // word 2j's symbols at the even bits, word 2j + 1's at the odd bits
-    const unsigned lo = (a0 & kLo) | ((a1 << 1) & ~kLo);
-    const unsigned hi = ((a0 >> 1) & kLo) | (a1 & ~kLo);
+    const unsigned long long pair =
+        shl64((static_cast<unsigned long long>(w[2 * j + 1]) << 32) | w[2 * j],
+              max(64 * (j + 1) - 2 * tail, 0));
+    const unsigned y0 = static_cast<unsigned>(pair), y1 = static_cast<unsigned>(pair >> 32);
+    // y0's symbols at the even bits, y1's at the odd bits
+    const unsigned lo = (y0 & kLo) | ((y1 << 1) & ~kLo);
+    const unsigned hi = ((y0 >> 1) & kLo) | (y1 & ~kLo);
     n_lo += __popc(lo);
     n_hi += __popc(hi);
     n_both += __popc(lo & hi);
-    n_dollar += __popc(d[j] & low_bits(u));
+    n_dollar += __popc(shl32(d[j], max(32 * (j + 1) - tail, 0)));
   }
   // codes below k: 0, t - lo - hi + both, t - hi, t - both; up to 3: t
   const unsigned t = tail, nl = n_lo, nh = n_hi, nb = n_both;
@@ -253,35 +175,67 @@ __device__ __forceinline__ StepCounts step_counts(const Row& r, const Where& q, 
   return s;
 }
 
-template <bool kCoop>
+// A warp's records of a tile of steps, step-major, as `emitted` and
+// `valid` hold them.
+struct WarpTile {
+  int records[kTile][kLanes * 3];
+  unsigned char valid[kTile][kLanes];
+};
+
+// The tile's n steps of records and valid bytes to the warp's runs of
+// `emitted` and `valid` (first lane lane0, nl lanes): 16-byte vectors where
+// a run is whole and 16-byte aligned, else words and bytes.
+__device__ __forceinline__ void write_tile(const WarpTile& b, const StageArgs& a, int lane0,
+                                           int nl, int t0, int n, int k) {
+  constexpr int kVectors = kLanes * 3 / 4;  // a step's records as 16-byte vectors
+  for (int tt = 0; tt < n; ++tt) {
+    const size_t first = static_cast<size_t>(t0 + tt) * a.L + lane0;
+    int* em = a.emitted + first * 3;
+    if (nl == kLanes && (reinterpret_cast<std::uintptr_t>(em) & 15) == 0) {
+      if (k < kVectors) {
+        reinterpret_cast<uint4*>(em)[k] = reinterpret_cast<const uint4*>(b.records[tt])[k];
+      }
+    } else {
+      for (int w = k; w < 3 * nl; w += 32) em[w] = b.records[tt][w];
+    }
+    unsigned char* va = a.valid + first;
+    if (nl == kLanes && (reinterpret_cast<std::uintptr_t>(va) & 15) == 0) {
+      if (k == 0) *reinterpret_cast<uint4*>(va) = *reinterpret_cast<const uint4*>(b.valid[tt]);
+    } else if (k < nl) {
+      va[k] = b.valid[tt][k];
+    }
+  }
+}
+
+// Thread 2j + side of a warp serves the warp's lane j: side 0 keeps the row
+// of lo - 1, side 1 the row of hi, each loaded a step ahead; the two trade
+// a step's counts by shuffles and keep the same state.  Every thread of a
+// warp runs every step (a lane past its live steps or past L on its frozen
+// state), so that every shuffle is the whole warp's; the records go through
+// shared memory a tile of steps at a time.
 __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_stage_a_kernel(StageArgs a) {
-  __shared__ WarpBuffers buffers[kWarps];
-  WarpBuffers& b = buffers[threadIdx.x >> 5];
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  __shared__ WarpTile tiles[kThreads / 32];
+  WarpTile& b = tiles[threadIdx.x >> 5];
   const int k = threadIdx.x & 31;
-  const int lane0 = blockIdx.x * kThreads + (threadIdx.x & ~31);
+  const int lane0 = (blockIdx.x * kThreads + (threadIdx.x & ~31)) >> 1;
   if (lane0 >= a.L) return;  // the whole warp
-  const int nl = min(32, a.L - lane0);
-  const bool here = k < nl;  // a lane past L runs the steps on its zeros and writes nothing
-  const int lane = lane0 + k;
+  const int nl = min(kLanes, a.L - lane0);
+  const int j = k >> 1, side = k & 1;
+  const int lane = lane0 + j;
+  const bool here = j < nl;
   const WholePlane plane{a.plane};
   const int nrows = a.nrows, max_t = a.max_t;
-  const size_t row_words = static_cast<size_t>(max_t) + 1;
-  const int* chars = a.chars + static_cast<size_t>(lane0) * row_words;
   const int tab = here && a.tab != nullptr ? __ldg(a.tab + lane) : 0;
   const int len = here ? __ldg(a.lens + lane) : 0;
-  // live steps t <= len - 2; the rest keep the state and emit it, not valid.
-  // Steps below the warp's least count are live in every lane.
-  const int steps = min(max_t, max(len - 1, 0));
-  const int all_live = __reduce_min_sync(kFull, here ? steps : max_t);
+  const int* chars = a.chars + static_cast<size_t>(here ? lane : lane0) * (max_t + 1);
   int pred[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) pred[c] = __ldg(a.pred + c);
-  if (max_t > 0) stage_chars(b.chars[0], chars, row_words, 0, max_t, nl, k);
 
-  int lo = 0, hi = 0;
-  if (here) {
-    const int c0 = __ldg(chars + k * row_words + max_t);
-    lo = sel5(pred, c0);
+  const int c0 = __ldg(chars + max_t);
+  int lo = sel5(pred, c0), hi;
+  {
     const Where q = where(a.length - 1, tab, nrows);
     int s[5];
     occ_all(load_row(plane, q.row), q, s);
@@ -289,123 +243,94 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_stage_a_kernel(Stag
   }
   int rlo = lo;
 
-  // where lo - 1 (wq[0]) and hi (wq[1]) are counted; their rows, fetched a
-  // step ahead, in the slots (kCoop) or in `rows`
-  Where wq[2];
-  Row rows[2];
-  auto plan = [&](int nlo, int nhi) {
-    wq[0] = where(nlo - 1, tab, nrows);
-    wq[1] = where(nhi, tab, nrows);
-  };
-  auto fetch = [&](bool live) {
-    const bool same = wq[1].row == wq[0].row;  // one row for both: the tail of hi, the longer
-    if constexpr (kCoop) {
-      fetch_rows(b, plane, live ? wq[0].row : -1, live && !same ? wq[1].row : -1, k);
-    } else if (live) {
-      load_below(plane, wq[0].row, same ? wq[1].tail : wq[0].tail, rows[0]);
-      if (!same) load_below(plane, wq[1].row, wq[1].tail, rows[1]);
-    }
-  };
-  auto fetched = [&](Row& r0, Row& r1) {
-    const bool same = wq[1].row == wq[0].row;
-    if constexpr (kCoop) {
-      r0 = slot_row(b, k);
-      r1 = slot_row(b, same ? k : 32 + k);
-    } else {
-      r0 = rows[0];
-      r1 = same ? rows[0] : rows[1];
-    }
-  };
-  if constexpr (!kCoop) {
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) rows[m] = Row{zero, zero, zero, zero};
-  }
-  plan(lo, hi);
-  fetch(here);
-  copies_wait();
-  __syncwarp();
+  // this side's row of the step: where lo - 1 (side 0) or hi (side 1) is
+  // counted
+  Where q = where(side != 0 ? hi : lo - 1, tab, nrows);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  Row row{zero, zero, zero, zero};
+  load_below(plane, q.row, q.tail, row);
 
-  // step t0 + tt of the tile whose chars are `tile_chars`; `live` is a
-  // constant true in the steps every lane runs
-  auto step = [&](const int* tile_chars, int t0, int tt, bool live) {
-    // on the chain: occ_c of the two rows, then the next rows' fetch
-    StepCounts s0, s1;
-    int c = 0, nlo = lo, nhi = hi;
-    if (live) {
-      Row cur0, cur1;
-      fetched(cur0, cur1);
-      c = tile_chars[tt];
-      const unsigned pick = 0x4440u | ((c - 1) & 3);
-      s0 = step_counts(cur0, wq[0], prefix_counts(cur0, wq[0].tail), c, pick);
-      s1 = step_counts(cur1, wq[1], prefix_counts(cur1, wq[1].tail), c, pick);
-      const int pc = sel5(pred, c);
-      nlo = pc + s0.occ;
-      nhi = pc + s1.occ - 1;
-      plan(nlo, nhi);
-    }
-    if constexpr (kCoop) __syncwarp();  // every lane has read its slots
-    fetch(live);
-    // off the chain: the '$'-probe of the state at t (prhi >= prlo and
-    // prhi >= 0) and the new rlo
-    bool ok = false;
-    int nrlo = rlo;
-    if (live) {
-      const int psize = s1.dollar - s0.dollar;
-      ok = psize > 0 && rlo + psize - 1 >= 0 && t0 + tt + 1 >= a.min_overlap;
-      if (c != 0) nrlo += s1.below - s0.below;  // nothing ranks below '$'
-    }
-    int* rec = b.records[tt] + 3 * k;
-    rec[0] = lo;
-    rec[1] = rlo;
-    rec[2] = hi - lo;
-    b.valid[tt][k] = ok ? 1 : 0;
-    rlo = nrlo;
-    lo = nlo;
-    hi = nhi;
-    if constexpr (kCoop) {
-      copies_wait();
-      __syncwarp();
-    }
-  };
+  // live steps t <= len - 2; the rest keep the state and emit it, not valid
+  const int steps = min(max_t, max(len - 1, 0));
+  const int warp_steps = __reduce_max_sync(kFull, steps);
+  int c = steps > 0 ? __ldg(chars) : 0;
   for (int t0 = 0; t0 < max_t; t0 += kTile) {
-    const int* tile_chars = b.chars[(t0 / kTile) & 1] + k * kCharStride;
     const int n = min(kTile, max_t - t0);
-    if (t0 + kTile < max_t) {
-      stage_chars(b.chars[(t0 / kTile + 1) & 1], chars, row_words, t0 + kTile, max_t, nl, k);
-    }
-    if (t0 + n <= all_live) {
-      for (int tt = 0; tt < n; ++tt) step(tile_chars, t0, tt, true);
-    } else {
-      for (int tt = 0; tt < n; ++tt) step(tile_chars, t0, tt, t0 + tt < steps);
+    for (int tt = 0; tt < n; ++tt) {
+      const int t = t0 + tt;
+      bool ok = false;
+      int nlo = lo, nhi = hi, nrlo = rlo;
+      if (t < warp_steps) {
+        const bool live = t < steps;
+        const int c_next = t + 1 < steps ? __ldg(chars + t + 1) : 0;
+        // on the chain: this side's counts, the other side's occ_c, the
+        // next row
+        StepCounts mine{0, 0, 0};
+        if (live) {
+          mine = step_counts(row, q, prefix_counts(row, q.tail), c, 0x4440u | ((c - 1) & 3));
+        }
+        const int theirs = __shfl_xor_sync(kFull, mine.occ, 1);
+        const int pc = sel5(pred, c);
+        if (live) {
+          nlo = pc + (side != 0 ? theirs : mine.occ);
+          nhi = pc + (side != 0 ? mine.occ : theirs) - 1;
+          q = where(side != 0 ? nhi : nlo - 1, tab, nrows);
+          load_below(plane, q.row, q.tail, row);
+        }
+        // off the chain: hi's counts less lo-1's, summed over the pair;
+        // the '$'-probe of the state at t: prhi >= prlo and prhi >= 0
+        const int mine_size = side != 0 ? mine.dollar : -mine.dollar;
+        const int mine_below = side != 0 ? mine.below : -mine.below;
+        const int psize = mine_size + __shfl_xor_sync(kFull, mine_size, 1);
+        const int below = mine_below + __shfl_xor_sync(kFull, mine_below, 1);
+        ok = live && psize > 0 && rlo + psize - 1 >= 0 && t + 1 >= a.min_overlap;
+        if (live && c != 0) nrlo += below;  // nothing ranks below '$'
+        c = c_next;
+      }
+      if (side == 0) {
+        b.records[tt][3 * j] = lo;
+        b.records[tt][3 * j + 1] = rlo;
+      } else {
+        b.records[tt][3 * j + 2] = hi - lo;
+        b.valid[tt][j] = ok ? 1 : 0;
+      }
+      lo = nlo;
+      hi = nhi;
+      rlo = nrlo;
     }
     __syncwarp();  // the tile's records are in shared memory
     write_tile(b, a, lane0, nl, t0, n, k);
-    copies_wait();  // the next tile's chars
-    __syncwarp();   // and the records read before the next tile writes them
+    __syncwarp();  // and read before the next tile writes them
   }
   if (!here) return;
 
-  // finals: the counts of the rows fetched last (lo - 1 and hi of the
-  // full-length interval), the '$'-probe of that interval
-  Row r0, r1;
-  fetched(r0, r1);
-  int l[5], u[5];
-  occ_all(r0, wq[0], l);
-  occ_all(r1, wq[1], u);
-  int* fin = a.finals + static_cast<size_t>(lane) * 8;
-  int* ext = a.lext + static_cast<size_t>(lane) * 5;
-  const int p0 = u[0] - l[0];
+  // finals: the counts of the rows loaded last (lo - 1 and hi of the
+  // full-length interval), the '$'-probe of that interval; side 0 writes
+  // final, side 1 lext (the pair is whole: both threads are here)
+  int mine[5], l[5], u[5];
+  occ_all(row, q, mine);
+  const unsigned pair = 3u << (threadIdx.x & 30);
 #pragma unroll
-  for (int c = 0; c < 5; ++c) ext[c] = u[c] - l[c];
-  fin[0] = lo;
-  fin[1] = hi;
-  fin[2] = rlo;
-  fin[3] = rlo + hi - lo;  // the intervals keep equal sizes
-  fin[4] = pred[0] + l[0];
-  fin[5] = pred[0] + u[0] - 1;
-  fin[6] = rlo;
-  fin[7] = rlo + p0 - 1;
+  for (int k5 = 0; k5 < 5; ++k5) {
+    const int theirs = __shfl_xor_sync(pair, mine[k5], 1);
+    l[k5] = side != 0 ? theirs : mine[k5];
+    u[k5] = side != 0 ? mine[k5] : theirs;
+  }
+  if (side == 0) {
+    int* fin = a.finals + static_cast<size_t>(lane) * 8;
+    fin[0] = lo;
+    fin[1] = hi;
+    fin[2] = rlo;
+    fin[3] = rlo + hi - lo;  // the intervals keep equal sizes
+    fin[4] = pred[0] + l[0];
+    fin[5] = pred[0] + u[0] - 1;
+    fin[6] = rlo;
+    fin[7] = rlo + u[0] - l[0] - 1;
+  } else {
+    int* ext = a.lext + static_cast<size_t>(lane) * 5;
+#pragma unroll
+    for (int k5 = 0; k5 < 5; ++k5) ext[k5] = u[k5] - l[k5];
+  }
 }
 
 }  // namespace
@@ -428,7 +353,7 @@ extern "C" int siga_scan_stage_a(const void* plane, int nrows, const void* pred,
                     static_cast<const int*>(lane_tab), nrows, length, L, max_t, min_overlap,
                     static_cast<int*>(emitted), static_cast<unsigned char*>(valid),
                     static_cast<int*>(finals), static_cast<int*>(lext)};
-  const int grid = static_cast<int>((static_cast<long long>(L) + kThreads - 1) / kThreads);
-  scan_stage_a_kernel<kCoopRows><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const int grid = static_cast<int>((2LL * L + kThreads - 1) / kThreads);
+  scan_stage_a_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,11 +18,14 @@ compiled the same way:
   - `fixed_row`: every step's row reads go to plane row 0 (row >> 30: the
     address still waits on the chain, the counts still run; the outputs
     are wrong, every address stays inside the plane);
-  - `other_fetch` (the tiled design of PR 18 only): the other row fetch,
-    one thread a lane against the warp's cooperative fetch;
+  - `other_fetch` (the tiled design only): the other row fetch, one
+    thread a lane against the warp's cooperative fetch;
   - `no_stores+chars_transposed+fixed_row`: all three at once.
-Each design's anchors are its own: the one-thread design of PR 16 (every
-access a lane's own) or the tiled one (per-warp buffers in shared memory).
+Each design's anchors are its own: one thread a lane with every access its
+own (PR 16), one thread a lane with per-warp buffers in shared memory
+(`tiled`, commit cf411cd), two threads a lane with the records through
+shared memory (`pair-staged`, commit PAIR_STAGED) or without (`pair`, the
+kernel since).
 Prints one JSON line: each copy's median time (CUDA events, REPS calls a
 timing, ROUNDS timings of each in turn) and spread, and whether the copies
 whose outputs stay right equal `scan_stage_a_plain`.  Needs a card and
@@ -82,15 +85,43 @@ _NO_STORES_FIRST = [
      "    if (a.L < 0) {\n      em[0] = lo;\n      em[1] = rlo;\n      em[2] = hi - lo;\n"
      "      *va = 0;\n    }\n"),
 ]
+_FROZEN_STORES = ("    if (side == 0) {\n      em[0] = lo;\n      em[1] = rlo;\n    } else {\n"
+                  "      em[0] = hi - lo;\n      *va = 0;\n    }\n")
+_LIVE_STORES = _FROZEN_STORES.replace("*va = 0;", "*va = ok ? 1 : 0;")
+_TRANSPOSED_PAIR = [
+    ("  const int c0 = __ldg(chars + max_t);",
+     "  const int c0 = __ldg(chars + static_cast<size_t>(max_t) * a.L);"),
+    ("__ldg(chars + t + 1)", "__ldg(chars + static_cast<size_t>(t + 1) * a.L)"),
+]
+_NO_TILE_WRITES = [("    write_tile(b, a, lane0, nl, t0, n, k);",
+                    "    if (a.L < 0) write_tile(b, a, lane0, nl, t0, n, k);")]
 DESIGNS = {
+    "pair": {
+        "no_stores": [(old, "    if (a.L < 0) {\n" + old + "    }\n")
+                      for old in (_LIVE_STORES, _FROZEN_STORES)],
+        "chars_transposed": [
+            ("  const int* chars = a.chars + static_cast<size_t>(lane) * (max_t + 1);",
+             "  const int* chars = a.chars + lane;  // transposed: [max_t + 1, L]"),
+        ] + _TRANSPOSED_PAIR,
+        "fixed_row": [("    load_below(plane, q.row, q.tail, row);",
+                       "    load_below(plane, q.row >> 30, q.tail, row);")],
+    },
+    "pair-staged": {
+        "no_stores": _NO_TILE_WRITES,
+        "chars_transposed": [
+            ("  const int* chars = a.chars + static_cast<size_t>(here ? lane : lane0) * (max_t + 1);",
+             "  const int* chars = a.chars + (here ? lane : lane0);  // transposed: [max_t + 1, L]"),
+        ] + _TRANSPOSED_PAIR,
+        "fixed_row": [("          load_below(plane, q.row, q.tail, row);",
+                       "          load_below(plane, q.row >> 30, q.tail, row);")],
+    },
     "one-thread": {
         "no_stores": _NO_STORES_FIRST,
         "chars_transposed": _TRANSPOSED_FIRST,
         "fixed_row": _FIXED_ROW,
     },
     "tiled": {
-        "no_stores": [("    write_tile(b, a, lane0, nl, t0, n, k);",
-                       "    if (a.L < 0) write_tile(b, a, lane0, nl, t0, n, k);")],
+        "no_stores": _NO_TILE_WRITES,
         "chars_transposed": _TRANSPOSED_TILED,
         "fixed_row": _FIXED_ROW + [("plane.row(r) + (k & 3)", "plane.row(r >> 30) + (k & 3)")],
         "other_fetch": [("constexpr bool kCoopRows = true;", "constexpr bool kCoopRows = false;")],
@@ -101,8 +132,14 @@ COMBINED = ("no_stores", "chars_transposed", "fixed_row")
 
 
 def design(text: str) -> str:
-    """The design of a stage_a.cu source: 'tiled' (per-warp buffers) or
-    'one-thread'."""
+    """The design of a stage_a.cu source: 'pair' (two threads a lane, one
+    a row), 'pair-staged' (the same with its records through shared
+    memory), 'tiled' (one thread a lane, per-warp buffers in shared memory)
+    or 'one-thread' (every access a lane's own)."""
+    if "struct WarpTile" in text:
+        return "pair-staged"
+    if "const int lane = g >> 1, side = g & 1;" in text:
+        return "pair"
     return "tiled" if "struct WarpBuffers" in text else "one-thread"
 
 

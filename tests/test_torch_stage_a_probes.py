@@ -26,15 +26,15 @@ def source():
         return f.read()
 
 
-def test_the_source_is_the_tiled_design_and_every_change_applies(source):
-    assert stage_a_parts.design(source) == "tiled"
+def test_the_source_is_the_pair_design_and_every_change_applies(source):
+    assert stage_a_parts.design(source) == "pair"
     copies = stage_a_parts.changes(source)
-    assert set(copies) == {"kernel", "no_stores", "chars_transposed", "fixed_row", "other_fetch",
+    assert set(copies) == {"kernel", "no_stores", "chars_transposed", "fixed_row",
                            "no_stores+chars_transposed+fixed_row"}
     for name, pairs in copies.items():
         text = stage_a_parts.changed(source, pairs)
         assert (text == source) == (name == "kernel"), name
-    assert set(stage_a_parts.RIGHT) <= set(copies)
+        assert text.count("{") == text.count("}"), name
 
 
 def test_each_change_does_what_it_is_named_for(source):
@@ -44,17 +44,14 @@ def test_each_change_does_what_it_is_named_for(source):
         return stage_a_parts.changed(source, copies[name])
 
     assert "    if (a.L < 0) write_tile(" in text("no_stores")
-    assert "kCoopRows = false;" in text("other_fetch") and "kCoopRows = true;" in source
-    fixed = text("fixed_row")
-    assert fixed.count(" >> 30") == 3 and "plane.row(r >> 30)" in fixed
+    assert "load_below(plane, q.row >> 30, q.tail, row);" in text("fixed_row")
     transposed = text("chars_transposed")
-    assert "const size_t row_words = a.L;" in transposed
-    assert "const int lane = f % 32, w = f / 32;" in transposed
-    assert "chars + (t0 + w) * row_words + lane)" in transposed
-    # the one-thread design's anchors are its own: none of them is in this source
-    first = stage_a_parts.DESIGNS["one-thread"]
-    assert not any(source.count(old) == 1 for old, _new in first["no_stores"])
-    assert not any(source.count(old) == 1 for old, _new in first["chars_transposed"])
+    assert "__ldg(chars + static_cast<size_t>(t + 1) * a.L)" in transposed
+    assert "__ldg(chars + static_cast<size_t>(max_t) * a.L)" in transposed
+    # the other designs' changes are their own: they do not all apply here
+    for other in ("one-thread", "tiled"):
+        assert not all(all(source.count(old) == 1 for old, _new in pairs)
+                       for pairs in stage_a_parts.DESIGNS[other].values()), other
 
 
 def test_a_changed_source_fails_loudly(source):
@@ -62,14 +59,15 @@ def test_a_changed_source_fails_loudly(source):
     with pytest.raises(RuntimeError, match="want one"):
         stage_a_parts.changed(source.replace("write_tile(b, a, lane0", "write_tile(b, a,  lane0"),
                               copies["no_stores"])
-    flipped = source.replace("kCoopRows = true;", "kCoopRows = false;")
-    assert "kCoopRows = true;" in stage_a_parts.changed(
-        flipped, stage_a_parts.changes(flipped)["other_fetch"])
 
 
-def test_tile_is_the_kernels(source):
-    """chip_smoke.py's tile-edge cases are sized by the kernel's own tile."""
-    assert re.search(r"constexpr int kTile = (\d+);", source).group(1) == str(chip_smoke.STAGE_A_TILE)
+def test_the_tiled_designs_fetch_flips_either_way():
+    """The tiled design (kept in the history for the split's A/B) flips
+    its row fetch from whichever way its source has it."""
+    tiled = "struct WarpBuffers {};\nconstexpr bool kCoopRows = false;\n"
+    assert stage_a_parts.design(tiled) == "tiled"
+    flip = dict(stage_a_parts.changes(tiled))["other_fetch"]
+    assert stage_a_parts.changed(tiled, flip).count("kCoopRows = true;") == 1
 
 
 def test_probe_reads_are_the_main_paths():
