@@ -15,8 +15,7 @@
 //   each warp's loads and stores cover whole runs of neighbouring rows.  The
 //   grid covers the items up to 8 blocks an SM (the SM count read at each
 //   launch), beyond that a thread takes several, four indices and loads in
-//   flight before its stores.  The first design, a warp a row with 4-byte
-//   copies, left half the warp idle at C = 16 (PERF.md).
+//   flight before its stores.
 // G2 take_along: torch/JAX take_along_axis on a 2-D table, axis 0 or 1, with a
 //   full or broadcast (stride-0) index.  Replaces k_lane (probe_gather.py:147),
 //   k_a, k_b, k_c (probe3.py:121, 138, 155) and k2 (pallas_gather.py:72).

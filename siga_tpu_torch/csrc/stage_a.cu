@@ -22,40 +22,32 @@
 // clamped to the plane as JAX's gather clamps it.  Symbols are ranks 0..4:
 // '$' (a read's N encodes as 0) takes the '$' count and has nothing below.
 //
-// What bounds it on an H100: bytes.  At one overlap chunk's shape (60,608
-// lanes x 149 steps) it must move about 170 MB (the dense outputs 117 MB,
-// the chars 36 MB, the plane), 0.051 ms at 3.35 TB/s; its chain of 151
-// dependent row reads takes about 0.035 ms at the L2 round trip (PERF.md).
-// What held the first design (one thread a lane, every access its own) far
-// above that was the number of cache lines its warp accesses touch: a
-// lane's row, its chars and its records each lie on lines of their own, so
-// each warp load or store of them touched up to 32 lines
-// (probes/stage_a_parts.py splits the time).  The design, per warp of 32
-// lanes, with the warp's buffers in shared memory (9,728 bytes, 8 blocks
-// of 2 warps an SM):
-//  - steps go in tiles of kTile.  A tile's chars of the warp's 32 lanes are
-//    copied one tile ahead (cp.async, 4 bytes a copy, consecutive threads
-//    on consecutive words of a lane's row: the row is (max_t + 1) * 4
-//    bytes, not a multiple of 16, so no 16-byte or tensor copy is legal);
-//    a lane reads its symbol from shared memory;
-//  - a step's records and valid bytes go to shared memory, step-major; at
-//    the tile's end the warp writes each step's 384 contiguous bytes of
-//    `emitted` as 16-byte vectors (4-byte words where the run is not
-//    16-byte aligned or the warp has fewer than 32 lanes) and its 32 bytes
-//    of `valid` as vectors or bytes.  The frozen tail of a lane past
-//    len - 2 goes the same way;
-//  - rows (kCoopRows): the warp fetches its lanes' next rows together, four
-//    threads a 64-byte row as four 16-byte cp.async pieces, so one warp
-//    copy touches 8 rows' lines and not 32; each lane's row indices reach
-//    the fetching threads by 8 shuffles a step, a row shared by lo - 1 and
-//    hi is fetched once, and the pieces land in the lane's two slots of a
-//    per-warp table, swizzled so that the lanes' 16-byte reads of their
-//    slots meet no bank conflict.  The counts (single_occ.cuh) are K3's,
-//    one thread a lane: the prepended symbol's first, then the next rows'
-//    fetch is issued and the counts below it and of '$' run while it is in
-//    flight.  With kCoopRows false each lane loads its own rows into
-//    registers a step ahead, as the first design did (kept for the A/B of
-//    probes/stage_a_parts.py).
+// Its bytes bound: at one overlap chunk's shape (60,608 lanes x 149 steps)
+// it must move about 170 MB (the dense outputs 117 MB, the chars 36 MB, the
+// plane), 0.051 ms at 3.35 TB/s; its chain of 151 dependent row reads
+// takes about 0.035 ms at the L2 round trip (PERF.md).  What holds it far
+// above both is its integer instructions: 60,608 lanes are 14 warps an SM
+// at one thread a lane, each step is hundreds of instructions of counting,
+// and probes/stage_a_parts.py found the first design (one thread a lane,
+// K3's counts) at 0.213 of its 0.234 ms with its stores, its chars and its
+// row reads all taken away.  So the design cuts instructions and hides the
+// chain behind more warps:
+//  - two threads a lane, one a row: side 0 counts the row of lo - 1, side 1
+//    the row of hi, each loading its own row a step ahead (the whole row
+//    when the prefix needs it, as K3's loader); the pair trades occ_c by
+//    one shuffle and the differences of the counts below c and of '$' by
+//    two, and keeps the same state.  28.7 warps an SM instead of 14, at
+//    most 64 registers a thread, no spill;
+//  - K9's own count (prefix_counts): three popcounts a pair of symbol words
+//    give every code's count, the symbols past the prefix shifted out of a
+//    64-bit pair instead of masked, the counts below and up to each code as
+//    the bytes of two words that one byte permute picks from (each
+//    design's instructions a step: probes/stage_a_parts.py, PERF.md);
+//  - records stored as the first design stored them: a side's words of its
+//    lane's record, valid from side 1.  Staging them through shared memory
+//    a tile of steps at a time, as 16-byte runs, was slower in both designs
+//    that tried it (commits cf411cd and 5b67bbc, PERF.md), and the chars
+//    cost nothing to split off.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -68,8 +60,6 @@ using namespace single_occ;
 
 constexpr int kThreads = 64;    // 32 lanes a block, two threads a lane
 constexpr int kMinBlocks = 16;  // 32 warps an SM: at most 64 registers a thread
-constexpr int kLanes = 16;      // lanes a warp
-constexpr int kTile = 8;        // steps a tile of records in shared memory
 
 struct StageArgs {
   const int* plane;  // [nrows, 16]
@@ -175,60 +165,19 @@ __device__ __forceinline__ StepCounts step_counts(const Row& r, const Where& q, 
   return s;
 }
 
-// A warp's records of a tile of steps, step-major, as `emitted` and
-// `valid` hold them.
-struct WarpTile {
-  int records[kTile][kLanes * 3];
-  unsigned char valid[kTile][kLanes];
-};
-
-// The tile's n steps of records and valid bytes to the warp's runs of
-// `emitted` and `valid` (first lane lane0, nl lanes): 16-byte vectors where
-// a run is whole and 16-byte aligned, else words and bytes.
-__device__ __forceinline__ void write_tile(const WarpTile& b, const StageArgs& a, int lane0,
-                                           int nl, int t0, int n, int k) {
-  constexpr int kVectors = kLanes * 3 / 4;  // a step's records as 16-byte vectors
-  for (int tt = 0; tt < n; ++tt) {
-    const size_t first = static_cast<size_t>(t0 + tt) * a.L + lane0;
-    int* em = a.emitted + first * 3;
-    if (nl == kLanes && (reinterpret_cast<std::uintptr_t>(em) & 15) == 0) {
-      if (k < kVectors) {
-        reinterpret_cast<uint4*>(em)[k] = reinterpret_cast<const uint4*>(b.records[tt])[k];
-      }
-    } else {
-      for (int w = k; w < 3 * nl; w += 32) em[w] = b.records[tt][w];
-    }
-    unsigned char* va = a.valid + first;
-    if (nl == kLanes && (reinterpret_cast<std::uintptr_t>(va) & 15) == 0) {
-      if (k == 0) *reinterpret_cast<uint4*>(va) = *reinterpret_cast<const uint4*>(b.valid[tt]);
-    } else if (k < nl) {
-      va[k] = b.valid[tt][k];
-    }
-  }
-}
-
-// Thread 2j + side of a warp serves the warp's lane j: side 0 keeps the row
-// of lo - 1, side 1 the row of hi, each loaded a step ahead; the two trade
-// a step's counts by shuffles and keep the same state.  Every thread of a
-// warp runs every step (a lane past its live steps or past L on its frozen
-// state), so that every shuffle is the whole warp's; the records go through
-// shared memory a tile of steps at a time.
+// Thread 2l + side of lane l: side 0 keeps the row of lo - 1, side 1 the
+// row of hi, each loaded a step ahead; the two trade a step's counts by
+// shuffles within the pair and keep the same state.
 __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_stage_a_kernel(StageArgs a) {
-  constexpr unsigned kFull = 0xFFFFFFFFu;
-  __shared__ WarpTile tiles[kThreads / 32];
-  WarpTile& b = tiles[threadIdx.x >> 5];
-  const int k = threadIdx.x & 31;
-  const int lane0 = (blockIdx.x * kThreads + (threadIdx.x & ~31)) >> 1;
-  if (lane0 >= a.L) return;  // the whole warp
-  const int nl = min(kLanes, a.L - lane0);
-  const int j = k >> 1, side = k & 1;
-  const int lane = lane0 + j;
-  const bool here = j < nl;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = g >> 1, side = g & 1;
+  if (lane >= a.L) return;  // both threads of the lane
+  const unsigned pair = 3u << (threadIdx.x & 30);
   const WholePlane plane{a.plane};
   const int nrows = a.nrows, max_t = a.max_t;
-  const int tab = here && a.tab != nullptr ? __ldg(a.tab + lane) : 0;
-  const int len = here ? __ldg(a.lens + lane) : 0;
-  const int* chars = a.chars + static_cast<size_t>(here ? lane : lane0) * (max_t + 1);
+  const int tab = a.tab != nullptr ? __ldg(a.tab + lane) : 0;
+  const int len = __ldg(a.lens + lane);
+  const int* chars = a.chars + static_cast<size_t>(lane) * (max_t + 1);
   int pred[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) pred[c] = __ldg(a.pred + c);
@@ -244,77 +193,73 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_stage_a_kernel(Stag
   int rlo = lo;
 
   // this side's row of the step: where lo - 1 (side 0) or hi (side 1) is
-  // counted
+  // counted, loaded a step ahead
   Where q = where(side != 0 ? hi : lo - 1, tab, nrows);
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   Row row{zero, zero, zero, zero};
   load_below(plane, q.row, q.tail, row);
 
+  const size_t stride = static_cast<size_t>(a.L);
+  int* em = a.emitted + static_cast<size_t>(lane) * 3 + 2 * side;  // side 0: lo, rlo; side 1: hi - lo
+  unsigned char* va = a.valid + lane;
   // live steps t <= len - 2; the rest keep the state and emit it, not valid
   const int steps = min(max_t, max(len - 1, 0));
-  const int warp_steps = __reduce_max_sync(kFull, steps);
   int c = steps > 0 ? __ldg(chars) : 0;
-  for (int t0 = 0; t0 < max_t; t0 += kTile) {
-    const int n = min(kTile, max_t - t0);
-    for (int tt = 0; tt < n; ++tt) {
-      const int t = t0 + tt;
-      bool ok = false;
-      int nlo = lo, nhi = hi, nrlo = rlo;
-      if (t < warp_steps) {
-        const bool live = t < steps;
-        const int c_next = t + 1 < steps ? __ldg(chars + t + 1) : 0;
-        // on the chain: this side's counts, the other side's occ_c, the
-        // next row
-        StepCounts mine{0, 0, 0};
-        if (live) {
-          mine = step_counts(row, q, prefix_counts(row, q.tail), c, 0x4440u | ((c - 1) & 3));
-        }
-        const int theirs = __shfl_xor_sync(kFull, mine.occ, 1);
-        const int pc = sel5(pred, c);
-        if (live) {
-          nlo = pc + (side != 0 ? theirs : mine.occ);
-          nhi = pc + (side != 0 ? mine.occ : theirs) - 1;
-          q = where(side != 0 ? nhi : nlo - 1, tab, nrows);
-          load_below(plane, q.row, q.tail, row);
-        }
-        // off the chain: hi's counts less lo-1's, summed over the pair;
-        // the '$'-probe of the state at t: prhi >= prlo and prhi >= 0
-        const int mine_size = side != 0 ? mine.dollar : -mine.dollar;
-        const int mine_below = side != 0 ? mine.below : -mine.below;
-        const int psize = mine_size + __shfl_xor_sync(kFull, mine_size, 1);
-        const int below = mine_below + __shfl_xor_sync(kFull, mine_below, 1);
-        ok = live && psize > 0 && rlo + psize - 1 >= 0 && t + 1 >= a.min_overlap;
-        if (live && c != 0) nrlo += below;  // nothing ranks below '$'
-        c = c_next;
-      }
-      if (side == 0) {
-        b.records[tt][3 * j] = lo;
-        b.records[tt][3 * j + 1] = rlo;
-      } else {
-        b.records[tt][3 * j + 2] = hi - lo;
-        b.valid[tt][j] = ok ? 1 : 0;
-      }
-      lo = nlo;
-      hi = nhi;
-      rlo = nrlo;
+  int t = 0;
+  for (; t < steps; ++t) {
+    const int c_next = t + 1 < steps ? __ldg(chars + t + 1) : 0;
+    // on the chain: this side's counts, the other side's occ_c, the next row
+    const StepCounts mine =
+        step_counts(row, q, prefix_counts(row, q.tail), c, 0x4440u | ((c - 1) & 3));
+    const int theirs = __shfl_xor_sync(pair, mine.occ, 1);
+    const int pc = sel5(pred, c);
+    const int nlo = pc + (side != 0 ? theirs : mine.occ);
+    const int nhi = pc + (side != 0 ? mine.occ : theirs) - 1;
+    q = where(side != 0 ? nhi : nlo - 1, tab, nrows);
+    load_below(plane, q.row, q.tail, row);
+    // off the chain: hi's counts less lo-1's, summed over the pair; the
+    // '$'-probe of the state at t: prhi >= prlo and prhi >= 0
+    const int mine_size = side != 0 ? mine.dollar : -mine.dollar;
+    const int mine_below = side != 0 ? mine.below : -mine.below;
+    const int psize = mine_size + __shfl_xor_sync(pair, mine_size, 1);
+    const int below = mine_below + __shfl_xor_sync(pair, mine_below, 1);
+    const bool ok = psize > 0 && rlo + psize - 1 >= 0 && t + 1 >= a.min_overlap;
+    if (side == 0) {
+      em[0] = lo;
+      em[1] = rlo;
+    } else {
+      em[0] = hi - lo;
+      *va = ok ? 1 : 0;
     }
-    __syncwarp();  // the tile's records are in shared memory
-    write_tile(b, a, lane0, nl, t0, n, k);
-    __syncwarp();  // and read before the next tile writes them
+    em += 3 * stride;
+    va += stride;
+    if (c != 0) rlo += below;  // nothing ranks below '$'
+    lo = nlo;
+    hi = nhi;
+    c = c_next;
   }
-  if (!here) return;
+  for (; t < max_t; ++t) {
+    if (side == 0) {
+      em[0] = lo;
+      em[1] = rlo;
+    } else {
+      em[0] = hi - lo;
+      *va = 0;
+    }
+    em += 3 * stride;
+    va += stride;
+  }
 
   // finals: the counts of the rows loaded last (lo - 1 and hi of the
   // full-length interval), the '$'-probe of that interval; side 0 writes
-  // final, side 1 lext (the pair is whole: both threads are here)
+  // final, side 1 lext
   int mine[5], l[5], u[5];
   occ_all(row, q, mine);
-  const unsigned pair = 3u << (threadIdx.x & 30);
 #pragma unroll
-  for (int k5 = 0; k5 < 5; ++k5) {
-    const int theirs = __shfl_xor_sync(pair, mine[k5], 1);
-    l[k5] = side != 0 ? theirs : mine[k5];
-    u[k5] = side != 0 ? mine[k5] : theirs;
+  for (int k = 0; k < 5; ++k) {
+    const int theirs = __shfl_xor_sync(pair, mine[k], 1);
+    l[k] = side != 0 ? theirs : mine[k];
+    u[k] = side != 0 ? mine[k] : theirs;
   }
   if (side == 0) {
     int* fin = a.finals + static_cast<size_t>(lane) * 8;
@@ -329,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) scan_stage_a_kernel(Stag
   } else {
     int* ext = a.lext + static_cast<size_t>(lane) * 5;
 #pragma unroll
-    for (int k5 = 0; k5 < 5; ++k5) ext[k5] = u[k5] - l[k5];
+    for (int k = 0; k < 5; ++k) ext[k] = u[k] - l[k];
   }
 }
 

@@ -24,11 +24,13 @@ compiled the same way:
 Each design's anchors are its own: one thread a lane with every access its
 own (PR 16), one thread a lane with per-warp buffers in shared memory
 (`tiled`, commit cf411cd), two threads a lane with the records through
-shared memory (`pair-staged`, commit PAIR_STAGED) or without (`pair`, the
+shared memory (`pair-staged`, commit 5b67bbc) or without (`pair`, the
 kernel since).
 Prints one JSON line: each copy's median time (CUDA events, REPS calls a
-timing, ROUNDS timings of each in turn) and spread, and whether the copies
-whose outputs stay right equal `scan_stage_a_plain`.  Needs a card and
+timing, ROUNDS timings of each in turn) and spread, whether the copies
+whose outputs stay right equal `scan_stage_a_plain`, and the instructions
+of the kernel's longest loop (its live steps) by the unit that runs them,
+from `cuobjdump -sass` of each copy (`step_instructions`).  Needs a card and
 nvcc; a source that lacks an anchor its design's changes need makes it
 fail.
 """
@@ -38,6 +40,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 
 import numpy as np
@@ -149,8 +152,6 @@ def changes(text: str) -> dict:
     own = DESIGNS[design(text)]
     out = {"kernel": [], **own}
     out["+".join(COMBINED)] = [pair for name in COMBINED for pair in own[name]]
-    if "other_fetch" in own and "kCoopRows = false;" in text:  # the other way round
-        out["other_fetch"] = [(new, old) for old, new in own["other_fetch"]]
     return out
 
 
@@ -161,6 +162,42 @@ def changed(text: str, pairs) -> str:
             raise RuntimeError(f"stage_a.cu: want one {old!r} to change, found {text.count(old)}")
         text = text.replace(old, new)
     return text
+
+
+# SASS opcodes by the unit that runs them (the rest: "other")
+UNITS = {
+    "alu": ("LOP3", "IADD3", "SHF", "ISETP", "SEL", "VIMNMX", "VIADDMNMX", "VIADD", "LEA", "PRMT",
+            "BMSK", "PLOP3", "IABS", "FSEL", "P2R", "R2P", "SGXT", "FLO", "BREV"),
+    "fma": ("IMAD", "IMUL", "FFMA", "FADD", "FMUL"),
+    "popc": ("POPC",),
+    "memory": ("LDG", "STG", "LDS", "STS", "LDGSTS", "SHFL", "LDC", "LD", "ST"),
+}
+
+
+def step_instructions(sass: str) -> dict:
+    """{unit: count} of the instructions of the longest innermost loop (a
+    span from a backward branch's target to the branch that holds no other
+    such span: a design's step) of the first kernel in a `cuobjdump -sass`
+    listing, with its total as "loop"."""
+    code = []
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*(.*?);", line)
+        if m:
+            code.append((int(m.group(1), 16), m.group(2).split(".")[0], m.group(3)))
+    where = {addr: i for i, (addr, _op, _rest) in enumerate(code)}
+    loops = []
+    for i, (addr, op, rest) in enumerate(code):
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr and int(target.group(1), 16) in where:
+            loops.append((where[int(target.group(1), 16)], i))
+    inner = [(e - s + 1, s, e) for s, e in loops
+             if not any(s <= s2 and e2 <= e and (s2, e2) != (s, e) for s2, e2 in loops)]
+    best = max(inner, default=(0, 0, -1))
+    counts = {unit: 0 for unit in (*UNITS, "other")}
+    for _addr, op, _rest in code[best[1]:best[2] + 1]:
+        unit = next((u for u, ops in UNITS.items() if op in ops), "other")
+        counts[unit] += 1
+    return {"loop": best[0], **counts}
 
 
 def build(tree: str, name: str, text: str) -> ctypes.CDLL:
@@ -178,10 +215,14 @@ def build(tree: str, name: str, text: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {name} failed ({proc.returncode}):\n{proc.stderr}")
     handle = ctypes.CDLL(lib)
-    handle.siga_scan_stage_a.argtypes = kernels._SIGNATURES["siga_scan_stage_a"]
-    handle.siga_scan_stage_a.restype = ctypes.c_int
+    entry = "siga_scan_stage_a"
+    getattr(handle, entry).argtypes = kernels._SIGNATURES[entry]
+    getattr(handle, entry).restype = ctypes.c_int
     handle.ptxas = [line.strip() for line in proc.stderr.splitlines()
                     if "registers" in line or "spill" in line]
+    dump = subprocess.run([os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True)
+    handle.steps = step_instructions(dump.stdout) if dump.returncode == 0 else None
     return handle
 
 
@@ -247,10 +288,10 @@ def main(argv=None) -> int:
         text = f.read()
     k9 = stage_a_args(simulated_reads(), dev)
     want = fm_device.scan_stage_a_plain(*k9)
-    runs, equal, ptxas = {}, {}, {}
+    runs, equal, ptxas, steps = {}, {}, {}, {}
     for name, pairs in changes(text).items():
         lib = build(tree, name, changed(text, pairs))
-        ptxas[name] = lib.ptxas
+        ptxas[name], steps[name] = lib.ptxas, lib.steps
         runs[name] = launcher(lib, k9, "chars_transposed" in name)
         if name in RIGHT:
             equal[name] = all(torch.equal(a, b) for a, b in zip(runs[name](), want))
@@ -265,9 +306,10 @@ def main(argv=None) -> int:
         "lanes": k9[5].shape[0], "steps": k9[0], "equal_to_plain": equal,
         "ms": {k: float(np.median(v)) for k, v in times.items()},
         "ms_spread": {k: [float(min(v)), float(max(v))] for k, v in times.items()},
-        "ptxas": ptxas,
+        "ptxas": ptxas, "step_instructions": steps,
     }))
-    assert all(equal.values()), equal
+    if not all(equal.values()):
+        raise SystemExit(f"a copy whose outputs should stay right differs from the plain version: {equal}")
     return 0
 
 

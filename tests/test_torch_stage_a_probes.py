@@ -43,13 +43,14 @@ def test_each_change_does_what_it_is_named_for(source):
     def text(name):
         return stage_a_parts.changed(source, copies[name])
 
-    assert "    if (a.L < 0) write_tile(" in text("no_stores")
-    assert "load_below(plane, q.row >> 30, q.tail, row);" in text("fixed_row")
+    no_stores = text("no_stores")
+    assert no_stores.count("if (a.L < 0) {") == 2 and no_stores.count("*va = ") == 2
+    assert "    load_below(plane, q.row >> 30, q.tail, row);" in text("fixed_row")
     transposed = text("chars_transposed")
     assert "__ldg(chars + static_cast<size_t>(t + 1) * a.L)" in transposed
     assert "__ldg(chars + static_cast<size_t>(max_t) * a.L)" in transposed
     # the other designs' changes are their own: they do not all apply here
-    for other in ("one-thread", "tiled"):
+    for other in ("one-thread", "tiled", "pair-staged"):
         assert not all(all(source.count(old) == 1 for old, _new in pairs)
                        for pairs in stage_a_parts.DESIGNS[other].values()), other
 
@@ -57,17 +58,19 @@ def test_each_change_does_what_it_is_named_for(source):
 def test_a_changed_source_fails_loudly(source):
     copies = stage_a_parts.changes(source)
     with pytest.raises(RuntimeError, match="want one"):
-        stage_a_parts.changed(source.replace("write_tile(b, a, lane0", "write_tile(b, a,  lane0"),
-                              copies["no_stores"])
+        stage_a_parts.changed(source.replace("    load_below(plane, q.row, q.tail, row);",
+                                             "    load_below(plane, q.row,  q.tail, row);"),
+                              copies["fixed_row"])
 
 
-def test_the_tiled_designs_fetch_flips_either_way():
-    """The tiled design (kept in the history for the split's A/B) flips
-    its row fetch from whichever way its source has it."""
-    tiled = "struct WarpBuffers {};\nconstexpr bool kCoopRows = false;\n"
-    assert stage_a_parts.design(tiled) == "tiled"
-    flip = dict(stage_a_parts.changes(tiled))["other_fetch"]
-    assert stage_a_parts.changed(tiled, flip).count("kCoopRows = true;") == 1
+def test_the_history_designs_are_told_apart():
+    """The designs kept in the history for the split's A/B are told apart by
+    their sources; only the tiled one has the other row fetch."""
+    assert stage_a_parts.design("struct WarpTile {};") == "pair-staged"
+    assert stage_a_parts.design("const int lane = g >> 1, side = g & 1;") == "pair"
+    assert stage_a_parts.design("struct WarpBuffers {};") == "tiled"
+    assert stage_a_parts.design("int lane;") == "one-thread"
+    assert [d for d, own in stage_a_parts.DESIGNS.items() if "other_fetch" in own] == ["tiled"]
 
 
 def test_probe_reads_are_the_main_paths():
@@ -129,3 +132,15 @@ def test_stage_a_cases_name_k9_and_g1_at_their_shapes(pipeline):
             assert tuple(got[0].shape) == (23, 8, 3), label
         else:
             assert torch.equal(got, kernel_ab.library_call(name, fn.args)()), label
+
+
+def test_step_instructions_count_the_longest_innermost_loop():
+    """The probe's count of a step: the longest loop that holds no other,
+    each opcode by the unit that runs it."""
+    sass = "\n".join(f"        /*{a:04x}*/                   {op} ;" for a, op in [
+        (0x10, "MOV R1, R2"), (0x20, "LOP3.LUT R1, R2, R3, RZ, 0xc0, !PT"), (0x30, "POPC R1, R1"),
+        (0x40, "IMAD.MOV.U32 R1, RZ, RZ, R2"), (0x50, "@P0 BRA 0x20"), (0x60, "LDG.E R1, [R2]"),
+        (0x70, "SHFL.BFLY PT, R1, R1, 0x1, 0x1f"), (0x80, "ISETP.GE.AND P0, PT, R1, R2, PT"),
+        (0x90, "BRA 0x10"), (0xa0, "EXIT")])
+    assert stage_a_parts.step_instructions(sass) == {
+        "loop": 4, "alu": 1, "fma": 1, "popc": 1, "memory": 0, "other": 1}
