@@ -57,14 +57,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (`trace_index`) K6's warm walls, a torch.profiler trace of the sort
      (device time, operations, torch.sort's share and the digit passes of
      each of its calls) beside the bound of the passes this design runs,
-     and its peak memory against `SORT_BYTES_PER_CHAR`; then the distributed index build (K8, `parallel/dist_build.py`) of the
-     same forward text split into D = 2 and 4 segments on [cuda:0] * D: its
-     suffix array equal to K6's, its BWT and permutation equal to K6's and
-     to reads.bwt / reads.sai, its warm wall (3 builds in turn with K6's),
-     device time, torch.sort's share and costliest operations
-     (torch.profiler), peak device memory beside K6's and the memory check's
-     estimate, the bytes each global sort moved between entries, its host
-     synchronisations, and its bound;
+     and its peak memory against `SORT_BYTES_PER_CHAR`; then the
+     distributed index build (K8, `parallel/dist_build.py`: torch.sort
+     passes, around them K6's kernels and the four of `csrc/dist_sort.cu`)
+     of the same forward text split into D = 2 and 4 segments on [cuda:0] *
+     D, counts reset just before (each kernel of its route must launch):
+     its suffix array equal to K6's, its BWT and permutation equal to K6's
+     and to reads.bwt / reads.sai; its warm wall (3 builds in turn with
+     K6's); each of its steps' kernels against its plain version on the same
+     inputs (timed at D = 2 beside its bytes bound), there and on every text
+     of `sa_edge_reads` at D = 2, 4 and 8 (the route equal to K6's); and in
+     a process of its own (`trace_dist`) its device time beside K6's,
+     operations, torch.sort's share and full-length digit passes, the bound
+     of this design (passes, kernels, bytes moved between entries), its host
+     synchronisations (`sync_sites`, equal to the build's own count) and
+     its peak memory against the memory check's estimate;
  10. `rmdup` on the card, counts reset just before it: K1 must launch (and
      K2 once a direction), the
      hits of 256 sampled reads equal the host engine's
@@ -189,9 +196,10 @@ from siga_tpu_torch.overlap.builder import Hit, OverlapBuilder
 from siga_tpu_torch.parallel import dist, dist_build, multihost
 from siga_tpu_torch.probes import gather
 from siga_tpu_torch.probes.kernel_ab import SA_REPS as SA_WALLS
-from siga_tpu_torch.probes.kernel_ab import (host_walls, kernel_spans, library_call, sa_readings,
-                                             single_scan_args, sort_readings, sw_edge_pairs,
-                                             sw_synthetic_pairs, sw_tensors, trace_device)
+from siga_tpu_torch.probes.kernel_ab import (dist_readings, host_walls, kernel_spans, library_call,
+                                             sa_readings, single_scan_args, sort_readings,
+                                             sw_edge_pairs, sw_synthetic_pairs, sw_tensors,
+                                             trace_device)
 
 SEED = 1
 GENOME = 1_000_000
@@ -211,11 +219,15 @@ SCAN_ROUNDS = 5  # K1, K3 and the sharded scan timed in turn and traced, this ma
 SHARDS = (2, 4)  # the index-sharded scan's shard counts, D allocations on cuda:0 each
 SEGMENTS = (2, 4)  # the distributed index build's entries, [cuda:0] * D each
 DIST_ROUNDS = 3  # distributed builds timed in turn with K6's bwt_perm_device
-SA_REPS, SA_PLAIN_REPS = 20, 3  # calls of a K6 kernel, of its plain version, a timing
+SA_REPS, SA_PLAIN_REPS = 20, 3  # calls of a K6 or K8 kernel, of its plain version, a timing
 # the step each K6 kernel's JSON row times at the main path's shape
 SA_TIMED = {"sa_seed_keys": "sa_seed_keys", "sa_gather": "sa_gather, key_a",
             "sa_seed_ranks": "sa_seed_ranks", "sa_round_keys": "sa_round_keys",
             "sa_round_scatter": "sa_round_scatter", "sa_bwt_perm": "sa_bwt_perm"}
+# the step each K8 kernel's JSON row times at the main path's shape (D = 2)
+DIST_TIMED = {"dist_levels": "dist_levels, seed", "dist_bounds": "dist_bounds",
+              "dist_merge": "dist_merge", "dist_number": "dist_number"}
+DIST_K6 = ("sa_seed_keys", "sa_gather", "sa_round_keys")  # K6's kernels that K8 runs
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
@@ -892,20 +904,80 @@ def check_sa_kernels(dev, seqs) -> dict:
     return rows
 
 
-def time_dist_build(dev, seqs):
-    """The distributed index build (K8, torch ops, `parallel/dist_build.py`)
-    on the main path's forward text, split into D = 2 and 4 segments on
-    [cuda:0] * D.  Its suffix array equals K6's `suffix_array_device` order,
-    and its BWT and permutation equal `bwt_perm_device`'s and the reads.bwt /
-    reads.sai that `index` wrote, exactly.  Then its warm wall (DIST_ROUNDS
-    builds in turn with K6's `bwt_perm_device`, host clock), device time and
-    costliest operations (torch.profiler), peak device memory beside K6's and
-    beside the memory check's estimate, the bytes each global sort moved
-    between entries, the host synchronisations, and the bound (the text
-    read once, one int32 a suffix written once)."""
+def dist_step_bytes(name: str, args) -> int:
+    """The bytes a K8 step must move with `args`: each input read once (a
+    gathered array at most whole), each output written once; a binary
+    search its rows' reads."""
+    if name == "dist_levels":
+        idx, order, key, sentpos, codes, sents = (*args, None, None, None)[:6]
+        m = idx.numel()
+        given = [x for x in (order, key, sentpos, codes) if x is not None]
+        # outputs: the position, the key, sentpos, the payload
+        out = 8 * (order is not None) + 8 * (key is not None) + (sentpos is not None) + 8 * (
+            codes is not None)
+        return (8 + out) * m + sum(min(x.numel(), m) * x.element_size() for x in given) + (
+            0 if sents is None else sents.nbytes)
+    if name == "dist_bounds":
+        cols, _base, split = args
+        row = sum(c.element_size() for c in cols if c is not None)
+        return split[0].numel() * (2 * row + 8 + cols[0].numel().bit_length() * row)
+    if name == "dist_merge":
+        a, _a_base, b, _b_base, out = args
+        m = a[0].numel() + b[0].numel()
+        read = sum(x.element_size() for i, x in enumerate(a)
+                   if x is not None and (i in dist_build.KEYS or out[i] is not None))
+        return m * (read + sum(o.element_size() for o in out if o is not None))
+    if name == "dist_number":
+        cols = args[0]
+        return cols[dist_build.POS].numel() * (sum(c.element_size() for c in cols if c is not None)
+                                               + 4)
+    raise ValueError(name)
+
+
+def check_dist_steps(record, text: str, timed: bool) -> dict:
+    """Each K8 step `record` holds (`parallel/dist_build.py::_step`): its
+    kernel against its plain version on copies of the same inputs, bit for
+    bit; with `timed` each also timed by CUDA events (SA_REPS calls; the
+    plain version SA_PLAIN_REPS) beside its bytes bound.  Returns {kernel:
+    JSON row} of the steps DIST_TIMED names (when timed)."""
+    rows = {}
+    for label, (name, args) in record.items():
+        wrapper, plain = dist_build.STEPS[name]
+        got, want = dist_build._copy(args), dist_build._copy(args)
+        err = max_abs_err(dist_build.step_outputs(name, got, wrapper(*got)),
+                          dist_build.step_outputs(name, want, plain(*want)))
+        assert err == 0, f"K8 {label} on {text}: the kernel differs from its plain version ({err})"
+        line = f"K8 {label} on {text}: equal to its plain version"
+        if timed:
+            bound = bytes_ms(dist_step_bytes(name, args))
+            ms = cuda_ms(lambda: wrapper(*got), SA_REPS)
+            plain_ms = cuda_ms(lambda: plain(*want), SA_PLAIN_REPS)
+            line += (f"; {ms:.4f} ms by CUDA events, {bound / ms:.1%} of its {bound:.4f} ms bytes "
+                     f"bound; plain {plain_ms:.4f} ms [{card_line()}]")
+            if DIST_TIMED[name] == label:
+                rows[name] = kernel_row(err, ms, plain_ms, bound, "bytes", None)
+        print(line)
+        del got, want
+    return rows
+
+
+def time_dist_build(dev, seqs) -> tuple:
+    """The distributed index build (K8, `parallel/dist_build.py`: torch.sort
+    passes, around them K6's kernels and those of `csrc/dist_sort.cu`) on
+    the main path's forward text split into D = 2 and 4 segments on
+    [cuda:0] * D, counts reset just before: its suffix array equals K6's
+    `suffix_array_device` order, and its BWT and permutation equal
+    `bwt_perm_device`'s and the reads.bwt / reads.sai that `index` wrote,
+    exactly; each K8 and K6 kernel of the route must launch.  Then its warm
+    wall (DIST_ROUNDS builds in turn with K6's `bwt_perm_device`, host
+    clock); each K8 step against its plain version (`check_dist_steps`,
+    timed at D = 2) there and on every text of `sa_edge_reads` at D = 2, 4
+    and 8, the route's output equal to K6's; and its device time, digit
+    passes, host synchronisations and peak memory in a process of its own
+    (`trace_dist`).  Returns (the K8 path's launches, each new kernel's
+    JSON row)."""
     card = card_line()
     codes, _starts, _lengths = sa_mod.concat_reads(seqs)
-    n = codes.size
     want_sa = sa_mod.suffix_array_device(codes, dev).cpu().numpy()
     k6 = functools.partial(sa_mod.bwt_perm_device, codes, dev)
     want_bwt, want_perm = k6()
@@ -913,51 +985,141 @@ def time_dist_build(dev, seqs):
     file_perm, _ = load_sai("reads.sai")
     assert file_ns == len(seqs) and np.array_equal(want_bwt, file_bwt), "reads.bwt differs"
     assert np.array_equal(want_perm, file_perm), "reads.sai differs"
-    k6_peak = peak_bytes(k6)
-    bound = bytes_ms(n * (1 + 4))
-    print(f"K8 bound {bound:.4f} ms ({n} chars: the text read once, one int32 a suffix written "
-          f"once; bytes); K6 bwt_perm_device peak device memory {k6_peak} B = "
-          f"{k6_peak / n:.1f} per char [{card}]")
+    kernels.reset_launches()
     for d in SEGMENTS:
         devs = dist.device_list([dev] * d)
         got_sa = dist_build.distributed_sa(codes, devs)
         assert np.array_equal(got_sa, want_sa), f"D = {d}: the suffix array differs from K6's"
         del got_sa
-        build = functools.partial(dist_build.distributed_bwt_perm, codes, devs)
-        bwt, perm = build()
+        bwt, perm = dist_build.distributed_bwt_perm(codes, devs)
         assert np.array_equal(bwt, want_bwt) and np.array_equal(perm, want_perm), \
             f"D = {d}: the BWT or permutation differs from K6's and the index files"
         del bwt, perm
+    launches = {name: n for name, n in kernels.launches.items() if n}
+    print(f"K8 distributed_sa and distributed_bwt_perm at D = {SEGMENTS} on [cuda:0] x D, "
+          f"{codes.size} chars: SA equal to suffix_array_device, BWT + perm equal to "
+          f"bwt_perm_device and reads.bwt / reads.sai; launches {launches}")
+    assert set(launches) == set(DIST_TIMED) | set(DIST_K6), launches
+    for d in SEGMENTS:
+        build = functools.partial(dist_build.distributed_bwt_perm, codes, [dev] * d)
         walls = host_walls([build, k6], DIST_ROUNDS)
-        dev_ms, n_ops, by_name, prof = trace_device(build)
-        peak = peak_bytes(build)
-        sites, (_out, stats) = sync_sites(
-            functools.partial(dist_build.run_distributed, codes, devs, emit_bwt=True))
-        del _out
-        held = d * (2 * stats["segment"] + dist_build.SEED_HALO)
-        print(f"K8 distributed_bwt_perm on [cuda:0] x {d}, {n} chars, segments {stats['sizes']} "
-              f"(S = {stats['segment']}): SA equal to suffix_array_device, BWT + perm equal to "
-              f"bwt_perm_device and reads.bwt / reads.sai; warm wall ({DIST_ROUNDS} builds in "
+        print(f"K8 distributed_bwt_perm on [cuda:0] x {d}: warm wall ({DIST_ROUNDS} builds in "
               f"turn, host clock) median {np.median(walls[0]):.4f} s (min-max "
               f"{min(walls[0]):.4f}-{max(walls[0]):.4f}), K6 bwt_perm_device in turn median "
               f"{np.median(walls[1]):.4f} s (min-max {min(walls[1]):.4f}-{max(walls[1]):.4f}) "
               f"[{card}]")
+    rows = {}
+    texts = {"the main path's forward text": seqs, **sa_edge_reads()}
+    for text, reads in texts.items():
+        codes = sa_mod.concat_reads(reads)[0]
+        if codes.size <= 1:
+            continue
+        want_sa = sa_mod.suffix_array_device(codes, dev).cpu().numpy()
+        want_bwt, want_perm = sa_mod.bwt_perm_device(codes, dev)
+        for d in (SEGMENTS if not rows else (2, 4, 8)):
+            try:
+                record = {}
+                outs, _stats = dist_build.run_distributed(codes, [dev] * d, True, record)
+            except ValueError as exc:  # segments shorter than the doubling halo
+                print(f"K8 on {text} at D = {d}: refused ({exc})")
+                continue
+            packed = torch.cat(outs).cpu()
+            sym = (packed & 7).to(torch.uint8)
+            assert np.array_equal(sym.numpy(), want_bwt), f"K8 {text} D = {d}: the BWT differs"
+            assert np.array_equal((packed[sym == 0] >> 3).numpy(), want_perm), \
+                f"K8 {text} D = {d}: the permutation differs"
+            assert np.array_equal(dist_build.distributed_sa(codes, [dev] * d), want_sa), \
+                f"K8 {text} D = {d}: the SA differs"
+            print(f"K8 on {text} ({codes.size} chars) at D = {d}: SA, BWT and permutation equal "
+                  f"to K6's")
+            timed = not rows and d == SEGMENTS[0]
+            rows.update(check_dist_steps(record, f"{text} at D = {d}", timed))
+            del record, outs
+        torch.cuda.empty_cache()
+    assert set(rows) == set(DIST_TIMED), rows
+    in_child("trace_dist")
+    return {name: n for name, n in launches.items() if name in DIST_TIMED}, rows
+
+
+def k8_route_bytes(n: int, s: int, d: int, rounds: int, passes, moved: int) -> tuple:
+    """(bytes of the sort passes, bytes of the hand kernels, bytes moved
+    between entries) of one `distributed_bwt_perm` of n characters in d
+    segments of s: each torch.sort call of s rows moves its key and its
+    int64 index, read and written once, in each digit pass (`passes`: the
+    trace's onesweep count of each full-length call; a one-pass call sorts
+    the one-byte sentpos); each kernel each input read once and each output
+    written once (K6's seed keys and gathers as `sa_step_bytes` counts
+    them; `levels`, a tree level of merges and a numbering as
+    `dist_step_bytes`); `moved`, the build's own count of the pieces out
+    and the ranks back."""
+    sort_bytes = sum(p * 2 * ((1 if p == 1 else 8) + 8) * s for p in passes)
+    seed = d * ((s + 82 + 17 * s) + 8 * s * 3 + 8 * s * 5 + 42 * s)
+    levels_tree = max(d.bit_length() - 1, 1) if d > 1 else 0
+    seed_merge = levels_tree * n * 50 + d * s * 29
+    rounds_bytes = rounds * d * (12 * s + 4 * s + 8)  # round_keys, the halo copy
+    round_merges = max(rounds - 1, 0) * (levels_tree * n * 32 + d * s * 20)
+    last = d * s * 17 + levels_tree * n * 32  # the payload's levels, the last merge
+    return sort_bytes, seed + seed_merge + rounds_bytes + round_merges + last, moved
+
+
+def trace_dist(dev):
+    """K8 on the forward text of the main path's reads (reads.fa) in a process
+    of its own, at D = 2 and 4 on [cuda:0] * D: `kernel_ab.dist_readings`
+    (warm walls, device time and operations, torch.sort's share and its
+    digit passes, peak bytes a character) beside K6's device time in the
+    same process, the host synchronisations (`sync_sites`, equal to the
+    build's own count) and the bound of this design's passes, kernels and
+    exchanges (`k8_route_bytes`).  Returns {D: device ms}."""
+    seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
+    codes = sa_mod.concat_reads(seqs)[0]
+    kernels.lib()
+    card = card_line()
+    loose = bytes_ms(codes.size * (1 + 4))
+    k6_times, _k6_counts, _ = sa_readings(codes, dev, reps=3)
+    k6_ms = k6_times["suffix_array_device device time"]
+    out = {}
+    for d in SEGMENTS:
+        times, counts, _digest = dist_readings(codes, dev, d)
+        sites, (_outs, stats) = sync_sites(
+            functools.partial(dist_build.run_distributed, codes, [dev] * d, emit_bwt=True))
+        del _outs
+        assert len(sites) == stats["host_syncs"], (sites, stats["host_syncs"])
+        full = [p[0] for p in counts["sort passes"] if p[0]]
+        moved = sum(p["moved_bytes"] for p in stats["phases"])
+        sort_bytes, kernel_bytes, moved = k8_route_bytes(codes.size, stats["segment"], d,
+                                                         stats["rounds"], full, moved)
+        bound = bytes_ms(sort_bytes + kernel_bytes + moved)
+        dev_ms, sort_ms = times["device time"], times["torch.sort device time"]
+        n_ops = counts["device operations"]
+        print(f"K8 D = {d}, {codes.size} chars (S = {stats['segment']}, {stats['rounds']} "
+              f"rounds): warm wall of distributed_bwt_perm median {times['wall median']:.4f} ms "
+              f"(min-max {times['wall min']:.4f}-{times['wall max']:.4f}) [{card}]")
         if n_ops:
-            sort_ms = sort_readings(prof)[0]
-            print(f"  K8 D = {d} device time (torch.profiler) {dev_ms:.4f} ms in {n_ops} device "
-                  f"operations, {bound / dev_ms:.2%} of the bound; torch.sort {sort_ms:.4f} ms = "
-                  f"{sort_ms / dev_ms:.1%}; costliest: {top_ops(by_name)} [{card}]")
+            print(f"K8 D = {d} device time (torch.profiler) {dev_ms:.4f} ms in {n_ops} device "
+                  f"operations ({dev_ms / k6_ms:.2f}x K6's suffix_array_device {k6_ms:.4f} ms in "
+                  f"this process), {loose / dev_ms:.2%} of the loose bound {loose:.4f} ms; "
+                  f"torch.sort {sort_ms:.4f} ms = {sort_ms / dev_ms:.1%}; full-length digit "
+                  f"passes (onesweep kernels of each torch.sort) {full}: {sum(full)} in all, "
+                  f"{sum(full) / d:g} an entry; {bound / dev_ms:.1%} of this design's bound; "
+                  f"costliest: " + "; ".join(f"{name} {ms:.4f} ms x{k}"
+                                              for name, ms, k in counts["costliest"])
+                  + f" [{card}]")
         else:
-            print(f"  K8 D = {d} device time: not measured (the trace holds no device operation)")
-        print(f"  K8 D = {d} peak device memory {peak} B = {peak / n:.1f} per char (K6 "
-              f"{k6_peak / n:.1f}); the memory check's estimate "
-              f"{sa_mod.SORT_BYTES_PER_CHAR * held} B; host synchronisations "
-              f"{stats['host_syncs']} by the build's count (bucket sizes, run counts), {len(sites)} "
-              f"by torch.cuda.set_sync_debug_mode (all, before the output's copy); moved between entries (pieces out and ranks back), per "
-              f"global sort: " + ", ".join(
-                  f"{p['phase']} {p['moved_bytes']} B (largest bucket {max(p['buckets'])})"
-                  for p in stats["phases"]) + f" [{card}]")
-        assert peak <= sa_mod.SORT_BYTES_PER_CHAR * held, "the build's memory estimate is too low"
+            print(f"K8 D = {d} device time: not measured (the trace holds no device operation)")
+        held = d * (2 * stats["segment"] + dist_build.SEED_HALO)
+        peak = counts["peak bytes a char"]
+        print(f"K8 D = {d} bound of this design {bound:.4f} ms (bytes: the digit passes "
+              f"{sort_bytes} B, the hand kernels {kernel_bytes} B, moved between entries {moved} "
+              f"B); host synchronisations {len(sites)} by torch.cuda.set_sync_debug_mode {sites}, "
+              f"{stats['host_syncs']} by the build's count (one a global sort's sizes); peak "
+              f"device memory {peak:.1f} B a char (the memory check's estimate "
+              f"{sa_mod.SORT_BYTES_PER_CHAR * held / codes.size:.1f}); per global sort: "
+              + ", ".join(f"{p['phase']} moved {p['moved_bytes']} B (largest bucket "
+                          f"{max(p['buckets'])})" for p in stats["phases"]) + f" [{card}]")
+        assert peak * codes.size <= sa_mod.SORT_BYTES_PER_CHAR * held, \
+            "the build's memory estimate is too low"
+        out[str(d)] = dev_ms if n_ops else None
+    return out
 
 
 def sync_sites(fn):
@@ -2311,7 +2473,8 @@ def main(argv=None) -> int:
         k6 = check_sa_kernels(dev, seqs)
         time_index_layers(dev, seqs)
         phase("the distributed index build (K8) on [cuda:0] x D against K6 and the index files")
-        time_dist_build(dev, seqs)
+        k8_launches, k8 = time_dist_build(dev, seqs)
+        launches.update(k8_launches)
         phase("rmdup on the card, then with SIGA_PAIR_STEP=0 (K3)")
         launches["scan_single"] += run_rmdup(builder, seqs, rng)["scan_single"]
         phase("gather probes: the probe CLI on the pair plane")
@@ -2382,6 +2545,9 @@ def main(argv=None) -> int:
         (name, "siga_tpu_torch/csrc/suffix_sort.cu",
          "siga_tpu/index/sa.py:" + ("361" if name == "sa_bwt_perm" else "221"), row)
         for name, row in k6.items()
+    ] + [
+        (name, "siga_tpu_torch/csrc/dist_sort.cu", "siga_tpu/parallel/dist_build.py:123", row)
+        for name, row in k8.items()
     ] + [
         (name, "siga_tpu_torch/csrc/gather_probe.cu", replaces, row)
         for name, (row, replaces) in probes.items()

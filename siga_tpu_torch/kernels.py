@@ -38,6 +38,7 @@ launches = {
     "scan_stage_a": 0, "sw_wavefront": 0, "kmer_count": 0, "gather_rows": 0, "take_along": 0,
     "gather_chain": 0, "scale2": 0, "sa_seed_keys": 0, "sa_gather": 0, "sa_seed_ranks": 0,
     "sa_round_keys": 0, "sa_round_scatter": 0, "sa_bwt_perm": 0, "launch_floor": 0,
+    "dist_levels": 0, "dist_bounds": 0, "dist_merge": 0, "dist_number": 0,
 }
 
 _lock = threading.Lock()
@@ -99,6 +100,17 @@ _SIGNATURES = {
     "siga_sa_round_scatter": [_P] * 4 + [_I] + [_P] * 4,
     # sa, c, n, reads, bwt, perm, scratch, stream
     "siga_sa_bwt_perm": [_P, _P, _I, _I, _P, _P, _P, _P],
+    # idx, order, key, sentpos, codes, sents, n_sents, rid_base, m, then
+    # out_pos, out_key, out_sp, out_pay, stream
+    "siga_dist_levels": [_P] * 6 + [_I, _L, _L] + [_P] * 4 + [_P],
+    # k1, k2, sp, pos, m, base, s_k1, s_k2, s_sp, s_pos, nsplit, out, stream
+    "siga_dist_bounds": [_P] * 4 + [_L, _L] + [_P] * 4 + [_I, _P, _P],
+    # a's k1, k2, sp, pos, pay, na, a_base, b's the same, then out's five
+    # columns, stream
+    "siga_dist_merge": [_P] * 5 + [_L, _L] + [_P] * 5 + [_L, _L] + [_P] * 5 + [_P],
+    # k1, k2, sp, pos, m, prev's k1, k2, sp, pos, off, tabs (host array of
+    # ntabs pointers), ntabs, seg, scratch, stream
+    "siga_dist_number": [_P] * 4 + [_L] + [_P] * 4 + [_L, _P, _I, _L, _P, _P],
 }
 
 

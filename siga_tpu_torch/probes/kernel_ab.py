@@ -1,12 +1,13 @@
 """Time K1 and K7, the gather probes G2, G3 and G4, the plane build K2, the
-single-step scan K3, Smith-Waterman K5, the device suffix sort K6 or the
-stage-A scan K9 with the row gather G1, of two
+single-step scan K3, Smith-Waterman K5, the device suffix sort K6, the
+distributed index build K8 or the stage-A scan K9 with the row gather G1, of two
 checkouts of the repo against each other on one card, at the error
 pipeline's own shapes.
 
     python3 chip_smoke.py --keep-pipeline DIR
     python3 -m siga_tpu_torch.probes.kernel_ab --trees OTHER,. --pipeline DIR \
-        [--probes | --plane | --scan | --sw | --sa | --stage-a] [--order 0,1,1,0] [--out FILE]
+        [--probes | --plane | --scan | --sw | --sa | --dist | --stage-a] [--order 0,1,1,0] \
+        [--out FILE]
 
 DIR holds the `benchmark/ecoli_scale.py 1.0 25 0.005` pipeline as
 `chip_smoke.py --keep-pipeline` leaves it.  This process takes the cases'
@@ -55,6 +56,14 @@ device operations, torch.sort's device time and, for each of its calls,
 the onesweep digit-pass kernels it ran, and the peak device memory of one
 `bwt_perm_device` a character; the digests cover the SA, the BWT and the
 permutation.
+With --dist the cases are K8, the distributed index build
+(`parallel/dist_build.py`), on the same two texts split into D = 2 and 4
+segments on [cuda:0] * D: per case the warm wall of `distributed_bwt_perm`
+(SA_REPS builds, host clock from a synchronised card to a synchronised
+card), from a torch.profiler trace of one build its device time, device
+operations and costliest operations, torch.sort's device time and the
+onesweep digit passes of each of its calls, and its peak device memory a
+character; the digests cover the SA, the BWT and the permutation.
 With --stage-a the cases are K9 (`fm_device.scan_stage_a`) on the first
 60,608 reads of DIR/reads.ec.fa as ID lanes (one overlap chunk's lanes; the
 `overlap` stage's -m 85) over the forward single-step plane of DIR/reads.ec,
@@ -104,6 +113,7 @@ SA_REPS = 5  # warm walls of each K6 entry a case
 STAGE_A_LANES, STAGE_A_MIN_OVERLAP = 60_608, 85  # K9 at one chunk's lanes, the overlap stage's -m
 STAGE_A_REPS = 20  # K9 and G1 calls a wall and a trace
 SA_CASES = {"K6 reads.ec.fa": "reads.ec.fa", "K6 primary-contigs.fa": "primary-contigs.fa"}
+DIST_SEGMENTS = (2, 4)  # K8's entries, [cuda:0] * D
 # K1 case: (pipeline prefix, -m), each with the ID/REV groups
 K1_CASES = {"K1 reads.ec.fa chunk": ("reads.ec", 85), "K1 contigs": ("primary-contigs.rmdup", 10)}
 
@@ -416,6 +426,65 @@ def sa_worker(tree: str, pipeline: str) -> dict:
     return out
 
 
+def dist_readings(codes, dev, d: int, reps: int = SA_REPS) -> tuple:
+    """K8 on the rank text `codes` over [dev] * d through
+    `parallel/dist_build.py`'s entry points (those of any checkout of the
+    port): (times, counts, digest).  times: the warm wall of
+    `distributed_bwt_perm` (ms: median, min, max of `reps`), its device time
+    and torch.sort's by torch.profiler; counts: its device operations,
+    torch.sort's calls and onesweep digit passes of each, its peak device
+    bytes a character, its costliest device operations ([name, ms, count])."""
+    import torch
+
+    from siga_tpu_torch.parallel import dist_build
+
+    devs = [dev] * d
+
+    def bwt_perm():
+        return dist_build.distributed_bwt_perm(codes, devs)
+
+    bwt, perm = bwt_perm()
+    digest = _digest([torch.from_numpy(dist_build.distributed_sa(codes, devs)),
+                      torch.from_numpy(bwt), torch.from_numpy(perm)])
+    del bwt, perm
+    ms = sorted(w * 1e3 for w in host_walls([bwt_perm], reps)[0])
+    times = {"wall median": float(np.median(ms)), "wall min": ms[0], "wall max": ms[-1]}
+    dev_ms, n_ops, by_name, prof = trace_device(bwt_perm)
+    sort_ms, passes = sort_readings(prof)
+    times["device time"], times["torch.sort device time"] = dev_ms, sort_ms
+    costliest = sorted(by_name.items(), key=lambda item: -item[1][0])[:6]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    bwt_perm()
+    counts = {"device operations": n_ops, "sort passes": passes,
+              "peak bytes a char": (torch.cuda.max_memory_allocated() - before) / codes.size,
+              "costliest": [[name[:90], ms, k] for name, (ms, k) in costliest]}
+    return times, counts, digest
+
+
+def dist_worker(tree: str, pipeline: str) -> dict:
+    """K8 of the checkout at `tree` on SA_CASES' texts at each of
+    DIST_SEGMENTS."""
+    import torch
+
+    from siga_tpu_torch.index import sa
+    from siga_tpu_torch.io import fastx
+
+    out = _start(tree)
+    out["counts"] = {}
+    for label, name in SA_CASES.items():
+        seqs = [r.seq for r in fastx.read_sequences(os.path.join(pipeline, name))]
+        codes = sa.concat_reads(seqs)[0]
+        for d in DIST_SEGMENTS:
+            case = f"K8 {name} ({codes.size} chars), D = {d}"
+            times, counts, digest = dist_readings(codes, torch.device("cuda", 0), d)
+            out["digests"][case] = digest
+            out["times"].update({f"{case}, {k}": v for k, v in times.items()})
+            out["counts"][case] = counts
+    return out
+
+
 def plane_worker(tree: str, pipeline: str) -> dict:
     """Times of K2 through the wrapper of the checkout at `tree`, on both
     directions of the pipeline's reads.ec index."""
@@ -691,6 +760,8 @@ def main(argv=None) -> int:
                       help="time Smith-Waterman K5 instead of K1 and K7")
     mode.add_argument("--sa", action="store_true",
                       help="time the device suffix sort K6 instead of K1 and K7")
+    mode.add_argument("--dist", action="store_true",
+                      help="time the distributed index build K8 instead of K1 and K7")
     mode.add_argument("--stage-a", action="store_true",
                       help="time the stage-A scan K9 and the row gather G1 instead of K1 and K7")
     parser.add_argument("--out", help="also write the JSON line here")
@@ -700,7 +771,8 @@ def main(argv=None) -> int:
     if args.worker:
         fn = (probe_worker if args.probes else plane_worker if args.plane
               else scan_worker if args.scan else sw_worker if args.sw
-              else sa_worker if args.sa else stage_a_worker if args.stage_a else worker)
+              else sa_worker if args.sa else dist_worker if args.dist
+              else stage_a_worker if args.stage_a else worker)
         run = fn(args.worker, pipeline)
         print("KERNEL_AB " + json.dumps(run), flush=True)
         return 0
@@ -709,9 +781,9 @@ def main(argv=None) -> int:
         make_sw_inputs(pipeline)
     elif args.stage_a:
         make_stage_a_inputs(pipeline)
-    elif not (args.probes or args.plane or args.sa):
+    elif not (args.probes or args.plane or args.sa or args.dist):
         make_inputs(pipeline)
-    modes = ("probes", "plane", "scan", "sw", "sa", "stage_a")
+    modes = ("probes", "plane", "scan", "sw", "sa", "dist", "stage_a")
     mode_args = [f"--{m.replace('_', '-')}" for m in modes if getattr(args, m)]
     runs = []
     for k in (int(i) for i in args.order.split(",")):

@@ -197,18 +197,21 @@ def test_no_entry_sorts_more_than_two_segments(monkeypatch, D):
     for p in stats["phases"]:
         assert len(p["buckets"]) == D and sum(p["buckets"]) == s * D
         assert max(p["buckets"]) <= 2 * s and p["moved_bytes"] > 0
-    # the sizes of each exchange and the run counts of each numbering but the last
-    assert stats["host_syncs"] == 3 + 2
+    # the sizes of each exchange: a numbering needs no run count (its first
+    # slot is known from the sizes, and a run from an earlier bucket takes
+    # that bucket's last rank)
+    assert stats["host_syncs"] == 3
     np.testing.assert_array_equal(torch.cat(out).numpy(), jax_sa.suffix_array_numpy(codes))
 
 
-def _dense_ranks(rows, resolved):
-    """Ranks of the rows (tuples, sorted) by the definition: a new run where
-    a row differs from the one before it, or is resolved."""
-    out, rank = [], -1
+def _head_ranks(rows):
+    """Ranks of the rows (tuples ending in sentpos, sorted) by the definition:
+    the slot of the first row of its run, a new run where a row differs from
+    the one before it or its sentpos is not 64."""
+    out = []
     for i, row in enumerate(rows):
-        rank += i == 0 or row != rows[i - 1] or bool(resolved[i])
-        out.append(rank)
+        new = i == 0 or row != rows[i - 1] or row[-1] != 64
+        out.append(i if new else out[-1])
     return out
 
 
@@ -216,19 +219,26 @@ def _dense_ranks(rows, resolved):
                                    [0, 0, 40, 0]])
 def test_number_runs_skips_empty_buckets(sizes):
     """A bucket's first row is compared with the last row of the previous
-    non-empty bucket, and its ranks start after the earlier buckets' runs,
-    whichever buckets are empty."""
+    non-empty bucket, and a run that starts there keeps its rank, whichever
+    buckets are empty; each rank lands in its segment's table at its
+    position, and no run count goes to the host."""
     rng = np.random.default_rng(sum(sizes[:2]))
-    rows = np.array(sorted(map(tuple, rng.integers(0, 3, (40, 2)).tolist())), dtype=np.int64)
-    resolved = rng.random(40) < 0.2
+    keys = rng.integers(0, 3, (40, 2))
+    sp = np.where(rng.random(40) < 0.2, 10, 64)
+    rows = sorted(map(tuple, np.column_stack([keys, sp]).tolist()))
+    arr = np.array(rows, dtype=np.int64)
+    pos = rng.permutation(40)  # 4 segments of 10
     cuts = np.cumsum([0, *sizes])
-    levels = [[torch.from_numpy(rows[lo:hi, j].copy()) for j in range(2)]
-              for lo, hi in zip(cuts[:-1], cuts[1:])]
-    res = [torch.from_numpy(resolved[lo:hi]) for lo, hi in zip(cuts[:-1], cuts[1:])]
-    stats = {"host_syncs": 0}
-    got = tdb._number_runs(levels, stats, res)
-    assert stats["host_syncs"] == 1 and [len(g) for g in got] == sizes
-    assert torch.cat(got).tolist() == _dense_ranks(list(map(tuple, rows.tolist())), resolved)
+    buckets = [[torch.from_numpy(arr[lo:hi, 0].copy()), torch.from_numpy(arr[lo:hi, 1].copy()),
+                torch.from_numpy(arr[lo:hi, 2].astype(np.uint8)), torch.from_numpy(pos[lo:hi]),
+                None] for lo, hi in zip(cuts[:-1], cuts[1:])]
+    tabs = [torch.full((10,), -1, dtype=torch.int32) for _ in range(4)]
+    stats = {"host_syncs": 0, "phases": [{"moved_bytes": 0}]}
+    diag = [[sizes[b] if s == b else 0 for b in range(4)] for s in range(4)]
+    tdb._number([torch.device("cpu")] * 4, buckets, diag, tabs, 10, stats, None)
+    assert stats["host_syncs"] == 0
+    got = torch.cat(tabs).numpy()[pos]
+    assert got.tolist() == _head_ranks(rows)
 
 
 @pytest.mark.parametrize("pick", [0, -1])
@@ -241,8 +251,8 @@ def test_empty_buckets_end_to_end(monkeypatch, texts, case, D, pick):
     codes, starts, _jsa, _jbp, want = texts(case)
     splitters = tdb._splitters
 
-    def one_splitter(devices, levels):
-        return [x[pick].repeat(x.numel()) for x in splitters(devices, levels)]
+    def one_splitter(*args):
+        return [None if x is None else x[pick].repeat(x.numel()) for x in splitters(*args)]
 
     monkeypatch.setattr(tdb, "_splitters", one_splitter)
     _out, stats = tdb.run_distributed(codes, ["cpu"] * D, emit_bwt=False)
