@@ -213,6 +213,7 @@ INDEX_FILES = ("sai", "bwt", "rsai", "rbwt")
 PROBE_LANES = 60608  # lanes of one overlap chunk (15,152 reads x 4 orientations)
 PROBE_STEPS = 150
 PROBE_ROUNDS = 5  # G2 and G4 timed in turn with their library call, this many rounds
+ELEM_TILES = (256, 512, 1024)  # G3 mode elem's shared tiles timed at k_d's shape
 PLANE_ROUNDS = 5  # K2 and its plain version timed in turn, this many builds each
 PLANE_REPEATS = 3  # K2 rebuilt this many times in a row, each equal to the first
 SCAN_ROUNDS = 5  # K1, K3 and the sharded scan timed in turn and traced, this many calls each
@@ -1284,9 +1285,13 @@ def check_probes(dev, plane):
 
     for tpu_name, where, name, args in gather.probe_cases(rng):
         args = gather.to_device(args, dev)
-        form = f", {take_form(*args)}" if name == "take_along" else ""
-        compare(name, args, 10, f"as {tpu_name} ({where}{form})")
+        form = (f", {take_form(*args)}" if name == "take_along"
+                else f", {elem_form(*args)}" if name == "gather_chain" and args[4] == "elem"
+                else "")
+        row = compare(name, args, 10, f"as {tpu_name} ({where}{form})")
         replaces.setdefault(name, []).append(where)
+        if tpu_name == "k_d":
+            k_d, k_d_ms = args, row["ms"]
     for name, e in check_probe_edges(dev).items():
         errs[name] = max(errs[name], e)
     R, _C = plane.shape
@@ -1300,30 +1305,58 @@ def check_probes(dev, plane):
     assert all(v[0]["max_abs_err"] == 0 for v in out.values()), out
     sweep_chain_groups(dev, plane)
     # the L2 round trip a lane's chain pays a step: 32 chains of dependent
-    # single-word gathers (G3, mode elem) over one direction's plane
+    # single-word gathers (G3 mode elem, read in place) over one direction's plane
     fwd = plane[: R // 2].reshape(1, -1)
     init = torch.randint(0, fwd.shape[1], (1, 32), dtype=torch.int32, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(SEED))
     steps = 2000
-    steps_ms = cuda_ms(lambda: gather.gather_chain(fwd, init, None, steps, "elem"), 3)
+    steps_ms = cuda_ms(lambda: gather.chain_elem(fwd, init, steps, gather.DIRECT), 3)
     step_ns = steps_ms * 1e6 / steps
-    print(f"gather_chain (elem), 32 chains x {steps} dependent steps over the forward plane "
-          f"({fwd.numel() * 4} B): {steps_ms:.4f} ms, {step_ns:.1f} ns a step (the L2 round trip)")
+    print(f"gather_chain (elem, direct), 32 chains x {steps} dependent steps over the forward "
+          f"plane ({fwd.numel() * 4} B): {steps_ms:.4f} ms, {step_ns:.1f} ns a step (the L2 "
+          f"round trip)")
     # the L1 round trip: the same chains over a 4 KB table, which L1 holds
     small, small_init = fwd[:, :1024].contiguous(), init % 1024
-    l1_ms = cuda_ms(lambda: gather.gather_chain(small, small_init, None, steps, "elem"), 3)
+    l1_ms = cuda_ms(lambda: gather.chain_elem(small, small_init, steps, gather.DIRECT), 3)
     l1_ns = l1_ms * 1e6 / steps
-    k_d = next(args for tpu, _w, _n, args in gather.probe_cases(np.random.default_rng(SEED))
-               if tpu == "k_d")
+    # the shared-memory round trip: the same chains over the table staged in
+    # shared memory (G3 mode elem's shared form)
+    want = gather.gather_chain_plain(small, small_init, None, steps, "elem")
+    assert torch.equal(gather.chain_elem(small, small_init, steps, gather.SHARED), want)
+    sh_ms = cuda_ms(lambda: gather.chain_elem(small, small_init, steps, gather.SHARED), 3)
+    sh_ns = sh_ms * 1e6 / steps
     k_d_steps = k_d[3]
-    print(f"gather_chain (elem), 32 chains x {steps} dependent steps over a 4 KB table: "
-          f"{l1_ms:.4f} ms, {l1_ns:.1f} ns a step (the L1 round trip); k_d's chain bound "
-          f"({k_d_steps} dependent loads a chain): {k_d_steps * l1_ns / 1e6:.5f} ms at the L1 "
-          f"round trip, {k_d_steps * step_ns / 1e6:.5f} ms at the L2's [{card_line()}]")
+    print(f"gather_chain (elem, direct), 32 chains x {steps} dependent steps over a 4 KB table: "
+          f"{l1_ms:.4f} ms, {l1_ns:.1f} ns a step (the L1 round trip); k_d's chain bound in the "
+          f"direct form ({k_d_steps} dependent loads a chain): {k_d_steps * l1_ns / 1e6:.5f} ms "
+          f"at the L1 round trip, {k_d_steps * step_ns / 1e6:.5f} ms at the L2's [{card_line()}]")
+    print(f"gather_chain (elem, shared), 32 chains x {steps} dependent steps over a 4 KB table, "
+          f"equal to plain: {sh_ms:.4f} ms, {sh_ns:.1f} ns a step (the shared-memory round "
+          f"trip) [{card_line()}]")
     # the launch floor: an empty kernel, timed as the kernels above
     floor_ms = [cuda_ms(lambda: gather.launch_floor(dev), 100) for _ in range(PROBE_ROUNDS)]
     print(f"launch floor (an empty kernel, CUDA events, 100 launches a timing): "
           f"{spread(floor_ms)} [{card_line()}]")
+    floor = float(np.median(floor_ms))
+    print(f"launch-and-latency bounds (the launch floor and each dependent L2 round trip): "
+          f"G4 at [8, 128] (a load, then its store) {floor + step_ns / 1e6:.5f} ms; G2's k_a "
+          f"and k_b at [8, 128] (the index, then the table word) {floor + 2 * step_ns / 1e6:.5f} "
+          f"ms [{card_line()}]")
+    sweep_elem_tiles(dev, k_d)
+    # k_d's bounds: its bytes; its chain at the shared round trip; the design's
+    # (the launch floor, one row staged at HBM rate, the chain)
+    table, init = k_d[0], k_d[1]
+    chain = k_d_steps * sh_ns / 1e6
+    design = floor + bytes_ms(table.shape[1] * 4) + chain
+    wavefronts, banks_ms = elem_bank_bound(table, init, k_d_steps,
+                                           gather.chain_elem_tile(init.shape[1]))
+    print(f"k_d {tuple(table.shape)} x {k_d_steps} ({elem_form(*k_d)}): {k_d_ms:.4f} ms; bytes "
+          f"bound {bytes_ms(probe_bytes('gather_chain', k_d)):.5f} ms; chain bound at the shared "
+          f"round trip {chain:.5f} ms ({chain / k_d_ms:.1%}); design bound {design:.5f} ms "
+          f"(launch floor, a row's {table.shape[1] * 4} B, the chain), k_d at "
+          f"{design / k_d_ms:.1%} of it; its loads' bank conflicts: {wavefronts:.3f} wavefronts a warp's load, "
+          f"{banks_ms:.5f} ms on the busiest SM at the highest SM clock, with the launch floor "
+          f"{floor + banks_ms:.5f} ms (k_d at {(floor + banks_ms) / k_d_ms:.1%}) [{card_line()}]")
     return out, step_ns
 
 
@@ -1380,6 +1413,73 @@ def sweep_chain_groups(dev, plane):
           f"byte bound {bytes_ms(probe_bytes('gather_chain', on_plane)):.4f} ms")
 
 
+def sweep_elem_tiles(dev, k_d):
+    """G3 mode elem's shared form at k_d's shape with each tile of lanes a
+    block, and at no steps (the launch and the row's staging), beside the
+    direct form and the tile `gather.chain_elem_tile` takes; then the same
+    on the table cut to 8,184 words a row, whose modulo is no power of two
+    (the general reduction; its rows still 16-byte aligned).  Every call
+    equal to the plain version."""
+    table, init, _c, steps, mode = k_d
+    N = table.shape[1]
+    cases = [(f"k_d {tuple(table.shape)}", table, init),
+             (f"k_d's table cut to N = {N - 8}", table[:, : N - 8].contiguous(), init % (N - 8))]
+    for label, t, i in cases:
+        times = {}
+        for tile in ELEM_TILES:
+            for n in (steps, 0):
+                want = gather.gather_chain_plain(t, i, None, n, mode)
+                assert torch.equal(gather.chain_elem(t, i, n, gather.SHARED, tile), want), tile
+                times[tile, n] = cuda_ms(lambda: gather.chain_elem(t, i, n, gather.SHARED, tile),
+                                         10)
+        direct_ms = cuda_ms(lambda: gather.chain_elem(t, i, steps, gather.DIRECT), 10)
+        print(f"gather_chain (elem) {label} x {steps}, shared form, equal to plain: "
+              + ", ".join(f"tile {tile} {times[tile, steps]:.4f} ms (no steps "
+                          f"{times[tile, 0]:.4f})" for tile in ELEM_TILES)
+              + f"; direct form {direct_ms:.4f} ms; chain_elem_tile takes "
+              f"{gather.chain_elem_tile(i.shape[1])} [{card_line()}]")
+
+
+def elem_bank_bound(table, init, steps, tile):
+    """The least time G3 mode elem's shared form can spend on its chains'
+    shared-memory loads: at each step a warp's 32 lanes load in as many
+    wavefronts as the most distinct words any one of the 32 banks holds
+    among them (a bank serves one word a cycle; equal words broadcast).  The
+    states are the plain version's, step by step; block b runs on SM b mod
+    the SM count; the bound is the busiest SM's wavefronts at the card's
+    highest SM clock.  Returns (mean wavefronts a warp's load, ms)."""
+    (W, N), M, dev = table.shape, init.shape[1], table.device
+    tiles, per_block = -(-M // tile), tile // 32
+    warps = W * tiles * per_block
+    lane_warp = (torch.arange(W, device=dev)[:, None] * (tiles * per_block)
+                 + torch.arange(M, device=dev)[None, :] // 32)
+    busy = torch.zeros(warps, dtype=torch.int64, device=dev)
+    t64, state = table.to(torch.int64), init.to(torch.int64)
+    for s in range(steps):
+        words = torch.unique(lane_warp * N + state)  # distinct (warp, word) pairs
+        banks = words // N * 32 + words % N % 32
+        busy += torch.bincount(banks, minlength=warps * 32).view(warps, 32).amax(dim=1)
+        state = gather._wrap32(state + t64.gather(1, state) + s) % N
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = busy.view(W * tiles, per_block).sum(dim=1)
+    per_sm = torch.zeros(sms, dtype=torch.int64, device=dev).index_add_(
+        0, torch.arange(W * tiles, device=dev) % sms, blocks)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    live = int((torch.bincount(lane_warp.flatten(), minlength=warps) > 0).sum())
+    return float(busy.sum()) / (live * steps), float(per_sm.max()) / (clock_mhz * 1e3)
+
+
+def elem_form(table, init, _c, _steps, _mode) -> str:
+    """G3 mode elem's form (and tile) for these arguments on this card."""
+    (W, N), M = table.shape, init.shape[1]
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    form = gather.chain_elem_plan(W, N, table.stride(1), M, sms)
+    tile = f", tile {gather.chain_elem_tile(M)}" if form == gather.SHARED else ""
+    return f"form {gather.FORMS[form]}{tile}"
+
+
 def take_form(table, index, axis) -> str:
     """G2's form and block shape for these arguments on this card."""
     A, B, Q, _si0, _si1 = gather.take_along_geometry(table, index, axis)
@@ -1389,8 +1489,10 @@ def take_form(table, index, axis) -> str:
 
 
 def check_probe_edges(dev):
-    """G1, G2, G4 and G3's mode sum (with every group G) against their plain
-    versions at the edge shapes of `gather.edge_cases`, bit for bit.
+    """G1, G2, G4 and G3 against their plain versions at the edge shapes of
+    `gather.edge_cases`, bit for bit: G3's mode sum with every group G, its
+    mode elem in the plan's form and in both forms wherever the row fits in
+    shared memory (past it, the shared form must be refused and raise).
     Returns {kernel: largest error}."""
     errs = {"gather_rows": 0, "take_along": 0, "scale2": 0, "gather_chain": 0}
     for label, name, args in gather.edge_cases(np.random.default_rng(SEED), dev):
@@ -1398,10 +1500,27 @@ def check_probe_edges(dev):
         want = plain(*args)
         e = max_abs_err([fn(*args)], [want])
         extra = f", {take_form(*args)}" if name == "take_along" else ""
-        if name == "gather_chain":  # and every group, not only the plan's
+        if name == "gather_chain" and args[4] == "sum":  # and every group, not only the plan's
             e = max([e] + [max_abs_err([gather.chain_sum(*args[:4], G)], [want])
                            for G in gather.CHAIN_GROUPS])
             extra = ", every G"
+        elif name == "gather_chain":  # mode elem: and each form the row allows
+            table, init, _c, steps, _mode = args
+            forms = [gather.DIRECT]
+            if 4 * table.shape[1] <= gather.SMEM_MAX:
+                forms.append(gather.SHARED)
+            else:
+                try:
+                    gather.chain_elem(table, init, steps, gather.SHARED)
+                except RuntimeError as exc:
+                    refused = str(exc)
+                else:
+                    raise AssertionError(f"{label}: the shared form launched past shared memory")
+            e = max([e] + [max_abs_err([gather.chain_elem(table, init, steps, f)], [want])
+                           for f in forms])
+            extra = (f", {elem_form(*args)}; "
+                     + ("shared and direct" if len(forms) == 2
+                        else f"direct; shared refused ({refused})"))
         print(f"edge {label}{extra}: max_abs_err {e}")
         errs[name] = max(errs[name], e)
     assert not any(errs.values()), errs

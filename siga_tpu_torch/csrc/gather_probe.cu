@@ -54,8 +54,17 @@
 //     and the floor modulo of the new state is Lemire's multiply-high
 //     remainder with a constant the host computes, so the chain holds no
 //     division.  Readings of every G: PERF.md (chip_smoke.py's sweep).
-//   - mode elem keeps one thread per lane with its state in a register, as
-//     K1 does: one single-word gather a step.
+//   - mode elem keeps one thread a lane with its state in a register, in one
+//     of two forms that gather.py's chain_elem_plan picks.  Shared (k_d): a
+//     block for each (table row, 512 lanes) stages the row in shared memory
+//     by cp.async (16-byte vectors where it is contiguous and aligned, else
+//     words), each word reduced to its floor modulo N on the way, so that a
+//     step is one shared load, an add and a three-way minimum (a mask where
+//     N is a power of two); a row with a word near INT_MAX, whose int32 sum
+//     may wrap, is staged again as it is and takes the exact step.  A step
+//     then costs the shared memory's bank conflicts, not a round trip.
+//     Direct (strided rows, rows past shared memory, too few lanes to pay
+//     for a row): one single-word gather in place a step, as K1 reads.
 // G4 scale2: out = 2 * x, the build-and-launch check of probe2.py:67.  Bound:
 //   streaming bandwidth, each byte read once and written once.  A thread
 //   moves one 16-byte int4 vector and exits; the grid covers the vectors
@@ -352,6 +361,143 @@ __global__ void chain_elem_kernel(const int* __restrict__ table, long long sw,
   out[e] = state;
 }
 
+// G3 mode elem, shared form: block b serves table row w = b / tiles, lanes
+// [(b % tiles) * blockDim.x, +blockDim.x) of it, one thread a lane, each
+// lane's chain walked in shared memory with its state in a register.
+//
+// Staging (stage_row): each lane's initial state is loaded first, so that
+// its latency hides behind the copies; the row's N words go to shared
+// memory by cp.async, 16-byte vectors where the row is contiguous and
+// 16-byte aligned, single words for the rest and for a strided or
+// misaligned row, all issued before the one wait.  Each thread then turns
+// the words it copied into their floor modulo N times 4, the byte offset
+// each adds to a state, so that a step is x = state + e + (s mod N) (byte
+// offsets, x < 3 N) and the least of x, x - N and x - 2 N that does not
+// wrap below zero: one shared load, an add of three and a three-way
+// minimum, with s mod N a counter that restarts every N steps.  Where N is
+// a power of two (kPow2) the reduction is a shift and a mask, and a step
+// ends in a mask.  The reduced step holds while no sum state + g + s passes
+// INT_MAX, that is while no word g exceeds g_lim = INT_MAX - (N - 1) -
+// (steps - 1); a power of two N never minds (the int32 wrap leaves the low
+// bits as they are).  A row with a larger word (a block-wide vote) is
+// staged again as it is and takes the exact int32 step, wrap_add and the
+// floor modulo, as the direct form does.
+//
+// At k_d's [8, 8192] x 100 the 512 lanes of a block on each of 128 SMs
+// load from shared memory in about 3.4 wavefronts a warp's load (bank
+// conflicts of 32 random words), which, not the load's latency, bounds a
+// step (chip_smoke.py, PERF.md).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// floor_mod(v, NB) by a 32-bit reciprocal, recip = (2^32 - 1) / NB: for u =
+// v + 2^31 the quotient umulhi(u, recip) is floor(u / NB) or one less (its
+// error is below u / 2^32 < 1), so u - q NB lies in [0, 2 NB) and one
+// conditional subtraction (an unsigned minimum) gives u mod NB; less 2^31
+// mod NB, back into [0, NB).  Exact for every int32 v and NB < 2^31, in
+// 32-bit operations only.
+__device__ __forceinline__ unsigned floor_mod_recip(int v, unsigned recip, const FloorMod& m) {
+  const unsigned u = static_cast<unsigned>(v) ^ 0x80000000u;
+  unsigned r = u - __umulhi(u, recip) * m.nb;
+  r = min(r, r - m.nb) - m.bias;
+  return min(r, r + m.nb);
+}
+
+// The byte offset word g adds to a state: 4 floor_mod(g, N); with kPow2 (N a
+// power of two) the low bits, g & (N - 1), as a shift and a mask (mask4 = 4
+// (N - 1))
+template <bool kPow2>
+__device__ __forceinline__ int reduced_word(int g, unsigned recip, const FloorMod& fm,
+                                            unsigned mask4) {
+  return static_cast<int>(kPow2 ? (static_cast<unsigned>(g) << 2) & mask4
+                                : floor_mod_recip(g, recip, fm) * 4);
+}
+
+// Row w's N words into row_s: as they are (kReduced false), or reduced, with
+// `wraps` set where a word exceeds g_lim (never for a power of two N, whose
+// low bits the int32 wrap leaves as they are).  Every copy is issued before
+// the first wait: 16-byte vectors where the row is contiguous and 16-byte
+// aligned, single words (4-byte cp.async) for the rest and for a strided or
+// misaligned row; each thread then reduces the words it copied.
+template <bool kReduced, bool kPow2>
+__device__ __forceinline__ void stage_row(const int* __restrict__ row, long long sx, int N,
+                                          unsigned recip, const FloorMod& fm, unsigned mask4,
+                                          int g_lim, int* row_s, bool& wraps) {
+  const bool vectors = sx == 1 && (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  const int nvec = vectors ? N >> 2 : 0;
+  for (int k = threadIdx.x; k < nvec; k += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(row_s + 4 * k)),
+                 "l"(row + 4 * k)
+                 : "memory");
+  }
+  for (int k = 4 * nvec + threadIdx.x; k < N; k += blockDim.x) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(row_s + k)),
+                 "l"(row + k * sx)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (!kReduced) return;
+  int4* vec_s = reinterpret_cast<int4*>(row_s);
+  for (int k = threadIdx.x; k < nvec; k += blockDim.x) {
+    const int4 v = vec_s[k];
+    if (!kPow2) wraps |= max(max(v.x, v.y), max(v.z, v.w)) > g_lim;
+    vec_s[k] = make_int4(reduced_word<kPow2>(v.x, recip, fm, mask4),
+                         reduced_word<kPow2>(v.y, recip, fm, mask4),
+                         reduced_word<kPow2>(v.z, recip, fm, mask4),
+                         reduced_word<kPow2>(v.w, recip, fm, mask4));
+  }
+  for (int k = 4 * nvec + threadIdx.x; k < N; k += blockDim.x) {
+    const int g = row_s[k];
+    if (!kPow2) wraps |= g > g_lim;
+    row_s[k] = reduced_word<kPow2>(g, recip, fm, mask4);
+  }
+}
+
+template <bool kPow2>
+__global__ void chain_elem_shared_kernel(const int* __restrict__ table, long long sw,
+                                         long long sx, int N, unsigned recip, FloorMod fm,
+                                         int g_lim, const int* __restrict__ init, int M,
+                                         int tiles, int steps, int* __restrict__ out) {
+  extern __shared__ __align__(16) int row_s[];
+  const int w = blockIdx.x / tiles;
+  const int m = blockIdx.x % tiles * blockDim.x + threadIdx.x;
+  const long long e = static_cast<long long>(w) * M + m;
+  int state = m < M ? init[e] : 0;
+  const int* row = table + w * sw;
+  const unsigned n4 = 4u * static_cast<unsigned>(N), n8 = 2 * n4, mask4 = n4 - 4;
+  bool wraps = false;
+  stage_row<true, kPow2>(row, sx, N, recip, fm, mask4, g_lim, row_s, wraps);
+  if (__syncthreads_or(wraps)) {  // a word near INT_MAX: the row as it is, the exact step
+    stage_row<false, kPow2>(row, sx, N, recip, fm, mask4, g_lim, row_s, wraps);
+    __syncthreads();
+    if (m >= M) return;
+    assert(0 <= state && state < N);
+    for (int s = 0; s < steps; ++s) {
+      const unsigned g = static_cast<unsigned>(row_s[state]);
+      state = static_cast<int>(
+          floor_mod_recip(wrap_add(state, g + static_cast<unsigned>(s)), recip, fm));
+    }
+    out[e] = state;
+    return;
+  }
+  if (m >= M) return;
+  assert(0 <= state && state < N);
+  const char* base = reinterpret_cast<const char*>(row_s);
+  unsigned x4 = static_cast<unsigned>(state) * 4;  // the state as a byte offset
+  for (int s0 = 0; s0 < steps; s0 += N) {          // s mod N restarts at 0 every N steps
+    const int run = min(steps - s0, N);
+    unsigned s4 = 0;  // (s mod N) * 4
+#pragma unroll 4
+    for (int j = 0; j < run; ++j) {
+      const unsigned x = x4 + *reinterpret_cast<const unsigned*>(base + x4) + s4;
+      x4 = kPow2 ? x & mask4 : __vimin3_u32(x, x - n4, x - n8);
+      s4 += 4;
+    }
+  }
+  out[e] = static_cast<int>(x4 >> 2);
+}
+
 __device__ __forceinline__ int twice(int v) {
   return static_cast<int>(static_cast<unsigned>(v) * 2u);
 }
@@ -472,15 +618,54 @@ extern "C" int siga_gather_chain_sum(const void* table, long long sw, long long 
   }
 }
 
+// `form` (kShared or kDirect) comes from gather.py's chain_elem_plan, `tile`
+// (the lanes, and threads, of a shared block) from chain_elem_tile.  The
+// shared form takes a block for each (table row, tile of lanes) and 4 N
+// bytes of shared memory, which the card refuses past its limit; the direct
+// form one thread a lane, kThreads a block.
 extern "C" int siga_gather_chain_elem(const void* table, long long sw, long long sx,
                                       int W, int N, const void* init, int M,
-                                      int steps, void* out, void* stream) {
-  const long long total = static_cast<long long>(W) * M;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  chain_elem_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), sw, sx, N, static_cast<const int*>(init), M,
-      total, steps, static_cast<int*>(out));
+                                      int steps, int form, int tile, void* out, void* stream) {
+  if (W < 1 || N < 1 || M < 1 || steps < 0 ||
+      static_cast<long long>(N) + steps >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const int*>(table);
+  const auto* i = static_cast<const int*>(init);
+  auto* o = static_cast<int*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (form == kDirect) {
+    const long long total = static_cast<long long>(W) * M;
+    const long long blocks = (total + kThreads - 1) / kThreads;
+    chain_elem_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(t, sw, sx, N, i, M,
+                                                                        total, steps, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (form != kShared || tile < 1 || tile > kSharedThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (M - 1) / tile + 1;
+  const long long blocks = static_cast<long long>(W) * tiles;
+  const long long smem = 4LL * N;
+  if (blocks > INT_MAX || smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned long long nb = static_cast<unsigned long long>(N);
+  const FloorMod fm{~0ull / nb + 1, static_cast<unsigned>(N),
+                    static_cast<unsigned>((1ull << 31) % nb)};
+  const int g_lim = steps == 0 ? INT_MAX
+                               : static_cast<int>(INT_MAX - (static_cast<long long>(N) - 1) -
+                                                  (steps - 1));
+  const auto kernel = (N & (N - 1)) == 0 ? chain_elem_shared_kernel<true>
+                                          : chain_elem_shared_kernel<false>;
+  if (smem > kSmemDefault) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) {
+      cudaGetLastError();  // so that the next launch does not report it
+      return static_cast<int>(rc);
+    }
+  }
+  kernel<<<static_cast<unsigned>(blocks), tile, static_cast<size_t>(smem), s>>>(
+      t, sw, sx, N, 0xFFFFFFFFu / static_cast<unsigned>(N), fm, g_lim, i, M, tiles, steps, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -78,8 +78,8 @@ _SIGNATURES = {
     "siga_take_along": [_P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P, _P],
     # table, sw, sx, W, NB, init, c, Lc, steps, L, group, out, stream
     "siga_gather_chain_sum": [_P, _L, _L, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-    # table, sw, sx, W, N, init, M, steps, out, stream
-    "siga_gather_chain_elem": [_P, _L, _L, _I, _I, _P, _I, _I, _P, _P],
+    # table, sw, sx, W, N, init, M, steps, form, tile, out, stream
+    "siga_gather_chain_elem": [_P, _L, _L, _I, _I, _P, _I, _I, _I, _I, _P, _P],
     # x, n, head, nvec, out, stream
     "siga_scale2": [_P, _L, _L, _L, _P, _P],
     # stream: an empty kernel (the launch floor)

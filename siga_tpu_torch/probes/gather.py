@@ -244,6 +244,56 @@ def chain_sum(table, init, c, steps: int, group: int):
     return out
 
 
+ELEM_TILE = 512  # lanes, one a thread, of a block of G3 mode elem's shared form
+
+
+def chain_elem_plan(W: int, N: int, sx: int, M: int, sms: int) -> int:
+    """G3 mode elem's form, SHARED or DIRECT, for a table [W, N] whose words
+    lie `sx` apart, with M lanes a row, on a card of `sms` SMs.
+
+    SHARED stages each row in shared memory (16-byte copies where it is
+    contiguous and aligned) and walks the chains there, a block for each
+    (row, ELEM_TILE lanes); DIRECT, one thread a lane, reads every step's
+    word in place.  G2's test picks SHARED: a contiguous row (sx == 1; a
+    strided row's staging reads a sector a word) that fits in shared memory,
+    at least N / 4 lanes to pay for its staging, and at least a block for
+    every two SMs.  A step of the shared form is bound by the bank conflicts
+    of a warp's 32 random loads, so the lanes are best spread one block an
+    SM: each tile forced in turn at k_d's [8, 8192] x 100 in a run of
+    chip_smoke.py on an H100 80GB HBM3 at 700 W (PERF.md), tiles of 256 /
+    512 / 1,024 lanes took 0.0068 / 0.0063 / 0.0092 ms (0.0039 / 0.0033 /
+    0.0035 with no steps: 256 lanes stage each row on two blocks an SM,
+    1,024 put twice the loads on 64 SMs), and at N = 8,184 (no power of
+    two) 0.0085 / 0.0073 / 0.0095; the direct form 0.0171 and 0.0170."""
+    if sx == 1 and 4 * N <= SMEM_MAX and 4 * M >= N and 2 * W * _cdiv(M, ELEM_TILE) >= sms:
+        return SHARED
+    return DIRECT
+
+
+def chain_elem_tile(M: int) -> int:
+    """Lanes (and threads) a block of the shared form: ELEM_TILE, or M rounded
+    up to a warp where a row has fewer."""
+    return min(ELEM_TILE, _cdiv(M, 32) * 32)
+
+
+def chain_elem(table, init, steps: int, form: int, tile: Optional[int] = None):
+    """Launch G3's mode elem in `form`, SHARED or DIRECT (CUDA tensors,
+    checked by `gather_chain`), SHARED with `tile` lanes a block (default
+    `chain_elem_tile`); `gather_chain` takes the form from
+    `chain_elem_plan`.  A launch the card refuses (SHARED past its shared
+    memory) raises."""
+    W, N = table.shape
+    sw, sx = table.stride()
+    M = init.shape[1]
+    out = torch.empty_like(init)
+    kernels.launch(
+        "gather_chain", table.device, kernels.lib().siga_gather_chain_elem,
+        table.data_ptr(), sw, sx, W, N, init.data_ptr(), M, steps, form,
+        chain_elem_tile(M) if tile is None else tile, out.data_ptr(),
+    )
+    return out
+
+
 def gather_chain(table, init, c: Optional[torch.Tensor], steps: int, mode: str):
     """G3: `gather_chain_plain` as the CUDA kernel on CUDA tensors; an initial
     state outside [0, N) raises.  The table may be a strided view: the pair
@@ -259,23 +309,17 @@ def gather_chain(table, init, c: Optional[torch.Tensor], steps: int, mode: str):
     _check("table", table, dev, 2, contiguous=False)
     if N + steps >= 2**31 or steps < 0:
         raise ValueError(f"gather_chain: modulus {N} with {steps} steps")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if mode == "sum":
         _check("init", init, dev, 1)
         _check("c", c, dev, 1)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         return chain_sum(table, init, c, steps,
                          chain_plan(W, table.stride(0) == 1, init.numel(), sms))
     _check("init", init, dev, 2)
     if init.shape[0] != W:
         raise ValueError(f"gather_chain: init rows {init.shape[0]} != table rows {W}")
-    sw, sx = table.stride()
-    out = torch.empty_like(init)
-    kernels.launch(
-        "gather_chain", dev, kernels.lib().siga_gather_chain_elem,
-        table.data_ptr(), sw, sx, W, N, init.data_ptr(), init.shape[1], steps,
-        out.data_ptr(),
-    )
-    return out
+    return chain_elem(table, init, steps,
+                      chain_elem_plan(W, N, table.stride(1), init.shape[1], sms))
 
 
 # ---- G4: x * 2 -----------------------------------------------------------
@@ -366,8 +410,8 @@ def probe_cases(rng: np.random.Generator, scale: int = 1):
 
 
 def edge_cases(rng: np.random.Generator, device):
-    """G1, G2, G4 and G3's mode sum at the shapes where a tiling, a group or
-    an alignment split can go wrong: [(label, wrapper name, args as tensors
+    """G1, G2, G3 and G4 at the shapes where a tiling, a group, a form or an
+    alignment split can go wrong: [(label, wrapper name, args as tensors
     on `device`)].  G1: rows of C = 1, 12, 16, 57 and 128 words (words and
     16-byte vectors), row counts that fill no warp, more rows than one item
     a thread covers, planes 4 and 8 bytes off the 16-byte boundary.  G4: n
@@ -375,9 +419,14 @@ def edge_cases(rng: np.random.Generator, device):
     x[1:], 4 bytes off the 16-byte boundary.  G2: one table row, one output,
     output counts that fill no tile, rows wider than shared memory, the
     shared-memory form, both axes, and an index broadcast along each of its
-    dimensions.  G3: rows of W = 1, 24, 57 and 100 words, contiguous (a
-    plane's transpose, also 4 bytes off its allocation) and strided, 1, 3
-    and 1,001 lanes (no multiple of a group), no steps, c of 1, 5 and 64."""
+    dimensions.  G3's mode sum: rows of W = 1, 24, 57 and 100 words,
+    contiguous (a plane's transpose, also 4 bytes off its allocation) and
+    strided, 1, 3 and 1,001 lanes (no multiple of a group), no steps, c of 1,
+    5 and 64.  G3's mode elem: W = 1 and 8 rows of N = 1, 8,191, 8,192 and
+    the words on each side of the shared-memory limit, 1, 3, 1,001 and 4,097
+    lanes a row (no multiple of a tile), 0, 1 and 37 steps, a strided table
+    and one 4 bytes off its allocation, full-range words and words near
+    INT_MAX, initial states 0 and N - 1."""
 
     def ints(lo, hi, shape):
         return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32))
@@ -437,6 +486,37 @@ def edge_cases(rng: np.random.Generator, device):
         (f"gather_chain sum {label}, {lanes} lanes, {steps} steps", "gather_chain",
          (table, ints(0, table.shape[1], lanes), full(nc), steps, "sum"))
         for label, table, lanes, steps, nc in chains
+    ]
+    limit = SMEM_MAX // 4  # words of the longest row the shared form stages
+
+    def ends(W, N, M):  # initial states 0 and N - 1, in turn
+        return torch.tensor([0, N - 1], dtype=torch.int32).repeat(W, _cdiv(M, 2))[:, :M]
+
+    elems = [  # (label, table [W, N], lanes a row, steps, initial states or None: random)
+        ("k_d's shape [8, 8192]", full((8, 8192)), 8192, 100, None),
+        ("W=1, N=1", full((1, 1)), 3, 37, None),
+        ("W=8, N=1", full((8, 1)), 1001, 37, None),
+        ("W=1, N=8192, one lane", full((1, 8192)), 1, 37, None),
+        ("W=8, N=8192, lanes no multiple of a tile", full((8, 8192)), 1001, 37, None),
+        ("W=8, N=8192, 9 tiles a row, the last of one lane", full((8, 8192)), 4097, 37, None),
+        (f"N={limit}, the longest row shared memory holds", full((8, limit)), 14_529, 5, None),
+        (f"N={limit + 1}, past shared memory", full((8, limit + 1)), 14_529, 5, None),
+        ("no steps", full((8, 8192)), 4097, 0, None),
+        ("one step", full((8, 8192)), 4097, 1, None),
+        ("strided (a plane's transpose)", rows(8192, 8), 4097, 37, None),
+        ("the table 4 bytes off its allocation", rows_off(8, 8192, 1), 4097, 37, None),
+        ("W=8, N=8191 (no power of two)", full((8, 8191)), 8192, 100, None),
+        ("N=8191, words near INT_MAX (sums that wrap)", ints(2**31 - 20_000, 2**31, (8, 8191)),
+         4097, 37, None),
+        ("N=8192, words near INT_MAX (sums that wrap)", ints(2**31 - 20_000, 2**31, (8, 8192)),
+         4097, 37, None),
+        ("initial states 0 and N - 1", full((8, 8192)), 4097, 37, ends(8, 8192, 4097)),
+    ]
+    cases += [
+        (f"gather_chain elem {label}, {M} lanes a row, {steps} steps", "gather_chain",
+         (table, ints(0, table.shape[1], (table.shape[0], M)) if init is None else init, None,
+          steps, "elem"))
+        for label, table, M, steps, init in elems
     ]
     return [
         (label, name, tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args))

@@ -26,7 +26,9 @@ With --probes the cases are instead G2 (`gather.take_along`), G4
 probe shape of `gather.probe_cases` and on the stacked pair plane of
 DIR/reads.ec (the `overlap` stage's index, with `gather.plane_args`' 60,608
 random rows, G3 over 150 steps), each timed beside its library call
-(`torch.gather`, `x * 2`; G3 has none) in the same worker.
+(`torch.gather`, `x * 2`; G3 has none) in the same worker, and G3's mode
+elem over 32 chains of 2,000 steps on one direction's plane and on a 4 KB
+table (`chip_smoke.py`'s L2 and L1 round trips; both read in place).
 With --plane the cases are K2 (`fm_device.build_pair_plane`) on both
 directions of DIR/reads.ec's index (the `overlap` stage's), its BWT codes
 already on the card: the wall of a build by CUDA events (PLANE_REPS builds
@@ -102,6 +104,7 @@ PROBE_SEED = 1
 PROBE_LANES = 60608  # one overlap chunk's lanes
 PROBE_KERNELS = ("take_along", "scale2", "gather_chain")
 PROBE_STEPS = 150  # G3's chain on the pair plane, as chip_smoke.py runs it
+ROUND_TRIP_STEPS = 2000  # G3 mode elem's round-trip chains, as chip_smoke.py runs them
 PLANE_REPS = 20  # K2 builds a timing
 SCAN_REPS = 10  # K3 calls a wall and a trace
 SCAN_TRACES = 3  # traces of a case at most, while one loses kernel spans
@@ -271,8 +274,8 @@ def _start(tree: str):
 
 
 def probe_worker(tree: str, pipeline: str) -> dict:
-    """Times of G2 and G4 through the wrappers of the checkout at `tree`,
-    and of their library calls."""
+    """Times of G2, G3 and G4 through the wrappers of the checkout at
+    `tree`, and of their library calls."""
     import torch
 
     from siga_tpu_torch.probes import gather
@@ -285,6 +288,16 @@ def probe_worker(tree: str, pipeline: str) -> dict:
     plane = gather.stacked_plane(os.path.join(pipeline, "reads.ec"), dev)
     plane_args = gather.plane_args(plane, PROBE_LANES, PROBE_STEPS, PROBE_SEED)
     cases += [(f"{name} on the pair plane", name, plane_args[name]) for name in PROBE_KERNELS]
+    # chip_smoke.py's round-trip yardsticks: 32 chains of G3 mode elem over
+    # one direction's plane (L2) and over a 4 KB table (L1), read in place
+    fwd = plane[: plane.shape[0] // 2].reshape(1, -1)
+    init = torch.randint(0, fwd.shape[1], (1, 32), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(PROBE_SEED))
+    cases += [(f"gather_chain elem, 32 chains x {ROUND_TRIP_STEPS} {where}", "gather_chain",
+               (table, start, None, ROUND_TRIP_STEPS, "elem"))
+              for where, table, start in (("over the forward plane", fwd, init),
+                                          ("over a 4 KB table", fwd[:, :1024].contiguous(),
+                                           init % 1024))]
     for label, name, args in cases:
         fn = gather.WRAPPERS[name][0]
         out["digests"][label] = _digest([fn(*args)])

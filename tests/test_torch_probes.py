@@ -148,8 +148,9 @@ def _jax_edge(name, args):
         return np.asarray(jnp.asarray(args[0].numpy()) * 2)
     if name == "gather_chain":
         table, init, c, steps, mode = args
-        return np.asarray(_k_scan(jnp.asarray(table.contiguous().numpy()), jnp.asarray(init.numpy()),
-                                  jnp.asarray(c.numpy()), steps, mode))
+        k = _k_scan if mode == "sum" else _k_d
+        return np.asarray(k(jnp.asarray(table.contiguous().numpy()), jnp.asarray(init.numpy()),
+                            None if c is None else jnp.asarray(c.numpy()), steps, mode))
     table, index, axis = (a.numpy() if isinstance(a, torch.Tensor) else a for a in args)
     shape = gather._take_shape(args[0], args[1], axis)
     return np.asarray(jnp.take_along_axis(jnp.asarray(table),
@@ -158,7 +159,7 @@ def _jax_edge(name, args):
 
 @pytest.mark.parametrize("label", sorted(EDGES))
 def test_edge_case_matches_jax(label):
-    """G1, G2, G3's mode sum and G4 at the edge shapes that chip_smoke.py
+    """G1, G2, G3 (both modes) and G4 at the edge shapes that chip_smoke.py
     holds the kernels to on the card: the wrapper (plain version on the
     CPU) equals jax.numpy."""
     _label, name, args = EDGES[label]
@@ -306,9 +307,10 @@ def test_chain_plan(W, contiguous, lanes, want):
 
 
 def test_chain_edge_cases_cover_the_groups_and_forms():
-    """G3's edge cases: both forms at W = 1, 24 and 57, lane counts that no
+    """G3 mode sum's edge cases: both forms at W = 1, 24 and 57, lane counts that no
     group divides, a step of two load rounds in each form, and no steps."""
-    chains = [args for label, name, args in EDGES.values() if name == "gather_chain"]
+    chains = [args for label, name, args in EDGES.values()
+              if name == "gather_chain" and args[4] == "sum"]
     forms = {(t.shape[0], t.stride(0) == 1) for t, *_ in chains}
     assert {(W, c) for W in (1, 24, 57) for c in (True, False)} <= forms
     assert (100, True) in forms and (40, False) in forms
@@ -327,3 +329,82 @@ def test_row_gather_edge_cases_cover_both_paths():
     assert any(p.shape[1] == 16 and i.numel() % 8 for p, i in rows)
     assert any(p.shape[1] % 4 == 0 and p.storage_offset() % 4 for p, _i in rows)
     assert any(i.numel() * p.shape[1] > 132 * 8 * 256 for p, i in rows)
+
+
+def _elem_grid(W, N, sx, M, sms=132):
+    """G3 mode elem's form on `sms` SMs and the grid csrc/gather_probe.cu
+    launches for it: (form, blocks, threads a block)."""
+    form = gather.chain_elem_plan(W, N, sx, M, sms)
+    if form == gather.SHARED:
+        tile = gather.chain_elem_tile(M)
+        return form, W * -(-M // tile), tile
+    return form, -(-W * M // gather.TAKE_THREADS), gather.TAKE_THREADS
+
+
+@pytest.mark.parametrize("case, W, N, sx, M, want", [
+    ("k_d", 8, 8192, 1, 8192, gather.SHARED),
+    ("k_d's table strided (its transpose's view)", 8, 8192, 8, 8192, gather.DIRECT),
+    ("rows of the most words shared memory holds", 8, gather.SMEM_MAX // 4, 1, 14_529,
+     gather.SHARED),
+    ("rows one word past shared memory", 8, gather.SMEM_MAX // 4 + 1, 1, 14_529, gather.DIRECT),
+    ("the L2 round trip: 32 chains over a direction's plane", 1, 196_615 * 57, 1, 32,
+     gather.DIRECT),
+    ("the L1 round trip: 32 chains over a 4 KB table", 1, 1024, 1, 32, gather.DIRECT),
+    ("too few lanes to pay for the row", 8, 8192, 1, 2047, gather.DIRECT),
+    ("too few blocks for the card", 4, 8192, 1, 8192, gather.DIRECT),
+])
+def test_chain_elem_plan_fills_the_card(case, W, N, sx, M, want):
+    """G3 mode elem on 132 SMs: k_d's [8, 8192] x 8,192 lanes stages its
+    rows (128 blocks of 512 lanes, a block for nearly every SM) and its grid
+    holds a thread for every lane; strided rows, rows past shared memory
+    (58,112 words), rows with fewer than N / 4 lanes and grids of fewer
+    than 66 blocks read in place, the round-trip yardsticks among them."""
+    form, blocks, threads = _elem_grid(W, N, sx, M)
+    assert form == want
+    assert blocks * threads >= W * M and threads <= gather.SHARED_THREADS
+    if case == "k_d":
+        assert (blocks, threads) == (128, 512)
+
+
+@pytest.mark.parametrize("label", sorted(l for l, (_l, name, args) in EDGES.items()
+                                         if name == "gather_chain" and args[4] == "elem"))
+def test_chain_elem_plan_covers_every_lane(label):
+    """At every mode elem edge case each form's grid reaches every lane: a
+    shared block serves one row's tile of at most ELEM_TILE lanes (a whole
+    number of warps, no more than a row's lanes rounded up to one), so the
+    blocks of a row cover its M lanes; the plan stages only contiguous rows
+    that fit in shared memory."""
+    table, init, _c, _steps, _mode = EDGES[label][2]
+    (W, N), M = table.shape, init.shape[1]
+    form, blocks, threads = _elem_grid(W, N, table.stride(1), M)
+    tile = gather.chain_elem_tile(M)
+    assert tile % 32 == 0 and tile <= gather.ELEM_TILE and tile < M + 32
+    assert blocks * threads >= W * M
+    if form == gather.SHARED:
+        assert table.stride(1) == 1 and 4 * N <= gather.SMEM_MAX and blocks % W == 0
+    want = {"strided": gather.DIRECT, "past shared memory": gather.DIRECT,
+            "k_d's shape": gather.SHARED, "the longest row": gather.SHARED,
+            "4 bytes off": gather.SHARED}
+    for key, form_wanted in want.items():
+        if key in label:
+            assert form == form_wanted
+
+
+def test_chain_elem_edge_cases_cover_the_limits():
+    """G3 mode elem's edge cases: W = 1 and 8, N = 1, 8,192 and each side of
+    the shared-memory limit, 1, 3 and 1,001 lanes a row and a row whose
+    last tile holds one lane, 0 and 1 steps, a strided table and one 4 bytes
+    off its allocation, words near INT_MAX, initial states 0 and N - 1."""
+    elems = [args for _l, name, args in EDGES.values()
+             if name == "gather_chain" and args[4] == "elem"]
+    limit = gather.SMEM_MAX // 4
+    assert {1, 8} <= {t.shape[0] for t, *_ in elems}
+    assert {1, 8192, limit, limit + 1} <= {t.shape[1] for t, *_ in elems}
+    assert {1, 3, 1001} <= {i.shape[1] for _t, i, *_ in elems}
+    assert any(i.shape[1] % gather.ELEM_TILE == 1 for _t, i, *_ in elems)
+    assert {0, 1} <= {steps for *_a, steps, _m in elems}
+    assert any(t.stride(1) != 1 for t, *_ in elems)
+    assert any(t.storage_offset() % 4 for t, *_ in elems)
+    assert any(int(t.max()) > 2**31 - 1 - t.shape[1] - steps for t, _i, _c, steps, _m in elems)
+    assert any({0, t.shape[1] - 1} <= set(i.unique().tolist()) and i.unique().numel() == 2
+               for t, i, *_ in elems)
