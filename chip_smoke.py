@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py [--keep-pipeline DIR]
 
+Every `DualScanner.dispatch` of this process (the engine's, rmdup's, the
+sharded scan's) runs under torch.cuda.set_sync_debug_mode("error"): a
+dispatch that waits on the card fails the run (`ScanWatch`).
+
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card: nvidia-smi name and power limit; CUDA must be available;
   2. build the hand-written kernels (csrc/*.cu, one nvcc per source for
@@ -16,15 +20,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      K6 kernel must launch in both directions; its peak device memory
      against the sort's estimate) -> `overlap -m 45`
      through siga_tpu_torch.cli (the plane build K2 must launch once a
-     direction), then the found edges scored with Smith-Waterman through
+     direction; one host wait and one copy back a chunk, and the ASQG's
+     digest that of the engine of commit c761036, which scanned one chunk
+     at a time), then the found edges scored with Smith-Waterman through
      BatchAligner (an exact overlap of length k must score 2k); every read
      must have its VT record;
   5. the overlap engine alone, warm (its wall and the process's user and
      system CPU time), and the stacked pair plane and K of both directions
      (built by K2) against the C++ host packing; the cost of
-     `pack_reads_2bit`'s ACGT guard on one chunk; then the engine with each
-     chunk's reads split over the device list [cuda:0, cuda:0]
-     (`parallel/dist.py`, two host threads on one card): every hit equal;
+     `pack_reads_2bit`'s ACGT guard on one chunk; the engine with chunks in
+     flight at each of ENGINE_SETTINGS in turn (LOOKAHEAD 8 and 1, 1 and 2
+     B/C workers), a warm-up pass and a timed one each: wall, reads/s, user
+     and system CPU, peak device memory, host waits and copies back a
+     chunk (one, where no budget overflowed), every hit equal; the first
+     chunk through dispatch/collect in three lane parts, with budgets that
+     fit and with a row budget that overflows, its views equal one
+     launch's; then the engine with each chunk's reads split over the
+     device list [cuda:0, cuda:0] (`parallel/dist.py`, two shards on one
+     card): every hit equal;
   6. `overlap -m 45` with SIGA_PAIR_STEP=0, counts reset just before it: the
      single-step scan K3 launches once a chunk, K1 and K2 never (each plane
      is built at its first use), and the ASQG equals the default route's;
@@ -75,7 +88,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  10. `rmdup` on the card, counts reset just before it: K1 must launch (and
      K2 once a direction), the
      hits of 256 sampled reads equal the host engine's
-     (OverlapBuilder.duplicate), and kept + duplicates = reads; then `rmdup`
+     (OverlapBuilder.duplicate), and kept + duplicates = reads, one host
+     wait and one copy back a chunk, its three files' digests those of the
+     engine of commit c761036; then `rmdup`
      with SIGA_PAIR_STEP=0, counts reset just before it: K3 once a chunk,
      K1 and K2 never, its three files equal the default route's;
  11. the gather probes' CLI on the stacked pair plane, counts reset just
@@ -160,8 +175,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  19. the whole script's seconds, the kernels' JSON line (each kernel's
      launches summed over the paths above, each path's counts read from its
      own run; its time at the shape named above; `bound_ms` from this run's
-     inputs, by bytes at 3.35 TB/s or operations at 67e12/s), then the
-     device line last.
+     inputs, by bytes at 3.35 TB/s or operations at 67e12/s), after the
+     dispatches made under the sync check, by scan kernel (K1, K3 and the
+     sharded K3 must each have some), then the device line last.
 With --keep-pipeline DIR the pipeline runs in DIR (a new directory) and
 stays there, for `python3 -m siga_tpu_torch.probes.kernel_ab`.
 Imports nothing of JAX and nothing of the JAX package `siga_tpu`.
@@ -169,6 +185,7 @@ Imports nothing of JAX and nothing of the JAX package `siga_tpu`.
 import argparse
 import functools
 import gzip
+import hashlib
 import json
 import os
 import re
@@ -665,11 +682,14 @@ def run_main_path(dev, seqs, rng):
     print(f"index (-a sais2 on {dev}): {n_chars} chars per direction, peak device memory "
           f"{peak} bytes = {peak / n_chars:.1f} per char (estimate {sa_mod.SORT_BYTES_PER_CHAR})")
     assert peak <= sa_mod.SORT_BYTES_PER_CHAR * n_chars, "the sort's memory estimate is too low"
+    WATCH.reset()
     t0 = time.time()
     assert cli.main(
         ["overlap", "--device", dev.type, "-m", str(MIN_OVERLAP), "-p", "reads", "reads.fa"]
     ) == 0
     overlap_s = time.time() - t0
+    print(WATCH.one_copy_a_chunk("overlap", -(-len(seqs) // search.chunk_size(len(seqs)))))
+    check_outputs(["reads.asqg.gz"])
     n_vt, n_ed, queries, refs = sw_edge_pairs(
         "reads.asqg.gz", {f"r{i}": s for i, s in enumerate(seqs)}, 4096, rng)
     t0 = time.time()
@@ -1142,11 +1162,14 @@ def run_rmdup(builder, seqs, rng):
     """rmdup through the CLI on the card, then 256 sampled reads' hits against
     the host engine."""
     kernels.reset_launches()
+    WATCH.reset()
     t0 = time.time()
     assert cli.main(["rmdup", "-p", "reads", "reads.fa"]) == 0
     rmdup_s = time.time() - t0
     launches = dict(kernels.launches)
     n_chunks = -(-len(seqs) // search.chunk_size(len(seqs)))
+    print(WATCH.one_copy_a_chunk(f"rmdup ({rmdup_s:.3f} s) [{card_line()}]", n_chunks))
+    check_outputs(RMDUP_FILES)
     assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
     assert launches["pair_plane"] == 2, launches  # one plane build a direction
     with open("reads.rmdup.fa") as f:
@@ -1174,6 +1197,22 @@ def run_rmdup(builder, seqs, rng):
 
 
 RMDUP_FILES = ("reads.rmdup.fa", "reads.rmdup.dups.fa", "reads-thread0.rmdup.hits.gz")
+# sha256 of the main path's `overlap` ASQG and `rmdup` files (uncompressed),
+# as the engine of commit c761036, one chunk at a time, wrote them
+OUTPUT_SHA256 = {
+    "reads.asqg.gz": "1f0ad594b05261ff5495f5eba30ca0f475e70abb7b9c645ca1b61e1022289900",
+    "reads.rmdup.fa": "f0332439eff40757c0e0e8bb0b8c43536a459a9e6667c086b426ba499e7785fb",
+    "reads.rmdup.dups.fa": "3b195d758bf85ea70a336fa670c76de6a7a89cae64088fc6a5fdcc81234570dd",
+    "reads-thread0.rmdup.hits.gz": "744be336a85fb425df565262ffada913e62322a53504e13dcb1b4cb54bab4472",
+}
+
+
+def check_outputs(paths) -> None:
+    """Raise unless each file's content has its digest in OUTPUT_SHA256."""
+    for path in paths:
+        digest = hashlib.sha256(read_maybe_gz(path)).hexdigest()
+        print(f"{path}: sha256 {digest}")
+        assert digest == OUTPUT_SHA256[path], f"{path} differs from the one-chunk engine's"
 
 
 def run_single_step_rmdup(n_chunks: int):
@@ -1603,8 +1642,9 @@ def run_single_step_overlap():
 
 def check_engine_split(builder, seqs, hits):
     """The engine with each chunk's reads split over the device list [cuda:0,
-    cuda:0] (two host threads sharing one card's planes; the same code path
-    as one shard on each of two cards) against the one-device hits."""
+    cuda:0] (two shards dispatched in turn from one host thread, sharing one
+    card's planes; the same code path as one shard on each of two cards)
+    against the one-device hits."""
     devices = [torch.device("cuda", 0)] * 2
     records = [DNASeq(name=f"r{i}", seq=s) for i, s in enumerate(seqs)]
     t0 = time.time()
@@ -1623,6 +1663,143 @@ def views_equal(a, b) -> bool:
     """Two scanners' (f_view, r_view) equal, array for array."""
     return all(np.array_equal(x, y) for va, vb in zip(a, b, strict=True)
                for x, y in zip(va, vb, strict=True))
+
+
+class ScanWatch:
+    """Every `DualScanner.dispatch` of this process runs under
+    `torch.cuda.set_sync_debug_mode("error")`, so a dispatch that waits on
+    the card raises (and fails the run); `dispatches` counts them by scan
+    kernel.  `totals` sums the scanners' counts (`DualScanner.stats`:
+    chunks, host waits, copies back, overflowed budgets) since `reset()`."""
+
+    def __init__(self):
+        self.dispatches = {}
+        self.totals = {}
+        dispatch, collect = fm_device.DualScanner.dispatch, fm_device.DualScanner.collect
+
+        def counted(method, scanner, *args):
+            before = dict(scanner.stats)
+            try:
+                return method(scanner, *args)
+            finally:
+                for key, n in scanner.stats.items():
+                    self.totals[key] = self.totals.get(key, 0) + n - before[key]
+
+        @functools.wraps(dispatch)
+        def strict_dispatch(scanner, *args):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                handle = counted(dispatch, scanner, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            name = getattr(handle.scan, "name", "plain")
+            self.dispatches[name] = self.dispatches.get(name, 0) + 1
+            return handle
+
+        @functools.wraps(collect)
+        def counted_collect(scanner, handle):
+            return counted(collect, scanner, handle)
+
+        fm_device.DualScanner.dispatch = strict_dispatch
+        fm_device.DualScanner.collect = counted_collect
+
+    def reset(self):
+        self.totals = {key: 0 for key in ("chunks", "host_waits", "copies", "overflows")}
+
+    def one_copy_a_chunk(self, label: str, n_chunks: int) -> str:
+        """Raise unless `n_chunks` chunks were collected since `reset()`, with
+        one host wait and one copy back a chunk besides one more for each
+        overflowed budget; the counts as a line of text."""
+        t = self.totals
+        assert t["chunks"] == n_chunks, (label, t, n_chunks)
+        assert t["host_waits"] == t["copies"] == t["chunks"] + t["overflows"], (label, t)
+        return (f"{label}: {t['chunks']} chunks, {t['host_waits']} host waits and {t['copies']} "
+                f"copies back ({t['host_waits'] / t['chunks']:.3f} a chunk), {t['overflows']} "
+                f"overflowed budgets")
+
+
+WATCH = None  # the process's ScanWatch, made in main()
+
+# (label, search.LOOKAHEAD, SIGA_NATIVE_WORKERS) of the engine's settings,
+# each timed after a warm-up pass of its own, their hits equal
+ENGINE_SETTINGS = (("LOOKAHEAD 8, 1 B/C worker", 8, "1"), ("LOOKAHEAD 1, 1 B/C worker", 1, "1"),
+                   ("LOOKAHEAD 8, SIGA_NATIVE_WORKERS=2", 8, "2"))
+
+
+def same_hits(got, want, label: str) -> None:
+    assert len(got) == len(want), label
+    for a, b in zip(got, want):
+        assert a.idx == b.idx and a.substring == b.substring, (label, a.idx)
+        assert np.array_equal(a._array, b._array), (label, a.idx)
+
+
+def check_engine_in_flight(dev, builder, seqs, hits):
+    """The engine with chunks in flight at each of ENGINE_SETTINGS in turn: a
+    warm-up pass, then a timed pass (wall, reads/s, the process's user and
+    system CPU, peak device memory); every pass's hits equal the warm
+    engine's, every dispatch ran under the sync check (`ScanWatch`), and
+    each chunk made one host wait and one copy back unless a budget
+    overflowed (none may in a timed pass: the budgets are sticky)."""
+    records = [DNASeq(name=f"r{i}", seq=s) for i, s in enumerate(seqs)]
+    n_chunks = -(-len(seqs) // search.chunk_size(len(seqs)))
+    lookahead, workers = search.LOOKAHEAD, os.environ.get("SIGA_NATIVE_WORKERS")
+    try:
+        for label, depth, n_workers in ENGINE_SETTINGS:
+            search.LOOKAHEAD = depth
+            os.environ["SIGA_NATIVE_WORKERS"] = n_workers
+            for timed in (False, True):
+                WATCH.reset()
+                torch.cuda.reset_peak_memory_stats(dev)
+                ru0 = resource.getrusage(resource.RUSAGE_SELF)
+                t0 = time.time()
+                got = list(search.batch_overlap_hits(builder, records, MIN_OVERLAP, dev))
+                wall = time.time() - t0
+                ru1 = resource.getrusage(resource.RUSAGE_SELF)
+                same_hits(got, hits, label)
+                counts = WATCH.one_copy_a_chunk(label, n_chunks)
+                if not timed:
+                    continue
+                assert WATCH.totals["overflows"] == 0, (label, WATCH.totals)
+                print(f"engine {label}: {wall:.3f} s, {len(seqs) / wall:.1f} reads/s; process "
+                      f"cpu user {ru1.ru_utime - ru0.ru_utime:.3f} s, system "
+                      f"{ru1.ru_stime - ru0.ru_stime:.3f} s; peak device memory "
+                      f"{torch.cuda.max_memory_allocated(dev)} B; {counts}; hits equal "
+                      f"[{card_line()}]")
+    finally:
+        search.LOOKAHEAD = lookahead
+        if workers is None:
+            del os.environ["SIGA_NATIVE_WORKERS"]
+        else:
+            os.environ["SIGA_NATIVE_WORKERS"] = workers
+
+
+def check_split_pack(dev, builder, seqs):
+    """`dispatch`/`collect` with a slab budget that splits the first chunk
+    over three launches (each part compacted into the budget on the stream,
+    its slab dropped), and again with a row budget that overflows (the
+    parts launched again): the views equal the one-launch scan's."""
+    chunk = seqs[: search.chunk_size(len(seqs))]
+    maxlen = search._bucket_len(READ_LEN)
+    want_sc = search._cached_scanner(builder, dev, *FWD_REV)
+    want = want_sc.collect(want_sc.dispatch(chunk, len(chunk), maxlen, MIN_OVERLAP))
+    (card,) = dist.device_list(dev)
+    sc = fm_device.DualScanner(*builder._dfms[str(card)], *FWD_REV)
+    lanes, cap = 4 * len(chunk), fm_device.emit_cap(READ_LEN - 1, MIN_OVERLAP)
+    sc.slab_bytes = -(-lanes // 3 // 32) * 32 * cap * fm_device.SLAB_ROW_BYTES
+    parts = len(fm_device.lane_parts(lanes, cap, sc.slab_bytes))
+    for label, rows in (("budgets that fit", None), ("a row budget that overflows", 8192)):
+        if rows is not None:
+            sc._rows = rows
+        before = kernels.launches["scan_pair"]
+        WATCH.reset()
+        got = sc.collect(sc.dispatch(chunk, len(chunk), maxlen, MIN_OVERLAP))
+        launched = kernels.launches["scan_pair"] - before
+        assert views_equal(got, want), label
+        assert launched == parts * (1 + WATCH.totals["overflows"]) and parts == 3, (label, launched)
+        assert (WATCH.totals["overflows"] == 1) == (rows is not None), (label, WATCH.totals)
+        print(f"dispatch/collect of the first chunk in {parts} lane parts, {label}: {launched} "
+              f"launches, {WATCH.totals['host_waits']} host waits; views equal one launch's")
 
 
 def top_ops(by_name, k=5) -> str:
@@ -2543,6 +2720,8 @@ def main(argv=None) -> int:
         raise SystemExit("CUDA is not available")
     dev = torch.device("cuda")
 
+    global WATCH
+    WATCH = ScanWatch()
     phase("build the kernels and the host runtime")
     t0 = time.time()
     report = kernels.build()
@@ -2574,6 +2753,10 @@ def main(argv=None) -> int:
         assert all(launches[name] >= 2 for name in SA_TIMED), launches  # K6, both directions
         phase("engine, warm")
         builder, hits = run_engine(dev, seqs)
+        phase("engine with chunks in flight: each setting in turn, the sync check, one copy a "
+              "chunk")
+        check_engine_in_flight(dev, builder, seqs, hits)
+        check_split_pack(dev, builder, seqs)
         phase("engine with each chunk split over the device list [cuda:0, cuda:0]")
         check_engine_split(builder, seqs, hits)
         phase("overlap with SIGA_PAIR_STEP=0: the single-step scan K3")
@@ -2676,6 +2859,10 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], **row,
         })
+    print(f"dispatches under torch.cuda.set_sync_debug_mode('error'), by scan kernel: "
+          f"{WATCH.dispatches} (none waited on the card)")
+    assert all(WATCH.dispatches.get(name) for name in ("scan_pair", "scan_single",
+                                                       "scan_single_sharded")), WATCH.dispatches
     print(f"chip_smoke_s {time.time() - t_start:.3f} (the whole script, the kernels' build "
           f"included)")
     print(json.dumps({"kernels": kernel_rows}))

@@ -22,6 +22,7 @@ import json
 import sys
 from typing import Dict, List, Tuple
 
+from . import __version__
 from .constants import COMMAND_RANKS
 from .device import native_lib
 
@@ -406,6 +407,9 @@ def main(argv: List[str] = None) -> int:
         print(help_text())
         print(f"\nPorted to PyTorch/CUDA: {', '.join(PORTED)}")
         return 0 if argv else 1
+    if argv[0] in ("-v", "--version"):
+        print(f"siga-tpu version {__version__}")
+        return 0
     command = argv[0]
     if command not in MODULES:
         print(help_text())

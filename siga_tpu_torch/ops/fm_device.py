@@ -11,8 +11,13 @@ The plane build (`build_pair_plane`) is the hand-written CUDA kernel K2
 (`csrc/pair_plane.cu`) and the scan (`scan_pair`) the kernel K1
 (`csrc/scan_pair.cu`) on a CUDA tensor; each runs its plain PyTorch
 version (`build_pair_plane_plain`, `scan_pair_plain`) on a CPU tensor.  K1
-writes each lane's emitted rows into a slab of its own in one pass; `compact_slab` and `scan_in_parts` (plain
-torch, reached by the CPU tests) put them in the plain version's order.
+writes each lane's emitted rows into a slab of its own in one pass.  A scan
+on the card is a `CardScan` with two finishing halves: `outputs()` reads the
+sizes and compacts exactly (`compact_slab`, `scan_in_parts`: the plain
+version's order), `pack()` compacts into a budget on the stream and packs
+every output into one buffer, so that `DualScanner.dispatch` never waits on
+the card and `DualScanner.collect` waits once a chunk; on a CPU tensor a
+`PlainScan` of the plain version's outputs has the same halves.
 The plain helpers below work in int64 with explicit 32-bit masks: PyTorch
 has no popcount and no shifts on uint32.
 
@@ -21,7 +26,7 @@ SIGA_PAIR_STEP=0: the single-step scan (`scan_single`, the CUDA kernel K3,
 `csrc/scan_single.cu`, on a CUDA tensor; `scan_single_plain` on a CPU
 tensor), port of `_scan_packed_core`, one backward-search step a symbol
 over the single-step plane (`single_step_plane_host`, one 16-column row a
-block).  It gives the pair scan's output tuple, so `compact_slab` and
+block).  It gives the pair scan's output tuple, so `CardScan` and
 `DualScanner.collect` serve both routes; there a lane emits at most one
 block a step, and trel counts from t0 = p1 instead of 2 * (p1 // 2).
 
@@ -695,14 +700,28 @@ def scan_pair(
     On CUDA one launch scans all lanes in one pass into per-lane slabs that
     `compact_slab` orders; where the slabs would not fit in `slab_bytes`
     (default a third of the free device memory) the lanes are split over
-    several launches of the same kernel.  One synchronisation reads the
-    sizes of the outputs."""
+    several launches of the same kernel.  One synchronisation a launch reads
+    the sizes of the outputs (`CardScan.outputs`)."""
+    return scan_pair_call(
+        plane2, K2, pred, length, nblocks, la_words, lens,
+        lim_t, min_overlap, fwd_groups, rev_groups, slab_bytes,
+    ).outputs()
+
+
+def scan_pair_call(
+    plane2, K2, pred, length: int, nblocks: int, la_words, lens,
+    lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+    slab_bytes: int | None = None,
+):
+    """`scan_pair`'s scan, not yet finished: a `CardScan` of K1 on CUDA
+    tensors (nothing launched yet), a `PlainScan` of `scan_pair_plain`'s
+    outputs on CPU tensors."""
     dev = plane2.device
     if dev.type == "cpu":
-        return scan_pair_plain(
+        return PlainScan(scan_pair_plain(
             plane2, K2, pred, length, nblocks, la_words, lens,
             lim_t, min_overlap, fwd_groups, rev_groups,
-        )
+        ))
     if dev.type != "cuda":
         raise ValueError(f"scan_pair: unsupported device {dev}")
     _check_lane_inputs(dev, pred, la_words, lens,
@@ -716,8 +735,8 @@ def scan_pair(
         length, nblocks, n, wpr, len(fwd_groups), _groups_code(groups), lim_t, p1, t0,
         n * len(groups),
     )
-    return scan_on_card("scan_pair", entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
-                        slab_bytes)
+    return CardScan("scan_pair", entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
+                    slab_bytes)
 
 
 def _groups_code(groups) -> int:
@@ -725,40 +744,160 @@ def _groups_code(groups) -> int:
     return sum(g << (2 * k) for k, g in enumerate(groups))
 
 
-def scan_on_card(name: str, entry, L: int, cap: int, dev, slab_bytes: int | None):
-    """Run a stage-A scan kernel over L lanes on the card and compact its
-    slabs: `entry(lane_base, nl, cap, lane_counts, fall, candmask, subwords,
-    slab, stream)` launches lanes [lane_base, lane_base + nl), each with a
-    slab of `cap` rows, and counts as a launch of `name`.  Returns the plain
-    versions' output tuple."""
-    if L == 0:
-        raise ValueError(f"{name}: no lanes")
-    lane_counts = torch.empty(L, dtype=torch.int32, device=dev)
-    fall = torch.empty((5, L), dtype=torch.int32, device=dev)
-    nw = -(-L // 32)
-    candmask = torch.zeros(nw, dtype=torch.int32, device=dev)  # the kernel ORs bits in
-    subwords = torch.zeros(nw, dtype=torch.int32, device=dev)
-    if slab_bytes is None:
-        slab_bytes = torch.cuda.mem_get_info(dev)[0] // 3
+HEADER_WORDS = 4  # a packed scan: rows, the most rows of a lane, candidates, 0
 
-    def launch(l0, l1):
-        slab = torch.empty((l1 - l0, cap, 4), dtype=torch.int32, device=dev)
+
+def _packed(header, lane_counts, rows, candmask, candT, subwords) -> torch.Tensor:
+    """One int32 buffer of a scan's outputs: the header (0-d tensors), the
+    lane counts [L], `rows` [R, 4] rows of [lo, rlo, size, trel], the
+    candidate mask, `candT` [5, C] candidate rows and the substring words;
+    `unpack_scan` reads it."""
+    head = torch.stack([h.to(torch.int64) for h in header])
+    head = torch.cat([head, head.new_zeros(HEADER_WORDS - len(header))]).to(torch.int32)
+    return torch.cat([head, lane_counts, rows.reshape(-1), candmask, candT.reshape(-1), subwords])
+
+
+def unpack_scan(buf: np.ndarray, L: int, rows: int, cands: int):
+    """The scan outputs of a buffer `pack(rows, cands)` made, for L lanes:
+    (total rows, the most rows of a lane, candidates) and the numpy arrays
+    (lane_counts, rows [total, 4], candmask, candT [5, candidates],
+    subwords); the caller checks first that total <= rows and candidates
+    <= cands."""
+    total, most, n_cand = (int(v) for v in buf[:3])
+    nw = -(-L // 32)
+    ends = np.cumsum([HEADER_WORDS, L, 4 * rows, nw, 5 * cands, nw])
+    part = [buf[a:b] for a, b in zip(ends[:-1], ends[1:])]
+    return (total, most, n_cand), (
+        part[0], part[1].reshape(rows, 4)[:total], part[2],
+        part[3].reshape(5, cands)[:, :n_cand], part[4],
+    )
+
+
+class PlainScan:
+    """A plain version's scan outputs (on the CPU, where they are made at
+    once), with `CardScan`'s finish halves."""
+
+    def __init__(self, out):
+        self.out = out
+
+    def outputs(self):
+        return self.out
+
+    def pack(self, rows: int, cands: int) -> torch.Tensor:
+        """`CardScan.pack` of these outputs: the first `rows` rows and
+        `cands` candidates, zeros past the outputs."""
+        counts, lane_counts, data3T, trel, candmask, candT, subwords = self.out
+        emit = torch.cat([data3T.T, trel[:, None]], dim=1)[:rows]
+        got = torch.zeros((rows, 4), dtype=torch.int32)
+        got[: emit.shape[0]] = emit
+        cand = torch.zeros((5, cands), dtype=torch.int32)
+        cand[:, : candT.shape[1]] = candT[:, :cands]
+        header = (counts[0], lane_counts.max(), counts[1])
+        return _packed(header, lane_counts, got, candmask, cand, subwords)
+
+
+class CardScan:
+    """A stage-A scan kernel over L lanes on the card, in two halves:
+    `entry(lane_base, nl, cap, lane_counts, fall, candmask, subwords, slab,
+    stream)` launches lanes [lane_base, lane_base + nl), each with a slab of
+    `cap` rows, and counts as a launch of `name`; the lanes go over as many
+    launches as their slabs need to fit in `slab_bytes` (default a third of
+    the free device memory, read once).
+
+    `outputs()` launches and finishes at once, as the plain versions return:
+    a part's sizes read in one synchronisation, its rows compacted exactly
+    (`scan_in_parts`).  `pack(rows, cands)` only enqueues: the launches,
+    each part's rows compacted on the stream into a budget of `rows` rows,
+    the candidates into `cands`, all in one buffer with the true sizes in
+    its header.  Of a one-part scan the slab is held, so a larger budget
+    packs again without a launch; a scan of several parts keeps no slab
+    and launches again."""
+
+    def __init__(self, name: str, entry, L: int, cap: int, dev, slab_bytes: int | None):
+        if L == 0:
+            raise ValueError(f"{name}: no lanes")
+        self.name, self.entry, self.L, self.cap, self.dev = name, entry, L, cap, dev
+        if slab_bytes is None:
+            slab_bytes = torch.cuda.mem_get_info(dev)[0] // 3
+        self.slab_bytes = slab_bytes
+        self.lane_counts = torch.empty(L, dtype=torch.int32, device=dev)
+        self.fall = torch.empty((5, L), dtype=torch.int32, device=dev)
+        nw = -(-L // 32)
+        self.candmask = torch.empty(nw, dtype=torch.int32, device=dev)
+        self.subwords = torch.empty(nw, dtype=torch.int32, device=dev)
+        self.slab = None  # a one-part scan's slab, once launched
+
+    def _launch(self, l0: int, l1: int) -> torch.Tensor:
+        if l0 == 0:  # the kernel ORs bits in
+            self.candmask.zero_()
+            self.subwords.zero_()
+        slab = torch.empty((l1 - l0, self.cap, 4), dtype=torch.int32, device=self.dev)
         kernels.launch(
-            name, dev, entry, l0, l1 - l0, cap, lane_counts.data_ptr(), fall.data_ptr(),
-            candmask.data_ptr(), subwords.data_ptr(), slab.data_ptr(),
+            self.name, self.dev, self.entry, l0, l1 - l0, self.cap,
+            self.lane_counts.data_ptr(), self.fall.data_ptr(), self.candmask.data_ptr(),
+            self.subwords.data_ptr(), slab.data_ptr(),
         )
         return slab
 
-    cand_ends = []  # the candidate bits' cumsum, once every part has run
+    def _cand_ends(self) -> torch.Tensor:
+        return torch.cumsum(_unpack_bits32(self.candmask, self.L), 0)
 
-    def cand_count():
-        cand_ends.append(torch.cumsum(_unpack_bits32(candmask, L), 0))
-        return (cand_ends[0][-1],)
+    def outputs(self):
+        """The plain versions' output tuple."""
+        L = self.L
+        cand_ends = []  # the candidate bits' cumsum, once every part has run
 
-    emit, (n_cand,) = scan_in_parts(L, cap, slab_bytes, launch, lane_counts, cand_count)
-    candT = fall.index_select(1, _owners(cand_ends[0], n_cand)[1])
-    counts = torch.stack([lane_counts.sum(), cand_ends[0][-1]]).to(torch.int32)
-    return counts, lane_counts, emit[:, :3].T, emit[:, 3], candmask, candT, subwords
+        def cand_count():
+            cand_ends.append(self._cand_ends())
+            return (cand_ends[0][-1],)
+
+        emit, (n_cand,) = scan_in_parts(L, self.cap, self.slab_bytes, self._launch,
+                                        self.lane_counts, cand_count)
+        candT = self.fall.index_select(1, _owners(cand_ends[0], n_cand)[1])
+        counts = torch.stack([self.lane_counts.sum(), cand_ends[0][-1]]).to(torch.int32)
+        return (counts, self.lane_counts, emit[:, :3].T, emit[:, 3], self.candmask, candT,
+                self.subwords)
+
+    def pack(self, rows: int, cands: int) -> torch.Tensor:
+        """Enqueue the scan (unless its slab is held) and one int32 buffer of
+        its outputs (`_packed`): the first `rows` rows in the plain order,
+        the first `cands` candidates, and in the header the true row count,
+        the most rows of a lane and the candidate count.  Nothing waits on
+        the card.  rows <= L * cap and cands <= L."""
+        L, cap, dev = self.L, self.cap, self.dev
+        if self.slab is not None:
+            parts = [(0, L, self.slab)]
+        else:
+            bounds = lane_parts(L, cap, self.slab_bytes)
+            parts = ((l0, l1, self._launch(l0, l1)) for l0, l1 in bounds)
+        got = torch.zeros((rows, 4), dtype=torch.int32, device=dev)
+        k = torch.arange(rows, device=dev)
+        for l0, l1, slab in parts:
+            whole = (l0, l1) == (0, L)
+            if whole:
+                self.slab = slab
+            if rows == 0:
+                continue
+            # row k of the output sits in lane `lane`, at slab row (lane -
+            # l0) * cap + (k - the rows before that lane); rows of lanes
+            # outside [l0, l1) come from their own part
+            counts = self.lane_counts[:l1].to(torch.int64)
+            ends = torch.cumsum(counts, 0)
+            lane = torch.searchsorted(ends, k, right=True).clamp_(max=l1 - 1)
+            off = (k - (ends - counts).index_select(0, lane)).clamp_(0, cap - 1)
+            row = (lane - l0).clamp_(min=0) * cap + off
+            words = torch.take(slab, (row[:, None] * 4 + torch.arange(4, device=dev)).reshape(-1))
+            if whole:
+                got = words.reshape(rows, 4)
+            else:
+                mine = (lane >= l0) & (k < ends[-1])
+                got = torch.where(mine[:, None], words.reshape(rows, 4), got)
+        counts = self.lane_counts.to(torch.int64)
+        cand_ends = self._cand_ends()
+        owner = torch.searchsorted(cand_ends, torch.arange(cands, device=dev), right=True)
+        candT = self.fall.index_select(1, owner.clamp_(max=L - 1))
+        header = (counts.sum(), counts.max(), cand_ends[-1])
+        return _packed(header, self.lane_counts, got, self.candmask, candT, self.subwords)
 
 
 _NWORDS = SAMPLE // 16  # single-step plane: symbol words a row
@@ -985,17 +1124,32 @@ def scan_single_sharded(
     `scan_single_plain` (one shard) or `scan_single_sharded_plain`; same
     arguments and outputs as `scan_single`, with `shards` in place of the
     plane."""
+    return scan_single_sharded_call(
+        shards, pred, length, nblocks, la_words, lens,
+        lim_t, min_overlap, fwd_groups, rev_groups, slab_bytes,
+    ).outputs()
+
+
+def scan_single_sharded_call(
+    shards, pred, length: int, nblocks: int, la_words, lens,
+    lim_t: int, min_overlap: int, fwd_groups, rev_groups,
+    slab_bytes: int | None = None,
+):
+    """`scan_single_sharded`'s scan, not yet finished: a `CardScan` of K3 on
+    CUDA tensors (the shards checked and their peer access enabled, nothing
+    launched yet), a `PlainScan` of the plain version's outputs on CPU
+    tensors."""
     dev = la_words.device
     if dev.type == "cpu":
         if len(shards) == 1:
-            return scan_single_plain(
+            return PlainScan(scan_single_plain(
                 shards[0], pred, length, nblocks, la_words, lens,
                 lim_t, min_overlap, fwd_groups, rev_groups,
-            )
-        return scan_single_sharded_plain(
+            ))
+        return PlainScan(scan_single_sharded_plain(
             shards, pred, length, nblocks, la_words, lens,
             lim_t, min_overlap, fwd_groups, rev_groups,
-        )
+        ))
     if dev.type != "cuda":
         raise ValueError(f"scan_single: unsupported device {dev}")
     bps = _check_shards(shards, nblocks)
@@ -1012,8 +1166,7 @@ def scan_single_sharded(
         n * len(groups),
     )
     name = "scan_single" if len(shards) == 1 else "scan_single_sharded"
-    return scan_on_card(name, entry, n * len(groups), emit_cap(lim_t, min_overlap), dev,
-                        slab_bytes)
+    return CardScan(name, entry, n * len(groups), emit_cap(lim_t, min_overlap), dev, slab_bytes)
 
 
 def occ_stage_a(plane: torch.Tensor, i: torch.Tensor, tab: torch.Tensor):
@@ -1142,12 +1295,13 @@ def require_acgt(text: bytes) -> None:
         raise ValueError(NON_ACGT)
 
 
-def pack_reads_2bit(seqs: Sequence[str], n: int, maxlen: int):
+def pack_reads_2bit(seqs: Sequence[str], n: int, maxlen: int, out=None):
     """2-bit left-aligned packing of a chunk of reads by the C++ runtime.
 
-    Returns (la_words int32 [n, maxlen//16], lens int32 [n]); symbol j sits
-    in bits [2j%32, 2j%32+2) of word j//16.  Rows past the reads get length
-    1.  Raises on a symbol outside ACGT."""
+    Returns (la_words int32 [n, maxlen//16], lens int32 [n]), written into
+    `out` where it is given as two such arrays; symbol j sits in bits
+    [2j%32, 2j%32+2) of word j//16.  Rows past the reads get length 1.
+    Raises on a symbol outside ACGT."""
     lib = native_lib()
     joined = "".join(seqs).encode()
     require_acgt(joined)
@@ -1159,8 +1313,13 @@ def pack_reads_2bit(seqs: Sequence[str], n: int, maxlen: int):
     )
     if len(seqs) and int(np.diff(offsets).max()) > maxlen:
         raise ValueError(f"reads must be at most {maxlen} long")
-    la_w = np.empty((n, maxlen // 16), dtype=np.int32)
-    lens = np.empty(n, dtype=np.int32)
+    if out is None:
+        out = np.empty((n, maxlen // 16), dtype=np.int32), np.empty(n, dtype=np.int32)
+    la_w, lens = out
+    if la_w.shape != (n, maxlen // 16) or lens.shape != (n,):
+        raise ValueError(f"out: want int32 arrays of shapes ({n}, {maxlen // 16}) and ({n},)")
+    if not all(a.dtype == np.int32 and a.flags.c_contiguous for a in out):
+        raise ValueError("out: want contiguous int32 arrays")
     rc = lib.siga_pack_reads_2bit(
         buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
@@ -1202,7 +1361,15 @@ class DualScanner:
     the route is the single-step scan, over the shards
     (`scan_single_sharded`), with pred and every lane on devices[0].  The
     views are the replicated scan's.  (The lane split over a device list is
-    `parallel/dist.py`'s.)"""
+    `parallel/dist.py`'s.)
+
+    A chunk goes through in two halves, so that several can be in flight:
+    `dispatch` enqueues the upload, the scan, the compaction into the
+    scanner's sticky budgets and the copy back, and never waits on the card;
+    `collect` waits once for that copy and decodes the views (a second copy
+    only where a budget overflowed).  The slab budget a chunk is sized once,
+    at construction (`_slab_share`).  `stats` counts the chunks collected,
+    the host waits, the copies back and the overflows."""
 
     def __init__(self, dfwd: DeviceFM, drev: DeviceFM,
                  fwd_groups=(GROUP_ID, GROUP_RC),
@@ -1218,6 +1385,9 @@ class DualScanner:
         self.fwd_groups = tuple(fwd_groups)
         self.rev_groups = tuple(rev_groups)
         self.shards = None
+        # sticky budgets of the packed outputs, set at the first dispatch
+        self._rows = self._cands = 0
+        self.stats = {"chunks": 0, "host_waits": 0, "copies": 0, "overflows": 0}
         if devices is not None:
             devices = device_list(devices)
             if len(devices) > MAX_SHARDS:
@@ -1230,6 +1400,7 @@ class DualScanner:
             )
             self.plane = self.K2 = None
             self.pred = torch.as_tensor(dfwd.pred, dtype=torch.int32, device=self.device)
+            self.slab_bytes = _slab_share(self.device)
             return
         self.pair = pair_step_default() if pair_step is None else bool(pair_step)
         self.device = dfwd.device
@@ -1240,31 +1411,57 @@ class DualScanner:
             self.plane = torch.cat([dfwd.occ_plane, drev.occ_plane]).contiguous()
             self.K2 = None
         self.pred = dfwd.pred_dev
+        self.slab_bytes = _slab_share(self.device)
 
     def dispatch(self, seqs: Sequence[str], n: int, maxlen: int, min_overlap: int):
-        """Scan all orientation lanes of a chunk of at most n reads.
-        maxlen must be a multiple of 16 and at least the longest read."""
-        la_w, lens = pack_reads_2bit(seqs, n, maxlen)
+        """Enqueue the scan of all orientation lanes of a chunk of at most n
+        reads, and the copy of its outputs back to the host; returns the
+        chunk's `ScanHandle` for `collect`.  maxlen must be a multiple of 16
+        and at least the longest read.  Nothing here waits on the card: the
+        reads are packed into pinned host memory and uploaded without
+        blocking, and the outputs are packed on the card into the sticky
+        budgets and copied to a pinned buffer of the handle's."""
+        pin = self.device.type == "cuda"
+        la_h = torch.empty((n, maxlen // 16), dtype=torch.int32, pin_memory=pin)
+        lens_h = torch.empty(n, dtype=torch.int32, pin_memory=pin)
+        pack_reads_2bit(seqs, n, maxlen, out=(la_h.numpy(), lens_h.numpy()))
         # the scan goes only as deep as the chunk's longest read
-        lim_t = min(maxlen - 1, int(lens.max()) - 1)
-        la_words = torch.from_numpy(la_w).to(self.device)
-        lens_d = torch.from_numpy(lens).to(self.device)
+        lim_t = min(maxlen - 1, int(lens_h.numpy().max()) - 1)
+        la_words = la_h.to(self.device, non_blocking=True)
+        lens_d = lens_h.to(self.device, non_blocking=True)
+        args = (self.pred, self.length, self.nblocks, la_words, lens_d, lim_t, min_overlap,
+                self.fwd_groups, self.rev_groups)
         if self.shards is not None:
-            out = scan_single_sharded(
-                self.shards, self.pred, self.length, self.nblocks, la_words, lens_d,
-                lim_t, min_overlap, self.fwd_groups, self.rev_groups,
-            )
+            scan = scan_single_sharded_call(self.shards, *args, slab_bytes=self.slab_bytes)
         elif self.pair:
-            out = scan_pair(
-                self.plane, self.K2, self.pred, self.length, self.nblocks, la_words, lens_d,
-                lim_t, min_overlap, self.fwd_groups, self.rev_groups,
-            )
+            scan = scan_pair_call(self.plane, self.K2, *args, slab_bytes=self.slab_bytes)
         else:
-            out = scan_single(
-                self.plane, self.pred, self.length, self.nblocks, la_words, lens_d,
-                lim_t, min_overlap, self.fwd_groups, self.rev_groups,
-            )
-        return out, n, lim_t, min_overlap
+            scan = scan_single_sharded_call([self.plane], *args, slab_bytes=self.slab_bytes)
+        lanes = n * (len(self.fwd_groups) + len(self.rev_groups))
+        handle = ScanHandle(scan, n, lanes, lim_t, min_overlap, (la_h, lens_h, la_words, lens_d))
+        if not self._rows:
+            # the first chunk's guess, grown as chunks show more
+            self._rows = _granule(ROWS_A_LANE * lanes, ROW_GRANULE)
+            self._cands = _granule(CANDS_A_READ * n, CAND_GRANULE)
+        self._ship(handle)
+        return handle
+
+    def _ship(self, handle):
+        """Pack `handle`'s scan into the current budgets (no more than it can
+        hold) and start the copy back to the host."""
+        lanes = handle.lanes
+        handle.rows = min(self._rows, lanes * emit_cap(handle.lim_t, handle.min_overlap))
+        handle.cands = min(self._cands, lanes)
+        packed = handle.scan.pack(handle.rows, handle.cands)
+        if packed.device.type == "cpu":
+            handle.host, handle.done = packed, None
+            return
+        handle.host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+        handle.host.copy_(packed, non_blocking=True)
+        handle.done = torch.cuda.Event()
+        handle.done.record(torch.cuda.current_stream(packed.device))
+        handle.packed = packed
+        self.stats["copies"] += 1
 
     def collect(self, handle):
         """The views of a dispatched chunk: (f_view, r_view), each (lane, t,
@@ -1278,29 +1475,42 @@ class DualScanner:
           substr_flags: uint8 [lanes], lext|rext DNA extension of the
             full-length interval.
         Both routes give the same views; their trel counts from t0 =
-        2 * (p1 // 2) (pairs) or from p1 (single steps)."""
-        out, n, lim_t, min_overlap = handle
-        _counts, lane_counts, data3T, trel, candmask, candT, subwords = out
-        dev = lane_counts.device
-        num_lanes = n * (len(self.fwd_groups) + len(self.rev_groups))
-        half = n * len(self.fwd_groups)
-        p1, t0 = _scan_params(lim_t, min_overlap)
+        2 * (p1 // 2) (pairs) or from p1 (single steps).
+
+        One host wait on the card, for the copy `dispatch` started, unless
+        the header shows more rows or candidates than the budgets held:
+        then the budgets grow (for this and every later chunk) and the
+        outputs are packed and copied again.  Handles may be collected in
+        any order."""
+        lanes = handle.lanes
+        cap = emit_cap(handle.lim_t, handle.min_overlap)
+        while True:
+            if handle.done is not None:
+                handle.done.synchronize()
+                self.stats["host_waits"] += 1
+            buf = handle.host.numpy()
+            (total, most, n_cand), parts = unpack_scan(buf, lanes, handle.rows, handle.cands)
+            if most > cap:
+                raise RuntimeError(f"scan: a lane emitted {most} rows, its slab holds {cap}")
+            if total <= handle.rows and n_cand <= handle.cands:
+                break
+            self._rows = max(self._rows, _granule(total, ROW_GRANULE))
+            self._cands = max(self._cands, _granule(n_cand, CAND_GRANULE))
+            self.stats["overflows"] += 1
+            self._ship(handle)
+        self.stats["chunks"] += 1
+        lane_counts, rows, candmask, candT, subwords = parts
+        half = handle.n * len(self.fwd_groups)
+        p1, t0 = _scan_params(handle.lim_t, handle.min_overlap)
         t0 = t0 if self.pair else p1
-        lane = torch.repeat_interleave(
-            torch.arange(num_lanes, device=dev), lane_counts.to(torch.int64)
-        )
-        lo, rlo, size = data3T.to(torch.int64)
-        data = torch.stack([lo, lo + size, rlo, rlo + size], dim=1)
-        cand_lanes = torch.nonzero(_unpack_bits32(candmask, num_lanes)).flatten()
-        flo, frlo, l0, fsize, psize = candT.to(torch.int64)
-        cand_rows = torch.stack(
-            [flo, flo + fsize, frlo, frlo + fsize, l0, l0 + psize], dim=1
-        )
-        subbits = _unpack_bits32(subwords, num_lanes).to(torch.uint8)
-        lane, t, data, cand_lanes, cand_rows, subbits = (
-            x.cpu().numpy()
-            for x in (lane, trel.to(torch.int64) + t0, data, cand_lanes, cand_rows, subbits)
-        )
+        lane = np.repeat(np.arange(lanes, dtype=np.int64), lane_counts)
+        lo, rlo, size, trel = rows.T.astype(np.int64)
+        data = np.stack([lo, lo + size, rlo, rlo + size], axis=1)
+        t = trel + t0
+        cand_lanes = np.flatnonzero(_bits(candmask, lanes)).astype(np.int64)
+        flo, frlo, l0, fsize, psize = candT.astype(np.int64)
+        cand_rows = np.stack([flo, flo + fsize, frlo, frlo + fsize, l0, l0 + psize], axis=1)
+        subbits = _bits(subwords, lanes)
         is_f = lane < half
         cf = cand_lanes < half
         f_view = (lane[is_f], t[is_f], data[is_f],
@@ -1308,3 +1518,46 @@ class DualScanner:
         r_view = (lane[~is_f] - half, t[~is_f], data[~is_f],
                   cand_lanes[~cf] - half, cand_rows[~cf], subbits[half:])
         return f_view, r_view
+
+
+def _slab_share(dev: torch.device) -> int | None:
+    """A scanner's slab budget a chunk: a third of the card's free memory,
+    read once, shared over CHUNKS_IN_FLIGHT chunks (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(dev)[0] // 3 // CHUNKS_IN_FLIGHT
+
+
+def _bits(words: np.ndarray, L: int) -> np.ndarray:
+    """uint8 [L]: bit j of int32 word w is entry 32 w + j."""
+    return np.unpackbits(np.ascontiguousarray(words).view(np.uint8), bitorder="little")[:L]
+
+
+def _granule(x: int, g: int) -> int:
+    """x rounded up to a multiple of g, at least g."""
+    return max(g, -(-x // g) * g)
+
+
+# The first chunk's budgets: rows a lane (8.5 a lane at 25x coverage of
+# 150 bp reads and -m 45) and containment candidates a read (each read is
+# one at least, in its ID and REV lanes); they grow in granules.
+ROWS_A_LANE = 12
+CANDS_A_READ = 3
+ROW_GRANULE = 8192
+CAND_GRANULE = 4096
+CHUNKS_IN_FLIGHT = 8  # chunks that share a scanner's slab budget (ops/search.py LOOKAHEAD)
+
+
+class ScanHandle:
+    """A dispatched chunk: its scan (`CardScan` or `PlainScan`), the shape
+    of its scan, and every tensor the stream may still use: the pinned
+    reads and their copies on the card, the packed outputs and their pinned
+    copy (`host`), with the event that marks the copy done (`done`, None
+    on the CPU) and the budgets it was packed into (`rows`, `cands`)."""
+
+    def __init__(self, scan, n: int, lanes: int, lim_t: int, min_overlap: int, inputs):
+        self.scan, self.n, self.lanes = scan, n, lanes
+        self.lim_t, self.min_overlap = lim_t, min_overlap
+        self.inputs = inputs
+        self.packed = self.host = self.done = None
+        self.rows = self.cands = 0

@@ -4,14 +4,19 @@ Port of `siga_tpu/ops/search.py`.  Stage A (the backward search with
 '$'-probes over every read in four orientations) runs as the scan of
 `fm_device.DualScanner` (the pair scan K1, or the single-step scan K3 with
 SIGA_PAIR_STEP=0) on one device, or on each entry of a device list with a
-chunk's reads split over them (`parallel/dist.py`); stages B/C (submaximal
-filtering, irreducible extraction) run in the shared C++ runtime, one chunk
-behind the scan in a worker thread.
+chunk's reads split over them (`parallel/dist.py`), LOOKAHEAD chunks
+dispatched ahead of the one collected; stages B/C (submaximal filtering,
+irreducible extraction) run in the shared C++ runtime, in
+SIGA_NATIVE_WORKERS worker threads (default 1) drained oldest first, or in
+the calling thread with SIGA_NATIVE_PIPELINE=0.  SIGA_CHUNK_READS (read at
+import, default 16384) caps the reads of a chunk.
 There is no Python stage B/C here: the runtime is required.  rmdup
 (`batch_duplicate_hits`) needs only the scan's finals.
 """
 from __future__ import annotations
 
+import os
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
@@ -40,7 +45,8 @@ from .fm_device import (
     pair_step_default,
 )
 
-CHUNK_READS = 16384
+CHUNK_READS = int(os.environ.get("SIGA_CHUNK_READS", "16384"))
+LOOKAHEAD = 8  # chunks dispatched ahead of the one collected
 
 
 def _bucket_len(n_chars: int) -> int:
@@ -116,13 +122,6 @@ def _batch_overlap_ordered(
     proc = _native_chunk_processor(builder)
     chunk_reads = chunk_size(len(records))
 
-    def scan(start):
-        chunk = records[start : start + chunk_reads]
-        seqs = [r.seq for r in chunk]
-        maxlen = _bucket_len(max(len(s) for s in seqs))
-        f_view, r_view = dist.scan_views(scanners, seqs, maxlen, min_overlap)
-        return native_args(chunk, f_view, r_view)
-
     def native_args(chunk, f_view, r_view):
         f_lane, f_t, f_data, f_cl, f_cr, f_sub = f_view
         r_lane, r_t, r_data, r_cl, r_cr, r_sub = r_view
@@ -137,23 +136,60 @@ def _batch_overlap_ordered(
             (r_starts, r_t, r_data, _final8_from_cands(num_lanes, r_cl, r_cr), r_sub),
         )
 
-    def hits(start, future):
-        outs, substr, _failed = future.result()
+    def hits(start, result):
+        outs, substr, _failed = result
         for k in range(len(outs)):
             yield _LazyHit(start + k, bool(substr[k]), outs[k])
 
-    # Stage B/C runs in one worker thread one chunk behind the scan: ctypes
-    # releases the interpreter lock, so the next chunk's scan overlaps it,
-    # and one worker keeps the chunk results in order.
-    with ThreadPoolExecutor(max_workers=1) as executor:
-        pending = None
-        for start in range(0, len(records), chunk_reads):
-            future = executor.submit(proc.run, *scan(start))
-            if pending is not None:
-                yield from hits(*pending)
-            pending = (start, future)
-        if pending is not None:
-            yield from hits(*pending)
+    # Stage B/C runs in worker threads behind the collect loop: ctypes
+    # releases the interpreter lock, so the next chunks' collects overlap
+    # it.  The drain always waits on the oldest chunk, so the hits stay in
+    # order whatever the number of workers; at most 1 + n_workers chunks
+    # are pending.
+    n_workers = int(os.environ.get("SIGA_NATIVE_WORKERS", "1"))
+    pipeline = (len(records) > chunk_reads
+                and os.environ.get("SIGA_NATIVE_PIPELINE", "1") != "0")
+    executor = ThreadPoolExecutor(max_workers=n_workers) if pipeline else None
+    pending = deque()  # (start, future), oldest first
+    try:
+        for start, chunk, f_view, r_view in _in_flight(scanners, records, chunk_reads, min_overlap):
+            args = native_args(chunk, f_view, r_view)
+            if executor is None:
+                yield from hits(start, proc.run(*args))
+                continue
+            while len(pending) >= 1 + n_workers:
+                s0, future = pending.popleft()
+                yield from hits(s0, future.result())
+            pending.append((start, executor.submit(proc.run, *args)))
+        while pending:
+            s0, future = pending.popleft()
+            yield from hits(s0, future.result())
+    finally:
+        if executor is not None:
+            executor.shutdown(wait=True)
+
+
+def _in_flight(scanners, records, chunk_reads: int, min_overlap: int | None):
+    """(start, chunk, f_view, r_view) of each chunk of `records`, in order,
+    with LOOKAHEAD chunks dispatched ahead of the one collected, as the JAX
+    package keeps them in flight.  min_overlap None scans each chunk with
+    min_overlap above its longest read (only the finals)."""
+    starts = iter(range(0, len(records), chunk_reads))
+
+    def dispatch(start):
+        chunk = records[start : start + chunk_reads]
+        seqs = [r.seq for r in chunk]
+        maxlen = _bucket_len(max(len(s) for s in seqs))
+        mo = maxlen + 1 if min_overlap is None else min_overlap
+        return start, chunk, dist.dispatch(scanners, seqs, maxlen, mo)
+
+    inflight = deque(dispatch(start) for _, start in zip(range(LOOKAHEAD), starts))
+    while inflight:
+        start, chunk, shards = inflight.popleft()
+        following = next(starts, None)
+        if following is not None:
+            inflight.append(dispatch(following))
+        yield (start, chunk, *dist.collect(shards))
 
 
 class _Containments:
@@ -206,15 +242,12 @@ def batch_duplicate_hits(builder: OverlapBuilder, records, device) -> Iterator[H
     containment-only search (min_overlap = read length), i.e. only the
     finals of the stage-A scan over lanes [seq] (forward index) and
     [complement(seq)] (reverse index), on `device` as `batch_overlap_hits`
-    takes it.  Port of `siga_tpu/ops/search.py::batch_duplicate_hits`."""
+    takes it, LOOKAHEAD chunks in flight.  Port of
+    `siga_tpu/ops/search.py::batch_duplicate_hits`."""
     scanners = _scanners(builder, device, (GROUP_ID,), (GROUP_COMP,))
     chunk_reads = chunk_size(len(records))
-    for start in range(0, len(records), chunk_reads):
-        chunk = records[start : start + chunk_reads]
-        seqs = [r.seq for r in chunk]
-        maxlen = _bucket_len(max(len(s) for s in seqs))
-        # min_overlap above every read: no overlap blocks, only the finals
-        f_view, r_view = dist.scan_views(scanners, seqs, maxlen, maxlen + 1)
+    # min_overlap above every read: no overlap blocks, only the finals
+    for start, chunk, f_view, r_view in _in_flight(scanners, records, chunk_reads, None):
         f_contain = _Containments(*f_view[3:], builder.rfmi)
         r_contain = _Containments(*r_view[3:], builder.fmi)
         for k, rec in enumerate(chunk):

@@ -4,15 +4,15 @@ Counterpart of `siga_tpu/parallel/dist.py::data_mesh`: a chunk's reads are
 split into contiguous shards, one for each entry of a device list; the
 FM-index planes are replicated, one `DualScanner` for each distinct device
 (a list that repeats a device shares that device's planes); each shard is
-scanned on its device from a host thread of its own, so the cards run at
-the same time; and the host joins the shards' views in list order into the
-views one device gives for the whole chunk.  One process drives every local
+dispatched to its device in turn from one host thread (a dispatch only
+enqueues, so the cards run at the same time); and the host collects the
+shards and joins their views in list order into the views one device gives
+for the whole chunk.  One process drives every local
 card; the multi-process regime (a process per read slice, merged through
 hit files) is `parallel/multihost.py`.
 """
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
@@ -96,27 +96,36 @@ def join_views(views: Sequence, sizes: Sequence[int], n_groups: int):
     return lane[order], t[order], data[order], cand_lanes[corder], rows[corder], substr.reshape(-1)
 
 
-def scan_views(scanners: Sequence, seqs: Sequence[str], maxlen: int, min_overlap: int):
-    """The (f_view, r_view) of one chunk of reads: with one scanner, its own
-    scan; else the reads split by `shard_bounds` over the scanners (the
-    entries of a device list, in order), each non-empty shard scanned from a
-    thread of its own, and the views joined by `join_views`."""
+def dispatch(scanners: Sequence, seqs: Sequence[str], maxlen: int, min_overlap: int) -> list:
+    """Enqueue the scan of one chunk of reads: with one scanner, its own
+    dispatch; else the reads split by `shard_bounds` over the scanners (the
+    entries of a device list, in order), each non-empty shard dispatched in
+    turn from this thread (a dispatch waits on no card, so the cards scan
+    at the same time).  Returns [(scanner, reads, handle)] for `collect`."""
     if len(scanners) == 1:
         sc = scanners[0]
-        return sc.collect(sc.dispatch(seqs, len(seqs), maxlen, min_overlap))
-    shards = [
-        (sc, s, e) for sc, (s, e) in zip(scanners, shard_bounds(len(seqs), len(scanners))) if e > s
+        return [(sc, len(seqs), sc.dispatch(seqs, len(seqs), maxlen, min_overlap))]
+    return [
+        (sc, e - s, sc.dispatch(seqs[s:e], e - s, maxlen, min_overlap))
+        for sc, (s, e) in zip(scanners, shard_bounds(len(seqs), len(scanners))) if e > s
     ]
 
-    def scan(shard):
-        sc, s, e = shard
-        return sc.collect(sc.dispatch(seqs[s:e], e - s, maxlen, min_overlap))
 
-    with ThreadPoolExecutor(max_workers=len(shards)) as pool:
-        views = list(pool.map(scan, shards))
-    sizes = [e - s for _sc, s, e in shards]
-    first = scanners[0]
+def collect(shards: list):
+    """The (f_view, r_view) of a chunk `dispatch` enqueued: each shard's
+    views collected in order and joined by `join_views`."""
+    if len(shards) == 1:
+        sc, _n, handle = shards[0]
+        return sc.collect(handle)
+    views = [sc.collect(handle) for sc, _n, handle in shards]
+    sizes = [n for _sc, n, _h in shards]
+    first = shards[0][0]
     return (
         join_views([v[0] for v in views], sizes, len(first.fwd_groups)),
         join_views([v[1] for v in views], sizes, len(first.rev_groups)),
     )
+
+
+def scan_views(scanners: Sequence, seqs: Sequence[str], maxlen: int, min_overlap: int):
+    """The (f_view, r_view) of one chunk of reads: `collect(dispatch(...))`."""
+    return collect(dispatch(scanners, seqs, maxlen, min_overlap))

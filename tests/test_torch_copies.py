@@ -32,6 +32,7 @@ WHOLE = (
     "commands/subgraph_cmd.py", "commands/match_cmd.py", "commands/preqc_cmd.py",
     "commands/gan_cmd.py",
     "native/extractor.cpp", "native/paired.cpp",
+    "align/__init__.py", "align/sw.py",
 )
 # definitions the port's own module shares with the original
 SHARED = {
@@ -50,8 +51,9 @@ NATIVE_EDITS = (
      "        os.makedirs(os.path.dirname(_SO), exist_ok=True)\n"),
 )
 
-# an absolute path to the reference sources becomes "reference src/"
-_REFERENCE_PATH = re.compile(r"(?:/[\w.-]+)+/reference/src/")
+# an absolute path to the reference sources becomes "reference src/" (and
+# one to its vendored code "reference 3rdparty/")
+_REFERENCE_PATH = re.compile(r"(?:/[\w.-]+)+/reference/(src|3rdparty)/")
 
 
 def _read(root, rel):
@@ -60,7 +62,7 @@ def _read(root, rel):
 
 
 def _normal(text):
-    return _REFERENCE_PATH.sub("reference src/", text)
+    return _REFERENCE_PATH.sub(r"reference \1/", text)
 
 
 def _definitions(tree):
@@ -136,4 +138,5 @@ def test_a_drifted_copy_is_caught():
     text = _read(ORIGINAL, "core/dna.py")
     assert _normal(text.replace("ACGT", "ACGU", 1)) != _normal(text)
     assert _normal("see /x/reference/src/a.cpp:1") == "see reference src/a.cpp:1"
+    assert _normal("see /x/reference/3rdparty/b.h:2") == "see reference 3rdparty/b.h:2"
     assert _normal("see siga_tpu/core/dna.py") == "see siga_tpu/core/dna.py"

@@ -210,7 +210,7 @@ def test_every_entry_point_launches_through_the_guard():
     """Every C entry point that launches a kernel (the ones that take a
     stream) is named only as the entry of a `kernels.launch(name, device,
     entry, ...)` call, or bound by `functools.partial` for
-    `fm_device.scan_on_card`, which launches it through `kernels.launch`:
+    `fm_device.CardScan`, which launches it through `kernels.launch`:
     so every launch runs under the device of its tensors."""
     entries = {name for name, sig in kernels._SIGNATURES.items() if sig and sig[-1] is kernels._P}
     assert {"siga_scan_pair", "siga_scan_single", "siga_pair_plane", "siga_kmer_count",
