@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port's main path once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--keep-pipeline DIR]
+    python3 chip_smoke.py --pipeline-mb MB [--keep-pipeline DIR [--from-stage NAME]]
 
 Every `DualScanner.dispatch` of this process (the engine's, rmdup's, the
 sharded scan's) runs under torch.cuda.set_sync_debug_mode("error"): a
@@ -139,29 +140,47 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      calls in turn with the others), and K3's device time as a share of its
      chain bound (151 dependent row reads at G3's step), and in that
      process K9's kernel device time at its 60,608 lanes by torch.profiler;
- 13. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
+ 13. the main path at E. coli size, error-free (`run_ecoli`): the reads of
+     phase 3 at a 4.6 Mb genome (766,667 reads, 115,766,717 chars a
+     direction, 47 chunks of 16,313 reads), counts reset just before each
+     command: `index` on the card (every K6 kernel must launch; each
+     direction's sort wall and peak device memory against the fit check's
+     SORT_BYTES_PER_CHAR); K2 against its plain version on both
+     directions (904,428 rows, a pair plane four times the L2) and timed
+     by CUDA events on one; `overlap -m 45` (K1 once a chunk, K2
+     once a direction; one host wait and one copy back a chunk, or the
+     chunk and the sizes where a budget grew) with 256 sampled reads' hits
+     against the host engine; K1 against its plain version as in phase 7
+     (the first chunk timed beside its bytes bound and its row reads with
+     re-reads at the HBM rate); `rmdup` (kept + duplicates = reads, 256
+     sampled reads against the host engine); then in a process of its own
+     K6's device time a direction, K2's device time and walls, and K1's
+     kernel device time at the first chunk (`ecoli_traces`), while `index
+     -a host` runs in another: its four files byte-equal to the card's;
+ 14. the pipeline: the `benchmark/ecoli_scale.py 1.0 25 0.005` read set
      (its genome and generator), its eleven stages (PIPE_STAGES) through
      `python -m siga_tpu_torch ... --device cuda`, each in a fresh process
      with a time limit, then `benchmark/contigs_mapping.py`: the corrected
      read count and the contig facts must equal BASELINE.md's; each stage's
-     wall and kernel launches are printed (K1 must launch in every overlap
-     and rmdup stage, and K2 at least twice);
- 14. K1 against its plain version, bit for bit, at the pipeline's shapes
+     wall, peak RSS, peak device memory and kernel launches are printed (K1
+     must launch in every overlap and rmdup stage, and K2 at least twice);
+ 15. K1 against its plain version, bit for bit, at the pipeline's shapes
      with the `--no-opposite-strand` lane groups: the first chunk of
      `reads.ec.fa` at -m 85, and all contigs in one length-sorted chunk at
-     -m 10; each timed beside its bounds; at the contigs K3's views equal
+     -m 10 (the plain version on their first CTG_PLAIN_LEN symbols); each
+     timed beside its bounds; at the contigs K3's views equal
      K1's and K3 is timed beside its bounds, and the sharded scan's views
      (D = 2, 4 on [cuda:0] * D) equal K3's, its time per step beside K3's;
- 15. `correct` of every 8th preprocessed read against the whole read set's
+ 16. `correct` of every 8th preprocessed read against the whole read set's
      index (K7 and K2 must launch): its records must equal those reads' records in
      the pipeline's `reads.ec.fa`; the k-mers a launch held on average;
- 16. K7 against its plain version on that index's forward plane, bit for
+ 17. K7 against its plain version on that index's forward plane, bit for
      bit, on 262,144 41-mers (drawn from the reads, one
      base substituted, an N), 300 of them also against
      `FMIndex.occurrences`, timed with its bound; then at the `correct`
      route's sizes, 3 and 110 41-mers: equal to plain, timed per launch on
      the card and per `KmerCounter` call on the wall clock;
- 17. the plane build (K2) for one direction of the main path's index, in a
+ 18. the plane build (K2) for one direction of the main path's index, in a
      process of its own, the kernel against its plain version: each one's
      device time and operations
      from a torch.profiler trace of one build (device spans summed), its wall
@@ -169,10 +188,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      its peak device memory, and the bound; beside it the codes' copy to the
      card and DualScanner's stacking copy; last of the timings, so that the
      traces touch no other;
- 18. `overlap` as two `--process-id` workers at once on the card plus
+ 19. `overlap` as two `--process-id` workers at once on the card plus
      `--merge-only -t 2` (the port's launcher) against one `-t 2` process:
      the ASQG must be equal;
- 19. the whole script's seconds, the kernels' JSON line (each kernel's
+ 20. the whole script's seconds, the kernels' JSON line (each kernel's
      launches summed over the paths above, each path's counts read from its
      own run; its time at the shape named above; `bound_ms` from this run's
      inputs, by bytes at 3.35 TB/s or operations at 67e12/s), after the
@@ -180,6 +199,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      sharded K3 must each have some), then the device line last.
 With --keep-pipeline DIR the pipeline runs in DIR (a new directory) and
 stays there, for `python3 -m siga_tpu_torch.probes.kernel_ab`.
+
+With --pipeline-mb MB only the card's line, the build and the pipeline run,
+at a genome of MB Mb (`benchmark/ecoli_scale.py MB 25 0.005`: its genome
+and read generator; the facts are BASELINE.md's at 1.0 and 4.6, and no
+other size has a gate), each stage limited to `stage_timeout(MB)` seconds,
+then the last line.  With --keep-pipeline DIR and --from-stage NAME it
+resumes the run kept in DIR from stage NAME, as `benchmark/ecoli_resume.py`
+resumes the JAX package's.
 Imports nothing of JAX and nothing of the JAX package `siga_tpu`.
 """
 import argparse
@@ -249,15 +276,23 @@ DIST_K6 = ("sa_seed_keys", "sa_gather", "sa_round_keys")  # K6's kernels that K8
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHILD_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
-STAGE_TIMEOUT = 600  # seconds; a stage that runs longer fails the run
-# benchmark/ecoli_scale.py 1.0 25 0.005 and its result (BASELINE.md:66-73)
-PIPE_GENOME = 1_000_000
+STAGE_TIMEOUT = 600  # seconds a stage may run at 1 Mb (`stage_timeout`); a stage past it fails
+# The E. coli-size phase: the error-free reads of the main path at the
+# genome size of the repo's recipe (examples/siga-ecoli-miseq.sh, 4.6 Mb)
+ECOLI_GENOME = 4_600_000
+# benchmark/ecoli_scale.py MB 25 0.005: its reads (paired_read_gen.py's
+# arguments) and, by genome size in Mb, its results (1 Mb BASELINE.md:66-73,
+# 4.6 Mb BASELINE.md:113-119); a size not here has no gate
 PIPE_COVERAGE = 25
 PIPE_ERR = 0.005
+PIPE_READS = ("150", str(PIPE_COVERAGE), "400", "20", "1", str(PIPE_ERR))
 PIPE_FACTS = {
-    "reads_corrected": 166_638, "contig_number": 213, "matched_contig": 213,
-    "unmatched_contig": 0, "N50": 8505, "N90": 2085, "MAX_contig": 39_173,
-    "genome_covered": 999_189,
+    1.0: {"reads_corrected": 166_638, "contig_number": 213, "matched_contig": 213,
+          "unmatched_contig": 0, "N50": 8505, "N90": 2085, "MAX_contig": 39_173,
+          "genome_covered": 999_189},
+    4.6: {"reads_corrected": 766_588, "contig_number": 804, "matched_contig": 804,
+          "unmatched_contig": 0, "N50": 10_142, "N90": 2954, "MAX_contig": 34_320,
+          "genome_covered": 4_598_738},
 }
 # The stages of benchmark/ecoli_scale.py (the MiSeq recipe's parameters:
 # correction k = 41, minimum overlap 85, assembly overlap 111, branch trim
@@ -281,6 +316,9 @@ PIPE_STAGES = (
 )
 READS_MIN_OVERLAP = 85  # the overlap stage's -m
 CTG_MIN_OVERLAP = 10  # the overlap_ctg stage's -m
+# symbols of each contig that K1's plain version scans at the pipeline's
+# contigs (all of them, to 38,628, took it 81-122 s of the script's limit)
+CTG_PLAIN_LEN = 4096
 K7_K = 41
 K7_QUERIES = 262_144
 K7_ROUTE_SIZES = (3, 110)  # k-mers a call of `correct`'s K7 route holds: a weak base, a read
@@ -586,8 +624,11 @@ def pipeline_stages(r1, r2, device=None):
     return out
 
 
+T_START = time.time()  # the script's start, for the phase lines
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.time() - T_START:.1f} s)", flush=True)
 
 
 def ptxas_summary(report: str) -> list:
@@ -705,16 +746,33 @@ def run_main_path(dev, seqs, rng):
     return launches, index_s, (queries, refs)
 
 
-def check_host_index(index_s):
+def check_host_index(index_s, beside=None):
     """`index -a host` on the same reads: the four files equal the device
-    build's byte for byte."""
+    build's byte for byte.  With `beside` (a function) the host index runs
+    in a process of its own while this process calls it."""
+    argv = ["index", "-a", "host", "-p", "host", "reads.fa"]
     t0 = time.time()
-    assert cli.main(["index", "-a", "host", "-p", "host", "reads.fa"]) == 0
+    if beside is None:
+        assert cli.main(argv) == 0
+        how = ""
+    else:
+        proc = subprocess.Popen([sys.executable, "-m", "siga_tpu_torch", *argv], env=CHILD_ENV,
+                                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        try:
+            beside()
+        except BaseException:
+            proc.kill()
+            raise
+        finally:
+            _out, err = proc.communicate(timeout=STAGE_TIMEOUT)
+        assert proc.returncode == 0, err[-4000:]
+        own = [line for line in err.splitlines() if line.startswith("[index] wall: ")]
+        how = f" in a process of its own beside another ({own[0] if own else 'no wall line'})"
     host_s = time.time() - t0
     for ext in INDEX_FILES:
         with open(f"reads.{ext}", "rb") as a, open(f"host.{ext}", "rb") as b:
             assert a.read() == b.read(), f"reads.{ext} (sais2) differs from host.{ext}"
-    print(f"index walls: -a sais2 (cuda) {index_s:.3f} s, -a host {host_s:.3f} s; "
+    print(f"index walls: -a sais2 (cuda) {index_s:.3f} s, -a host {host_s:.3f} s{how}; "
           f".sai/.bwt/.rsai/.rbwt byte-equal")
 
 
@@ -1172,12 +1230,25 @@ def run_rmdup(builder, seqs, rng):
     check_outputs(RMDUP_FILES)
     assert launches["scan_pair"] == n_chunks, (launches, n_chunks)  # one scan launch a chunk
     assert launches["pair_plane"] == 2, launches  # one plane build a direction
+    kept, dups = rmdup_counts()
+    print(f"rmdup_s {rmdup_s:.3f}: kept {kept}, duplicates {dups}; launches {launches}")
+    assert kept + dups == len(seqs), (kept, dups)
+    check_rmdup_samples(builder, seqs, rng)
+    return run_single_step_rmdup(n_chunks)
+
+
+def rmdup_counts() -> tuple:
+    """(kept, duplicates) of the rmdup files in the current directory."""
     with open("reads.rmdup.fa") as f:
         kept = sum(line.startswith(">") for line in f)
     with open("reads.rmdup.dups.fa") as f:
         dups = sum(line.startswith(">") for line in f)
-    print(f"rmdup_s {rmdup_s:.3f}: kept {kept}, duplicates {dups}; launches {launches}")
-    assert kept + dups == len(seqs), (kept, dups)
+    return kept, dups
+
+
+def check_rmdup_samples(builder, seqs, rng):
+    """256 sampled reads' lines of rmdup's hits file against the host engine
+    (`OverlapBuilder.duplicate`)."""
     sample = set(rng.choice(len(seqs), size=256, replace=False).tolist())
     n_blocks = 0
     with gzip.open("reads-thread0.rmdup.hits.gz", "rt") as f:
@@ -1193,7 +1264,6 @@ def run_rmdup(builder, seqs, rng):
     assert not sample, "sampled reads missing from the rmdup hits file"
     print(f"256 sampled reads: rmdup hits == host engine (OverlapBuilder.duplicate), "
           f"{n_blocks} containment blocks among them")
-    return run_single_step_rmdup(n_chunks)
 
 
 RMDUP_FILES = ("reads.rmdup.fa", "reads.rmdup.dups.fa", "reads-thread0.rmdup.hits.gz")
@@ -1670,11 +1740,12 @@ class ScanWatch:
     `torch.cuda.set_sync_debug_mode("error")`, so a dispatch that waits on
     the card raises (and fails the run); `dispatches` counts them by scan
     kernel.  `totals` sums the scanners' counts (`DualScanner.stats`:
-    chunks, host waits, copies back, overflowed budgets) since `reset()`."""
+    chunks, host waits, copies back, overflowed budgets) since `reset()`,
+    and `growth` says at which chunk a budget grew, from what to what."""
 
     def __init__(self):
         self.dispatches = {}
-        self.totals = {}
+        self.reset()
         dispatch, collect = fm_device.DualScanner.dispatch, fm_device.DualScanner.collect
 
         def counted(method, scanner, *args):
@@ -1699,13 +1770,21 @@ class ScanWatch:
 
         @functools.wraps(collect)
         def counted_collect(scanner, handle):
-            return counted(collect, scanner, handle)
+            budgets = (scanner._rows, scanner._cands)
+            views = counted(collect, scanner, handle)
+            if (scanner._rows, scanner._cands) != budgets:  # an overflow: where, and by what
+                self.growth.append(
+                    f"chunk {self.totals['chunks']} ({handle.lanes} lanes, lim_t "
+                    f"{handle.lim_t}): rows {budgets[0]} -> {scanner._rows}, candidates "
+                    f"{budgets[1]} -> {scanner._cands}")
+            return views
 
         fm_device.DualScanner.dispatch = strict_dispatch
         fm_device.DualScanner.collect = counted_collect
 
     def reset(self):
         self.totals = {key: 0 for key in ("chunks", "host_waits", "copies", "overflows")}
+        self.growth = []
 
     def one_copy_a_chunk(self, label: str, n_chunks: int) -> str:
         """Raise unless `n_chunks` chunks were collected since `reset()`, with
@@ -1714,9 +1793,10 @@ class ScanWatch:
         t = self.totals
         assert t["chunks"] == n_chunks, (label, t, n_chunks)
         assert t["host_waits"] == t["copies"] == t["chunks"] + t["overflows"], (label, t)
+        grew = f" (budgets grew at {'; '.join(self.growth)})" if self.growth else ""
         return (f"{label}: {t['chunks']} chunks, {t['host_waits']} host waits and {t['copies']} "
                 f"copies back ({t['host_waits'] / t['chunks']:.3f} a chunk), {t['overflows']} "
-                f"overflowed budgets")
+                f"overflowed budgets{grew}")
 
 
 WATCH = None  # the process's ScanWatch, made in main()
@@ -1832,18 +1912,17 @@ def edge_indexes(dev, read_sets=None) -> dict:
     return out
 
 
-def check_plane_kernel(dev, edges):
+def check_plane_kernel(dev, indexes):
     """K2 against its plain version, bit for bit, plane and K: both directions
-    of the main path's index, and both directions of every read set of
-    `plane_edge_reads` (`edges`, indexed on the card).  Each
+    of every index of `indexes` ({label: (forward, reverse FMIndex)}: the
+    main path's, those of `plane_edge_reads` indexed on the card).  Each
     case is built PLANE_REPEATS more times in a row on the current stream,
     and once on a second stream while the current stream builds it too: all
     equal to the first (the look-back's flags and ticket are reset for
     every build, and two builds at once keep to their own scratch).
     Returns the largest error."""
-    cases = [(f"main path {ext}", FMIndex.load(f"reads.{ext}")) for ext in ("bwt", "rbwt")]
-    for label, hosts in edges.items():
-        cases += [(f"{label} {d}", fmi) for d, fmi in zip(("forward", "reverse"), hosts)]
+    cases = [(f"{label} {d}", fmi) for label, hosts in indexes.items()
+             for d, fmi in zip(("forward", "reverse"), hosts)]
     side = torch.cuda.Stream(dev)
     err_all = 0
     for label, fmi in cases:
@@ -1864,6 +1943,11 @@ def check_plane_kernel(dev, edges):
               f"stream: max_abs_err {repeat_err} against the first")
     assert err_all == 0
     return err_all
+
+
+def plane_bytes(n_codes: int, nblocks: int) -> int:
+    """K2's bytes: the uint8 codes read once, the plane and K written once."""
+    return n_codes + nblocks * ROW_BYTES + 25 * 4
 
 
 def time_plane_build(dev):
@@ -1892,7 +1976,7 @@ def time_plane_build(dev):
         "kernel": lambda: fm_device.build_pair_plane(codes, pred, nblocks),
         "plain": lambda: fm_device.build_pair_plane_plain(codes, pred, nblocks),
     }
-    k2_bytes = codes.numel() * codes.element_size() + nblocks * ROW_BYTES + 25 * 4
+    k2_bytes = plane_bytes(codes.numel(), nblocks)
     bound = bytes_ms(k2_bytes)
     cold = {name: trace_device(fn) for name, fn in versions.items()}
     traces = {name: trace_device(fn) for name, fn in versions.items()}
@@ -1945,32 +2029,52 @@ def sharded_scanner(fms, groups, d: int):
 def time_scans(dev):
     """K1, K3 and the index-sharded scan (D in SHARDS) through their
     wrappers (`scan_pair`, `scan_single`, `scan_single_sharded`) on the
-    first full chunk of the main path's reads, in a process of its own: a
-    wrapper call is the scan kernel, the slab compaction (torch operations)
-    and one synchronisation.  A torch.profiler trace of SCAN_ROUNDS calls
-    of each gives every call's kernel device time and the device time of
-    the rest; CUDA events give each wrapper's wall over SCAN_ROUNDS calls in
-    turn with the others.  Then K9 at `stage_a_chunk_args` (`trace_stage_a`).
+    first full chunk of the main path's reads, in a process of its own
+    (`trace_scans`).  Then K9 at `stage_a_chunk_args` (`trace_stage_a`).
     Returns {label: median kernel device ms}."""
     seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
-    chunk = seqs[: search.chunk_size(len(seqs))]
-    maxlen = search._bucket_len(max(map(len, chunk)))
-    la_w, lens = fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
-    lim_t = min(maxlen - 1, int(lens.max()) - 1)
-    reads = (torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev))
+    chunk, reads, lim_t = first_chunk_inputs(seqs, dev)
     fms = [fm_device.DeviceFM(FMIndex.load(f"reads.{ext}"), dev) for ext in ("bwt", "rbwt")]
     calls = {}  # label: (kernel name, wrapper call)
     for name, pair in (("scan_pair", True), ("scan_single", False)):
-        sc = fm_device.DualScanner(*fms, *FWD_REV, pair_step=pair)
-        args = ((sc.plane, sc.K2) if pair else (sc.plane,)) + (
-            sc.pred, sc.length, sc.nblocks, *reads, lim_t, MIN_OVERLAP, sc.fwd_groups,
-            sc.rev_groups)
-        calls[name] = (name, functools.partial(getattr(fm_device, name), *args))
+        calls[name] = scan_call(fm_device.DualScanner(*fms, *FWD_REV, pair_step=pair), reads, lim_t)
     for d in SHARDS:
         sc = sharded_scanner(fms, FWD_REV, d)
         args = (sc.shards, sc.pred, sc.length, sc.nblocks, *reads, lim_t, MIN_OVERLAP, *FWD_REV)
         calls[f"scan_single_sharded D={d}"] = (
             "scan_single_sharded", functools.partial(fm_device.scan_single_sharded, *args))
+    kernel_ms = trace_scans(calls, len(chunk))
+    kernel_ms["scan_stage_a"] = trace_stage_a(stage_a_chunk_args(seqs, fms[0], dev))
+    return kernel_ms
+
+
+def first_chunk_inputs(seqs, dev) -> tuple:
+    """(the reads, (packed reads, lengths) on `dev`, lim_t) of the first
+    chunk of `seqs`, cut as the engine cuts it."""
+    chunk = seqs[: search.chunk_size(len(seqs))]
+    maxlen = search._bucket_len(max(map(len, chunk)))
+    la_w, lens = fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
+    lim_t = min(maxlen - 1, int(lens.max()) - 1)
+    return chunk, (torch.from_numpy(la_w).to(dev), torch.from_numpy(lens).to(dev)), lim_t
+
+
+def scan_call(sc, reads, lim_t) -> tuple:
+    """(kernel name, wrapper call) of scanner `sc`'s scan (K1 or K3) of
+    `reads` at -m MIN_OVERLAP."""
+    name = "scan_pair" if sc.pair else "scan_single"
+    args = ((sc.plane, sc.K2) if sc.pair else (sc.plane,)) + (
+        sc.pred, sc.length, sc.nblocks, *reads, lim_t, MIN_OVERLAP, sc.fwd_groups, sc.rev_groups)
+    return name, functools.partial(getattr(fm_device, name), *args)
+
+
+def trace_scans(calls, n_reads: int) -> dict:
+    """Each of `calls` ({label: (kernel name, wrapper call)}) on a chunk of
+    `n_reads` reads: a wrapper call is the scan kernel, the slab compaction
+    (torch operations) and one synchronisation.  A torch.profiler trace of
+    SCAN_ROUNDS calls of each gives every call's kernel device time and the
+    device time of the rest; CUDA events give each wrapper's wall over
+    SCAN_ROUNDS calls in turn with the others.  Returns {label: median
+    kernel device ms, or None where the trace lost spans}."""
     walls = dict(zip(calls, alternate([fn for _name, fn in calls.values()], 1, SCAN_ROUNDS)))
     kernel_ms = {}
     card = card_line()
@@ -1989,14 +2093,13 @@ def time_scans(dev):
             continue
         rest = (dev_ms - sum(mine)) / SCAN_ROUNDS
         kernel_ms[label] = float(np.median(mine))
-        print(f"{label} first chunk ({len(chunk)} reads, {4 * len(chunk)} lanes), a process of "
+        print(f"{label} first chunk ({n_reads} reads, {4 * n_reads} lanes), a process of "
               f"its own: kernel device time (torch.profiler, {SCAN_ROUNDS} calls) "
               f"{spread(mine)}; the rest of a call's device time {rest:.4f} ms in "
               f"{(n_ops - len(mine)) / SCAN_ROUNDS:.0f} operations ({top_ops(by_name, 4)}); "
               f"the wrapper's wall (CUDA events, {SCAN_ROUNDS} calls in turn with the others) "
               f"{spread(walls[label])}, the card idle for "
               f"{np.median(walls[label]) - kernel_ms[label] - rest:.4f} ms of it [{card}]")
-    kernel_ms["scan_stage_a"] = trace_stage_a(stage_a_chunk_args(seqs, fms[0], dev))
     return kernel_ms
 
 
@@ -2020,22 +2123,27 @@ def time_read_guard(seqs):
 
 
 def check_hits(builder, hits, seqs, rng):
+    """The hits of 256 sampled reads from the command's hits file, and from
+    the engine (`hits`, unless None), against the host engine."""
     sample = sorted(rng.choice(len(seqs), size=min(256, len(seqs)), replace=False).tolist())
+    want = {}
     for idx in sample:
         blocks = []
         result = builder.overlap(seqs[idx], MIN_OVERLAP, blocks)
-        assert hits[idx].idx == idx and hits[idx].substring == result.substring, idx
-        assert np.array_equal(hits[idx]._array, search._blocks_to_array(blocks)), idx
-    want = set(sample)
+        want[idx] = (result.substring, search._blocks_to_array(blocks))
+        if hits is not None:
+            assert hits[idx].idx == idx and hits[idx].substring == want[idx][0], idx
+            assert np.array_equal(hits[idx]._array, want[idx][1]), idx
     with gzip.open("reads-thread0.hits.gz", "rt") as f:
         for line in f:
             idx = int(line.split(" ", 1)[0])
             if idx in want:
                 _i, sub, arr = Hit.parse_array(line)
-                assert sub == hits[idx].substring and np.array_equal(arr, hits[idx]._array), idx
-                want.discard(idx)
+                assert sub == want[idx][0] and np.array_equal(arr, want[idx][1]), idx
+                del want[idx]
     assert not want, "sampled reads missing from the hits file"
-    print(f"{len(sample)} sampled reads: command hits == engine hits == host engine")
+    engine = " == engine hits" if hits is not None else ""
+    print(f"{len(sample)} sampled reads: command hits{engine} == host engine")
 
 
 def check_scan_kernel(dev, builder, seqs):
@@ -2078,10 +2186,11 @@ def check_scan_kernel(dev, builder, seqs):
             plain_ms = cuda_ms(lambda: fm_device.scan_pair_plain(*args), 2)
             bound, traffic = scan_bound(lens, lim_t, len(groups[0]) + len(groups[1]), sc.nblocks,
                                         la_w.shape[1], int(plain[0][0]))
-            print(f"K1 first chunk ({len(chunk_seqs)} reads, {4 * len(chunk_seqs)} lanes): kernel "
+            print(f"K1 first chunk ({len(chunk_seqs)} reads, {4 * len(chunk_seqs)} lanes; a pair "
+                  f"plane of {2 * sc.nblocks} rows, {2 * sc.nblocks * ROW_BYTES} B): kernel "
                   f"{ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bound:.4f} ms (bytes, each row "
                   f"once), row reads with re-reads {traffic} B = {bytes_ms(traffic):.4f} ms at HBM "
-                  f"rate")
+                  f"rate [{card_line()}]")
             row = kernel_row(err, ms, plain_ms, bound, "bytes", None)
     assert err_all == 0
     row["max_abs_err"] = err_all
@@ -2370,6 +2479,156 @@ def run_dryrun():
     return ran
 
 
+def index_directions(argv) -> list:
+    """`cli.main(argv)`, an `index` on the card, with each direction's
+    `sa.bwt_perm_device` timed: [(characters, wall s, peak device bytes
+    above what was allocated before the call)], one a direction."""
+    calls, inner = [], sa_mod.bwt_perm_device
+
+    def timed(codes, device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        out = inner(codes, device)  # ends in a wait for its copies to the host
+        calls.append((int(codes.size), time.time() - t0,
+                      torch.cuda.max_memory_allocated() - before))
+        return out
+
+    sa_mod.bwt_perm_device = timed
+    try:
+        assert cli.main(argv) == 0
+    finally:
+        sa_mod.bwt_perm_device = inner
+    return calls
+
+
+def run_ecoli(dev) -> dict:
+    """The main path at E. coli size, error-free, in the new directory
+    `ecoli`: the reads of `simulate_reads` at ECOLI_GENOME; `index` (-a
+    sais2 on the card, each direction's sort wall and peak device memory
+    against the fit check's SORT_BYTES_PER_CHAR); K2 against its plain
+    version on both directions, and timed (CUDA events) on one;
+    `overlap -m 45` (one host wait and one copy back a chunk, or where a
+    budget grew), 256 sampled reads' hits against the host engine; K1
+    against its plain version (`check_scan_kernel`: the first chunk, also
+    split over launches, timed beside its bounds; a 149 bp chunk; the rmdup
+    groups); `rmdup` (kept + duplicates = reads, 256 sampled reads against the host
+    engine); then K6, K2 and K1 traced in a process of its own
+    (`ecoli_traces`) while `index -a host` runs in another, its four files
+    then byte-equal to the card's.  Counts are reset just before each
+    command.  Returns
+    the launches of the three commands, summed."""
+    os.mkdir("ecoli")
+    home = os.getcwd()
+    os.chdir("ecoli")
+    try:
+        return _run_ecoli(dev)
+    finally:
+        os.chdir(home)
+
+
+def _run_ecoli(dev) -> dict:
+    card = card_line()
+    t_phase = t0 = time.time()
+    rng = np.random.default_rng(SEED)
+    seqs = simulate_reads(rng, ECOLI_GENOME)
+    with open("reads.fa", "w") as f:
+        f.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs)))
+    n_chars = sum(len(s) + 1 for s in seqs)
+    per_chunk = search.chunk_size(len(seqs))
+    n_chunks = -(-len(seqs) // per_chunk)
+    print(f"E. coli size: {len(seqs)} reads x {READ_LEN} bp from both strands of a random "
+          f"{ECOLI_GENOME} bp genome (seed {SEED}), {n_chars} chars a direction; {n_chunks} chunks "
+          f"of {per_chunk} reads ({4 * per_chunk} lanes); simulated and written in "
+          f"{time.time() - t0:.3f} s", flush=True)
+    launches = {}
+
+    def ran_since_reset():
+        ran = dict(kernels.launches)
+        for name, n in ran.items():
+            launches[name] = launches.get(name, 0) + n
+        return ran
+
+    kernels.reset_launches()
+    t0 = time.time()
+    sorts = index_directions(["index", "--device", dev.type, "-p", "reads", "reads.fa"])
+    index_s = time.time() - t0
+    ran = ran_since_reset()
+    for direction, (n, wall, peak) in zip(("forward", "reverse"), sorts, strict=True):
+        # K6's loose bound, as `time_index_layers`: the text read once, the
+        # suffix array (int32), the BWT and the permutation written once
+        k6_bytes = n * (1 + 4 + 1) + len(seqs) * 4
+        print(f"index -a sais2 {direction}: {n} chars, bwt_perm_device {wall:.3f} s, peak device "
+              f"memory {peak} B = {peak / n:.1f} B a char against the fit check's "
+              f"{sa_mod.SORT_BYTES_PER_CHAR} ({sa_mod.SORT_BYTES_PER_CHAR * n} B); K6 loose bound "
+              f"{bytes_ms(k6_bytes):.4f} ms ({k6_bytes} B, bytes) [{card}]")
+        assert peak <= sa_mod.SORT_BYTES_PER_CHAR * n, "the sort's memory estimate is too low"
+    assert all(ran[name] >= 2 for name in SA_TIMED), ran  # K6, both directions
+    print(f"index_s {index_s:.3f}; launches {ran}", flush=True)
+    fmi, rfmi = FMIndex.load("reads.bwt"), FMIndex.load("reads.rbwt")
+    check_plane_kernel(dev, {"E. coli size": (fmi, rfmi)})
+    codes = torch.from_numpy(np.ascontiguousarray(fmi.codes)).to(dev)
+    nblocks = fmi.length // fm_device.SAMPLE + 1
+    ms = cuda_ms(lambda: fm_device.build_pair_plane(
+        codes, np.asarray(fmi.pred, dtype=np.int64), nblocks), PLANE_ROUNDS)
+    bound = bytes_ms(plane_bytes(codes.numel(), nblocks))
+    print(f"K2 E. coli size forward: {ms:.4f} ms by CUDA events ({PLANE_ROUNDS} builds), "
+          f"{bound / ms:.1%} of its {bound:.4f} ms bytes bound [{card}]", flush=True)
+    del codes
+
+    kernels.reset_launches()
+    WATCH.reset()
+    t0 = time.time()
+    assert cli.main(
+        ["overlap", "--device", dev.type, "-m", str(MIN_OVERLAP), "-p", "reads", "reads.fa"]
+    ) == 0
+    overlap_s = time.time() - t0
+    ran = ran_since_reset()
+    print(WATCH.one_copy_a_chunk(f"E. coli size overlap ({overlap_s:.3f} s) [{card}]", n_chunks))
+    print(f"overlap_s {overlap_s:.3f}; launches {ran}", flush=True)
+    assert ran["scan_pair"] == n_chunks and ran["pair_plane"] == 2, (ran, n_chunks)
+    builder = OverlapBuilder(fmi, rfmi, "reads")
+    check_hits(builder, None, seqs, rng)
+    check_scan_kernel(dev, builder, seqs)
+
+    kernels.reset_launches()
+    WATCH.reset()
+    t0 = time.time()
+    assert cli.main(["rmdup", "--device", dev.type, "-p", "reads", "reads.fa"]) == 0
+    rmdup_s = time.time() - t0
+    ran = ran_since_reset()
+    print(WATCH.one_copy_a_chunk(f"E. coli size rmdup ({rmdup_s:.3f} s) [{card}]", n_chunks))
+    assert ran["scan_pair"] == n_chunks and ran["pair_plane"] == 2, (ran, n_chunks)
+    kept, dups = rmdup_counts()
+    print(f"rmdup_s {rmdup_s:.3f}: kept {kept}, duplicates {dups}; launches {ran}", flush=True)
+    assert kept + dups == len(seqs), (kept, dups)
+    check_rmdup_samples(builder, seqs, rng)
+    del builder, fmi, rfmi
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    # the traces read device time; the host index, on the host's cores, beside them
+    check_host_index(index_s, beside=lambda: in_child("ecoli_traces"))
+    print(f"E. coli size phase {time.time() - t_phase:.3f} s (the traces' process and "
+          f"-a host beside it {time.time() - t0:.3f} s)")
+    return launches
+
+
+def ecoli_traces(dev):
+    """K6, K2 and K1 at the E. coli size (its reads and index in the current
+    directory) in a process of its own: `trace_index` (one direction),
+    `time_plane_build` (one direction) and K1's kernel device time at the
+    first chunk (`trace_scans`).  Returns their device times (ms)."""
+    k6 = trace_index(dev)
+    k2 = time_plane_build(dev)
+    seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
+    chunk, reads, lim_t = first_chunk_inputs(seqs, dev)
+    fms = [fm_device.DeviceFM(FMIndex.load(f"reads.{ext}"), dev) for ext in ("bwt", "rbwt")]
+    sc = fm_device.DualScanner(*fms, *FWD_REV, pair_step=True)
+    k1 = trace_scans({"scan_pair": scan_call(sc, reads, lim_t)}, len(chunk))
+    return {"scan_pair": k1["scan_pair"], "pair_plane": k2["ms"], "sa": k6["device_ms"]}
+
+
 def kernel_row(err, ms, plain_ms, bound, bound_by, library_ms):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -2381,10 +2640,11 @@ def check_scan_pipeline(dev, workdir, step_ns):
     chunk of reads.ec.fa at -m 85, and the one length-sorted chunk of all of
     primary-contigs.rmdup.fa at -m 10 (lanes up to the longest contig).  The
     chunks are cut as `search.batch_overlap_hits` cuts them.  The plain
-    version runs once a case, timed by CUDA events; the kernel is timed
-    beside its bounds (`step_ns`: one dependent step of G3
-    on the pair plane).  At the contigs, K3's views equal K1's (no plain
-    version there: K1's took 91-118 s), K3 timed beside its bounds.
+    version runs once a case, timed by CUDA events, at the contigs on their
+    first CTG_PLAIN_LEN symbols (against the kernel there); the kernel is
+    timed at the whole chunk beside its bounds (`step_ns`: one dependent
+    step of G3 on the pair plane).  At the contigs, K3's views equal K1's
+    at their whole length, K3 timed beside its bounds.
     Returns the largest error."""
     err_all = 0
     for name, prefix, mo in (("reads.ec.fa first chunk", "reads.ec", READS_MIN_OVERLAP),
@@ -2399,35 +2659,47 @@ def check_scan_pipeline(dev, workdir, step_ns):
         if lens[-1] > 2 * max(lens[len(lens) // 2], 1):
             seqs.sort(key=len)
         chunk = seqs[: search.chunk_size(len(seqs))]
-        maxlen = search._bucket_len(max(map(len, chunk)))
-        la_w, lens_t = fm_device.pack_reads_2bit(chunk, len(chunk), maxlen)
-        lim_t = min(maxlen - 1, int(lens_t.max()) - 1)
-        args = (
-            sc.plane, sc.K2, sc.pred, sc.length, sc.nblocks,
-            torch.from_numpy(la_w).to(dev), torch.from_numpy(lens_t).to(dev),
-            lim_t, mo, sc.fwd_groups, sc.rev_groups,
-        )
+
+        def scan_args(lanes):
+            maxlen = search._bucket_len(max(map(len, lanes)))
+            la_w, lens_t = fm_device.pack_reads_2bit(lanes, len(lanes), maxlen)
+            lim_t = min(maxlen - 1, int(lens_t.max()) - 1)
+            return maxlen, la_w, lens_t, (
+                sc.plane, sc.K2, sc.pred, sc.length, sc.nblocks,
+                torch.from_numpy(la_w).to(dev), torch.from_numpy(lens_t).to(dev),
+                lim_t, mo, sc.fwd_groups, sc.rev_groups,
+            )
+
+        maxlen, la_w, lens_t, args = scan_args(chunk)
+        lim_t = args[7]
+        # the plain version's cost grows with the steps: at the contigs it
+        # runs to CTG_PLAIN_LEN symbols of each, the kernel to their ends
+        cut = name == "contigs" and maxlen > CTG_PLAIN_LEN
+        plain_args = scan_args([s[:CTG_PLAIN_LEN] for s in chunk])[3] if cut else args
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        plain = fm_device.scan_pair_plain(*args)
+        plain = fm_device.scan_pair_plain(*plain_args)
         end.record()
         torch.cuda.synchronize()
-        err = max_abs_err(fm_device.scan_pair(*args), plain)
+        err = max_abs_err(fm_device.scan_pair(*plain_args), plain)
         err_all = max(err_all, err)
+        out = fm_device.scan_pair(*args)
         ms = cuda_ms(lambda: fm_device.scan_pair(*args), 3)
         live = live_supersteps(lens_t, lim_t, 2)
-        bound, traffic = scan_bound(lens_t, lim_t, 2, sc.nblocks, la_w.shape[1], int(plain[0][0]))
+        bound, traffic = scan_bound(lens_t, lim_t, 2, sc.nblocks, la_w.shape[1], int(out[0][0]))
+        depth = f" (the contigs' first {CTG_PLAIN_LEN} symbols)" if cut else ""
         print(f"K1 {name} (-m {mo}, groups ID/REV): {len(chunk)} of {len(seqs)} sequences, "
               f"{2 * len(chunk)} lanes of {maxlen} symbols, lim_t {lim_t}, "
-              f"blocks {int(plain[0][0])}, candidates {int(plain[0][1])}, max_abs_err {err}; kernel "
-              f"{ms:.4f} ms, plain {start.elapsed_time(end):.3f} ms; bound {bound:.4f} ms (bytes, each row "
-              f"once), row reads with re-reads {bytes_ms(traffic):.4f} ms at HBM rate, longest lane "
-              f"{int(live.max())} supersteps = {live.max() * step_ns / 1e6:.4f} ms of dependent "
-              f"steps at G3's {step_ns:.1f} ns", flush=True)
+              f"blocks {int(out[0][0])}, candidates {int(out[0][1])}, max_abs_err {err}{depth}; "
+              f"kernel {ms:.4f} ms, plain {start.elapsed_time(end):.3f} ms{depth}; bound "
+              f"{bound:.4f} ms (bytes, each row once), row reads with re-reads "
+              f"{bytes_ms(traffic):.4f} ms at HBM rate, longest lane {int(live.max())} supersteps "
+              f"= {live.max() * step_ns / 1e6:.4f} ms of dependent steps at G3's {step_ns:.1f} ns",
+              flush=True)
         if name == "contigs":
             check_single_contigs(fms, id_rev, chunk, maxlen, mo, args, step_ns)
-        del sc, fms, args, plain
+        del sc, fms, args, plain_args, plain, out
     assert err_all == 0
     return err_all
 
@@ -2506,28 +2778,64 @@ def check_sw_kernel(dev, edges):
     return kernel_row(err, ms, plain_ms, bound, "operations", None)
 
 
+# one stage's process: `python -m siga_tpu_torch ARGV` (runpy, as -m runs
+# it), then on stderr its peak RSS and the peak of the caching allocator.
+# The RSS is the process's own: its ru_maxrss holds the parent's peak from
+# before the exec as well.  It is the kernel's high-water mark (VmHWM) and,
+# where /proc gives none (as on the card's host), the largest VmRSS read
+# every 20 ms.
+STAGE_CHILD = r"""
+import runpy, sys, threading, time
+
+def status(key):
+    with open("/proc/self/status") as f:
+        return max([int(line.split()[1]) * 1024 for line in f if line.startswith(key)], default=0)
+
+peak = [0]
+
+def sample():
+    while True:
+        peak[0] = max(peak[0], status("VmRSS:"))
+        time.sleep(0.02)
+
+threading.Thread(target=sample, daemon=True).start()
+try:
+    runpy.run_module("siga_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    rss = max(peak[0], status("VmRSS:"), status("VmHWM:"))
+    torch = sys.modules.get("torch")
+    card = torch is not None and torch.cuda.is_initialized()
+    print(f"[stage] peak rss {rss} B, peak device memory "
+          f"{torch.cuda.max_memory_allocated() if card else 0} B", file=sys.stderr)
+"""
+
+
 def port_cmd(argv, cwd, timeout=STAGE_TIMEOUT):
     """`python -m siga_tpu_torch ARGV` in a fresh process in `cwd`: returns its
-    wall, the kernel launches it reports and its own `[cmd] wall:` line;
-    raises when it fails or runs
-    past `timeout` seconds (the child is killed then)."""
+    wall, the kernel launches it reports, its own `[cmd] wall:` line and its
+    peaks ({"rss": B, "device": B}), and prints them; raises when it fails
+    or runs past `timeout` seconds (the child is killed then)."""
     t0 = time.time()
     proc = subprocess.run(
-        [sys.executable, "-m", "siga_tpu_torch", *argv], cwd=cwd, env=CHILD_ENV,
+        [sys.executable, "-c", STAGE_CHILD, *argv], cwd=cwd, env=CHILD_ENV,
         capture_output=True, text=True, timeout=timeout,
     )
     wall = time.time() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(argv)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    ran, own = {}, ""
+    ran, own, peaks = {}, "", {}
     for line in proc.stderr.splitlines():
         if "] kernel launches: " in line:
             ran = json.loads(line.split("] kernel launches: ", 1)[1])
         elif line.startswith(f"[{argv[0]}] wall: "):
             own = line
-    if own:  # the command's own wall, from its start to its end
-        print(f"  {argv[0]}: process {wall:.3f} s; {own}", flush=True)
-    return wall, ran, own
+        elif line.startswith("[stage] peak "):
+            rss, device = re.findall(r"(\d+) B", line)
+            peaks = {"rss": int(rss), "device": int(device)}
+    # the command's own wall, from its start to its end
+    print(f"  {argv[0]}: process {wall:.3f} s; {own or 'no wall line'}; peak RSS "
+          f"{peaks['rss']} B, peak device memory {peaks['device']} B", flush=True)
+    return wall, ran, own, peaks
 
 
 def count_records(path) -> int:
@@ -2535,11 +2843,18 @@ def count_records(path) -> int:
         return sum(line.startswith(">") for line in f)
 
 
-def run_pipeline(workdir):
-    """The ecoli_scale.py 1.0 25 0.005 read set, then its eleven stages
-    through the port's CLI on the card, each in a fresh process; the contig
-    facts against BASELINE.md.  Returns the launches of its device stages."""
-    n = PIPE_GENOME
+def stage_timeout(mb: float) -> int:
+    """Seconds a pipeline stage may run at a genome of `mb` Mb: STAGE_TIMEOUT
+    at 1 Mb and below, in proportion above."""
+    return int(STAGE_TIMEOUT * max(1.0, mb))
+
+
+def generate_reads(workdir, mb: float):
+    """`benchmark/ecoli_scale.py MB 25 0.005`'s read set in `workdir`: its
+    genome (int(mb * 1e6) bases from default_rng(42)) as ref.fa, then
+    `benchmark/paired_read_gen.py` with its arguments.  Returns the names of
+    the R1 and R2 files."""
+    n = int(mb * 1e6)
     genome = np.frombuffer(b"ACGT", dtype=np.uint8)[
         np.random.default_rng(42).integers(0, 4, n)
     ].tobytes().decode()
@@ -2547,41 +2862,76 @@ def run_pipeline(workdir):
         f.write(">ref\n")
         for i in range(0, n, 80):
             f.write(genome[i : i + 80] + "\n")
-    t0 = time.time()
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "benchmark", "paired_read_gen.py"), "ref.fa",
-         "150", str(PIPE_COVERAGE), "400", "20", "1", str(PIPE_ERR)],
-        cwd=workdir, check=True, capture_output=True, text=True, timeout=STAGE_TIMEOUT,
+         *PIPE_READS],
+        cwd=workdir, check=True, capture_output=True, text=True, timeout=stage_timeout(mb),
     )
     prefix = out.stdout.strip().splitlines()[-1]
-    print(f"generate {time.time() - t0:.3f} s: {prefix}_R1/_R2.fasta", flush=True)
+    return f"{prefix}_R1.fasta", f"{prefix}_R2.fasta"
+
+
+def read_files(workdir):
+    """The R1 and R2 file names `generate_reads` left in `workdir`."""
+    names = sorted(n for n in os.listdir(workdir) if n.endswith(("_R1.fasta", "_R2.fasta")))
+    if len(names) != 2 or names[0][: -len("_R1.fasta")] != names[1][: -len("_R2.fasta")]:
+        raise FileNotFoundError(f"{workdir}: no generated R1 and R2 files ({names})")
+    return names[0], names[1]
+
+
+def run_pipeline(workdir, mb: float = 1.0, device: str = "cuda", from_stage: str | None = None):
+    """The ecoli_scale.py MB 25 0.005 read set, then its eleven stages through
+    the port's CLI on `device`, each in a fresh process with
+    `stage_timeout(mb)`; the contig facts against BASELINE.md's where it has
+    them (`PIPE_FACTS`).  With `from_stage` the run resumes in `workdir`, which
+    holds the read set and the files of the stages before that one (a kept
+    run that stopped).  Returns the launches of its device stages."""
+    names = [name for name, _argv in PIPE_STAGES]
+    if from_stage is None:
+        t0 = time.time()
+        r1, r2 = generate_reads(workdir, mb)
+        print(f"generate {time.time() - t0:.3f} s: {r1}, {r2} ({int(mb * 1e6)} bp genome)",
+              flush=True)
+    elif from_stage not in names:
+        raise ValueError(f"no stage {from_stage!r}: the stages are {', '.join(names)}")
+    else:
+        r1, r2 = read_files(workdir)
+        print(f"resume in {workdir} from stage {from_stage} ({r1}, {r2})", flush=True)
     launches = {name: 0 for name in kernels.launches}
     walls = {}
-    for name, argv in pipeline_stages(f"{prefix}_R1.fasta", f"{prefix}_R2.fasta", "cuda"):
-        walls[name], ran, _own = port_cmd(argv, workdir)
+    skip = names.index(from_stage) if from_stage else 0
+    for name, argv in pipeline_stages(r1, r2, device)[skip:]:
+        walls[name], ran, _own, _peaks = port_cmd(argv, workdir, stage_timeout(mb))
         print(f"stage {name}: {walls[name]:.3f} s, launches {ran}   ({' '.join(argv)})", flush=True)
-        if name.startswith(("overlap", "rmdup")):
+        if device != "cpu" and name.startswith(("overlap", "rmdup")):
             assert ran.get("scan_pair", 0) >= 1, (name, ran)
             assert ran.get("pair_plane", 0) >= 2, (name, ran)
         for k, v in ran.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
     print(f"pipeline wall {sum(walls.values()):.3f} s over {len(walls)} stages")
     n_reads = count_records(os.path.join(workdir, "reads.ec.fa"))
     with open(os.path.join(workdir, "final-contigs.fa")) as f:
         stats = subprocess.run(
             [sys.executable, os.path.join(REPO, "benchmark", "contigs_mapping.py"), "300", "ref.fa",
              "fasta", "unmatched.fa"],
-            stdin=f, cwd=workdir, check=True, capture_output=True, text=True, timeout=STAGE_TIMEOUT,
+            stdin=f, cwd=workdir, check=True, capture_output=True, text=True,
+            timeout=stage_timeout(mb),
         ).stdout
     facts = {"reads_corrected": n_reads}
     for line in stats.splitlines():
         key, _, value = line.partition(":")
-        if key in PIPE_FACTS and value.strip():
+        if key in PIPE_FACTS[1.0] and value.strip():
             facts[key] = int(value.split()[0])
     print(f"pipeline facts {json.dumps(facts)}")
-    assert facts == PIPE_FACTS, f"pipeline facts differ from BASELINE.md: {facts} vs {PIPE_FACTS}"
-    print("pipeline facts equal BASELINE.md (166,638 reads; 213/213/0; N50 8,505; N90 2,085; "
-          "MAX 39,173; 999,189 bp covered)")
+    want = PIPE_FACTS.get(mb)
+    if want is None:
+        print(f"no gate at {mb} Mb (BASELINE.md has facts at {sorted(PIPE_FACTS)} Mb)")
+        return launches
+    assert facts == want, f"pipeline facts differ from BASELINE.md: {facts} vs {want}"
+    print(f"pipeline facts equal BASELINE.md's at {mb} Mb ({want['reads_corrected']:,} reads; "
+          f"{want['contig_number']}/{want['matched_contig']}/{want['unmatched_contig']}; N50 "
+          f"{want['N50']:,}; N90 {want['N90']:,}; MAX {want['MAX_contig']:,}; "
+          f"{want['genome_covered']:,} bp covered)")
     return launches
 
 
@@ -2594,7 +2944,7 @@ def check_correct_subset(workdir):
     reads = fastx.read_sequences(os.path.join(workdir, "reads.pp.fastq"))
     sub = reads[::8]
     fastx.write_sequences(os.path.join(workdir, "reads.sub.fastq"), sub)
-    wall, ran, own = port_cmd(
+    wall, ran, own, _peaks = port_cmd(
         ["correct", "--device", "cuda", "-k", "41", "-p", "reads.pp", "-o", "sub.ec.fa",
          "reads.sub.fastq"], workdir)
     print(f"correct of {len(sub)} reads against the {len(reads)}-read index (K7 on cuda): "
@@ -2695,8 +3045,8 @@ def check_overlap_workers(workdir):
     finally:
         os.chdir(home)
     workers_s = time.time() - t0
-    single_s, ran, _own = port_cmd(["overlap", "--device", "cuda", *args, "-t", "2", "reads.ec.fa"],
-                             dirs["single"])
+    single_s, ran, _own, _peaks = port_cmd(
+        ["overlap", "--device", "cuda", *args, "-t", "2", "reads.ec.fa"], dirs["single"])
     assert ran.get("scan_pair", 0) >= 1, ran
     asqg = []
     for d in dirs.values():
@@ -2707,21 +3057,13 @@ def check_overlap_workers(workdir):
           f"ASQG equal ({asqg[0].count(b'\nED\t')} ED records)")
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--keep-pipeline", metavar="DIR",
-                        help="run the pipeline in DIR (a new directory) and keep it")
-    args = parser.parse_args(argv)
-    keep = os.path.abspath(args.keep_pipeline) if args.keep_pipeline else None
-    t_start = time.time()
+def start_card():
+    """The card's line, CUDA required, then the kernels and the host runtime
+    built; returns the device."""
     phase("card")
     print(card_line(), flush=True)
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available")
-    dev = torch.device("cuda")
-
-    global WATCH
-    WATCH = ScanWatch()
     phase("build the kernels and the host runtime")
     t0 = time.time()
     report = kernels.build()
@@ -2734,7 +3076,58 @@ def main(argv=None) -> int:
     t0 = time.time()
     native_lib()
     print(f"native_build_s {time.time() - t0:.3f}")
+    return torch.device("cuda")
 
+
+def device_line() -> str:
+    """The contract's last line."""
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def pipeline_only(mb: float, keep, from_stage, t_start) -> int:
+    """`--pipeline-mb`: the pipeline alone at a genome of `mb` Mb on the
+    card, in `keep` (new, or with `from_stage` a kept run to resume) or a
+    directory removed after; then the contract's last line."""
+    start_card()
+    workdir = keep or tempfile.mkdtemp(prefix="siga_chip_pipeline_")
+    if keep and from_stage is None:
+        os.makedirs(workdir)
+    try:
+        phase(f"pipeline: benchmark/ecoli_scale.py {mb} {PIPE_COVERAGE} {PIPE_ERR} through the "
+              f"port's CLI on the card (stage limit {stage_timeout(mb)} s)")
+        launches = run_pipeline(workdir, mb, "cuda", from_stage)
+    finally:
+        if not keep:
+            shutil.rmtree(workdir)
+    print(f"pipeline kernel launches {json.dumps({k: n for k, n in launches.items() if n})}")
+    print(f"chip_smoke_s {time.time() - t_start:.3f} (the kernels' build included)")
+    print(device_line())
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--keep-pipeline", metavar="DIR",
+                        help="run the pipeline in DIR (a new directory) and keep it")
+    parser.add_argument("--pipeline-mb", type=float, metavar="MB",
+                        help="run only the pipeline, at a genome of MB Mb (its facts are "
+                             f"checked at {' and '.join(map(str, PIPE_FACTS))})")
+    parser.add_argument("--from-stage", metavar="NAME", choices=[n for n, _a in PIPE_STAGES],
+                        help="with --pipeline-mb and --keep-pipeline DIR: resume the run kept "
+                             "in DIR from stage NAME")
+    args = parser.parse_args(argv)
+    keep = os.path.abspath(args.keep_pipeline) if args.keep_pipeline else None
+    if args.from_stage and (args.pipeline_mb is None or keep is None):
+        parser.error("--from-stage needs --pipeline-mb and --keep-pipeline")
+    t_start = time.time()
+    if args.pipeline_mb is not None:
+        return pipeline_only(args.pipeline_mb, keep, args.from_stage, t_start)
+    dev = start_card()
+
+    global WATCH
+    WATCH = ScanWatch()
     phase("simulate")
     rng = np.random.default_rng(SEED)
     seqs = simulate_reads(rng, GENOME)
@@ -2766,7 +3159,9 @@ def main(argv=None) -> int:
         k5 = check_sw_kernel(dev, sw_edges)
         k5["max_abs_err"] = max(k5["max_abs_err"], time_sw_long(dev))
         edges = edge_indexes(dev)
-        k2_err = check_plane_kernel(dev, edges)
+        main_index = tuple(FMIndex.load(f"reads.{ext}") for ext in ("bwt", "rbwt"))
+        k2_err = check_plane_kernel(dev, {"main path": main_index, **edges})
+        del main_index
         phase("hits of sampled reads against the host engine")
         check_hits(builder, hits, seqs, rng)
         phase("index -a host against -a sais2")
@@ -2809,6 +3204,10 @@ def main(argv=None) -> int:
                   f"chain bound {chain:.4f} ms ({READ_LEN + 1} dependent row reads at G3's "
                   f"{step_ns:.1f} ns) [{card_line()}]")
         del builder, hits
+        torch.cuda.empty_cache()
+        phase("E. coli size, error-free: 4.6 Mb x 25x through index, overlap and rmdup")
+        for name, n in run_ecoli(dev).items():
+            launches[name] += n
         torch.cuda.empty_cache()
         pipe_dir = keep or os.path.join(workdir, "pipeline")
         os.makedirs(pipe_dir)
@@ -2866,9 +3265,7 @@ def main(argv=None) -> int:
     print(f"chip_smoke_s {time.time() - t_start:.3f} (the whole script, the kernels' build "
           f"included)")
     print(json.dumps({"kernels": kernel_rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(device_line())
     return 0
 
 
