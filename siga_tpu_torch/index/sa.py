@@ -49,6 +49,7 @@ import torch
 
 from .. import kernels, native
 from ..core import dna
+from ..spans import span
 
 from ..device import native_lib, resolve_device
 
@@ -125,10 +126,11 @@ def sort_plan(codes: np.ndarray) -> SortPlan:
     max(0, L - 63) positions with no '$' among their next 64 codes."""
     if codes.size == 0 or codes[-1] != 0:
         raise ValueError("the rank text must end in '$' (rank 0)")
-    sent = np.flatnonzero(codes == 0)
-    span = np.diff(sent, prepend=-1)  # each read plus its sentinel
-    return SortPlan(_sa_rounds_v3(int(span.max())), int(np.maximum(span - GRAM3, 0).sum()),
-                    int(sent.size))
+    with span("siga.sa.sort_plan"):
+        sent = np.flatnonzero(codes == 0)
+        lengths = np.diff(sent, prepend=-1)  # each read plus its sentinel
+        return SortPlan(_sa_rounds_v3(int(lengths.max())),
+                        int(np.maximum(lengths - GRAM3, 0).sum()), int(sent.size))
 
 
 def pack64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -153,27 +155,29 @@ def _check_fits(n: int, device: torch.device, held: int | None = None) -> None:
     room for the sort state of `held` characters (default n) at once."""
     if n >= 2**31:
         raise ValueError(f"text of {n} characters: the device sort takes below 2**31")
-    if device.type == "cuda":
-        held = n if held is None else held
-        free, total = torch.cuda.mem_get_info(device)
-        # blocks the caching allocator holds but no tensor uses are free too
-        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-        need = SORT_BYTES_PER_CHAR * held
-        if need > free:
-            raise RuntimeError(
-                f"suffix sort of {held} characters needs about {need} bytes on {device}; "
-                f"{free} of {total} are free"
-            )
+    with span("siga.sa.check_fits"):
+        if device.type == "cuda":
+            held = n if held is None else held
+            free, total = torch.cuda.mem_get_info(device)
+            # blocks the caching allocator holds but no tensor uses are free too
+            free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+            need = SORT_BYTES_PER_CHAR * held
+            if need > free:
+                raise RuntimeError(
+                    f"suffix sort of {held} characters needs about {need} bytes on {device}; "
+                    f"{free} of {total} are free"
+                )
 
 
 def text_to_device(codes: np.ndarray, device) -> torch.Tensor:
     """The rank text on `device`: to a card from pinned host memory, without
     waiting for the copy."""
     device = resolve_device(device)
-    host = torch.from_numpy(np.ascontiguousarray(codes))
-    if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
-    return host
+    with span("siga.sa.pin_text"):
+        host = torch.from_numpy(np.ascontiguousarray(codes))
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
+        return host
 
 
 def _on_card(t: torch.Tensor, step: str) -> torch.device:
@@ -435,26 +439,32 @@ def _step(record, label: str, name: str, *args):
 # --- the route
 
 
-def _sort(codes: np.ndarray, c: torch.Tensor, n: int, record=None) -> tuple:
-    """(suffix order int64 [n] on c's device, `sort_plan(codes)`) of the rank
-    text `codes` (n > 1 characters), `c` its copy on the device.  The seed is
-    enqueued first, its compactions sized n, and the host works out the plan
-    while the card sorts it; `record` as `_step`'s."""
+def _seed(codes: np.ndarray, c: torch.Tensor, n: int, record=None) -> tuple:
+    """(order, rank, uslot, upos) after the seed of the rank text `codes` (n
+    > 1 characters), `c` its copy on the device: enqueued with its
+    compactions sized n, so that the host works out `sort_plan` while the
+    card sorts it; `record` as `_step`'s."""
     if codes[-1] != 0:
         raise ValueError("the rank text must end in '$' (rank 0)")
-    sentpos, key_a, key_b, upos = _step(record, "sa_seed_keys", "sa_seed_keys", c, n, n)
-    idx = torch.sort(sentpos, stable=True).indices  # one byte; ties stay in text order
-    order, key = _step(record, "sa_gather, key_b", "sa_gather", None, idx, key_b)
-    idx = torch.sort(key, stable=True).indices
-    del key
-    order, key = _step(record, "sa_gather, key_a", "sa_gather", order, idx, key_a)
-    del key_a, idx
-    key_s, idx = torch.sort(key, stable=True)
-    del key
-    order, rank, uslot = _step(record, "sa_seed_ranks", "sa_seed_ranks", order, idx, key_s,
-                               key_b, sentpos, n)
-    del idx, key_s, key_b, sentpos
-    plan = sort_plan(codes)
+    with span("siga.sa.seed"):
+        sentpos, key_a, key_b, upos = _step(record, "sa_seed_keys", "sa_seed_keys", c, n, n)
+        idx = torch.sort(sentpos, stable=True).indices  # one byte; ties stay in text order
+        order, key = _step(record, "sa_gather, key_b", "sa_gather", None, idx, key_b)
+        idx = torch.sort(key, stable=True).indices
+        del key
+        order, key = _step(record, "sa_gather, key_a", "sa_gather", order, idx, key_a)
+        del key_a, idx
+        key_s, idx = torch.sort(key, stable=True)
+        del key
+        order, rank, uslot = _step(record, "sa_seed_ranks", "sa_seed_ranks", order, idx, key_s,
+                                   key_b, sentpos, n)
+        return order, rank, uslot, upos
+
+
+def _rounds(seeded: tuple, plan: SortPlan, n: int, record=None) -> torch.Tensor:
+    """The suffix order: `_seed`'s order after `plan.rounds` doubling
+    rounds over its tied positions."""
+    order, rank, uslot, upos = seeded
     upos, uslot = upos[: plan.tied], uslot[: plan.tied]
     for r in range(plan.rounds):
         key = _step(record, "sa_round_keys", "sa_round_keys", upos, rank, GRAM3 << r, n)
@@ -464,7 +474,7 @@ def _sort(codes: np.ndarray, c: torch.Tensor, n: int, record=None) -> tuple:
         _step(record, "sa_round_scatter" + (", last round" if last else ""), "sa_round_scatter",
               idx, key_s, upos, uslot, order, None if last else rank)
         del key_s, idx
-    return order, plan
+    return order
 
 
 def suffix_array_device(codes: np.ndarray, device) -> torch.Tensor:
@@ -483,7 +493,10 @@ def suffix_array_device(codes: np.ndarray, device) -> torch.Tensor:
     if n <= 1:
         return torch.arange(n, device=device)
     _check_fits(n, device)
-    return _sort(codes, text_to_device(codes, device), n)[0]
+    seeded = _seed(codes, text_to_device(codes, device), n)
+    plan = sort_plan(codes)
+    with span("siga.sa.rounds"):
+        return _rounds(seeded, plan, n)
 
 
 def index_arrays_device(codes: np.ndarray, device, record=None):
@@ -497,31 +510,35 @@ def index_arrays_device(codes: np.ndarray, device, record=None):
                 torch.zeros(0, dtype=torch.int64, device=device))
     _check_fits(n, device)
     c = text_to_device(codes, device)
-    if n == 1:
-        sa, plan = torch.arange(n, device=device), sort_plan(codes)
-    else:
-        sa, plan = _sort(codes, c, n, record)
-    return _step(record, "sa_bwt_perm", "sa_bwt_perm", sa, c, plan.reads)
+    seeded = _seed(codes, c, n, record) if n > 1 else None
+    plan = sort_plan(codes)
+    with span("siga.sa.rounds"):
+        sa = torch.arange(n, device=device) if seeded is None else _rounds(seeded, plan, n, record)
+        del seeded  # the seed's ranks and slots are freed before the outputs are made
+        return _step(record, "sa_bwt_perm", "sa_bwt_perm", sa, c, plan.reads)
 
 
 def _to_host(tensors) -> list:
     """The tensors as numpy arrays: from a card through pinned memory, one
     wait for all."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        return [t.numpy() for t in tensors]
-    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for o, t in zip(out, tensors):
-        o.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(dev).synchronize()
-    return [o.numpy() for o in out]
+    with span("siga.sa.to_host"):
+        dev = tensors[0].device
+        if dev.type != "cuda":
+            return [t.numpy() for t in tensors]
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for o, t in zip(out, tensors):
+            o.copy_(t, non_blocking=True)
+        with span("siga.sa.wait"):
+            torch.cuda.current_stream(dev).synchronize()
+        return [o.numpy() for o in out]
 
 
 def bwt_perm_device(codes: np.ndarray, device) -> Tuple[np.ndarray, np.ndarray]:
     """(bwt codes uint8 [n], .sai permutation int64 [reads]) by the device
     suffix sort (`index_arrays_device`), on the host."""
-    bwt, perm = _to_host(index_arrays_device(codes, device))
-    return bwt, perm
+    with span("siga.sa.build"):
+        bwt, perm = _to_host(index_arrays_device(codes, device))
+        return bwt, perm
 
 
 # --- the all-torch route that preceded the kernels: the card route's reference
