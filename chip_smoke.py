@@ -64,10 +64,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      equal to the all-torch route's (`suffix_array_plain`,
      `bwt_perm_plain`) bit for bit, and each step's kernel equal to its
      plain version on the same inputs (timed at the main path's shape
-     beside its bytes bound and its plain version); the device index's
-     layers timed alone for one direction (text build, sort, sort + BWT +
-     perm) beside K6's loose bound, the launches of each K6 wrapper and the
-     host synchronisations of one build (none), and in a process of its own
+     beside its bytes bound and its plain version), and `sa_plan` against
+     the host's `sort_plan` on the texts of `sa_plan_texts` (reads across
+     its tiles, a single read), also off the 16-byte boundary; the device
+     index's layers timed alone for one direction (text build, sort, sort +
+     BWT + perm) beside K6's loose bound, the launches of each K6 wrapper,
+     the host synchronisations of one build (none) and its event waits (the
+     plan's one, after the seed is enqueued), `sa.plan_stats`, and in a
+     process of its own
      (`trace_index`) K6's warm walls, a torch.profiler trace of the sort
      (device time, operations, torch.sort's share and the digit passes of
      each of its calls) beside the bound of the passes this design runs,
@@ -145,7 +149,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      direction, 47 chunks of 16,313 reads), counts reset just before each
      command: `index` on the card (every K6 kernel must launch; each
      direction's sort wall and peak device memory against the fit check's
-     SORT_BYTES_PER_CHAR); K2 against its plain version on both
+     SORT_BYTES_PER_CHAR; `sa_plan` against `sort_plan` on both directions,
+     timed beside its bytes bound); K2 against its plain version on both
      directions (904,428 rows, a pair plane four times the L2) and timed
      by CUDA events on one; `overlap -m 45` (K1 once a chunk, K2
      once a direction; one host wait and one copy back a chunk, or the
@@ -266,7 +271,7 @@ SEGMENTS = (2, 4)  # the distributed index build's entries, [cuda:0] * D each
 DIST_ROUNDS = 3  # distributed builds timed in turn with K6's bwt_perm_device
 SA_REPS, SA_PLAIN_REPS = 20, 3  # calls of a K6 or K8 kernel, of its plain version, a timing
 # the step each K6 kernel's JSON row times at the main path's shape
-SA_TIMED = {"sa_seed_keys": "sa_seed_keys", "sa_gather": "sa_gather, key_a",
+SA_TIMED = {"sa_plan": "sa_plan", "sa_seed_keys": "sa_seed_keys", "sa_gather": "sa_gather, key_a",
             "sa_seed_ranks": "sa_seed_ranks", "sa_round_keys": "sa_round_keys",
             "sa_round_scatter": "sa_round_scatter", "sa_bwt_perm": "sa_bwt_perm"}
 # the step each K8 kernel's JSON row times at the main path's shape (D = 2)
@@ -779,8 +784,9 @@ def check_host_index(index_s, beside=None):
 def time_index_layers(dev, seqs):
     """The device index's layers for one direction, warm: the text build, the
     suffix sort alone, and sort + BWT + permutation copied to the host; the
-    launches of each K6 wrapper in one `bwt_perm_device` and its host
-    synchronisations; then K6 traced in a process of its own
+    launches of each K6 wrapper in one `bwt_perm_device`, its host
+    synchronisations (none) and its event waits (the plan's one, after the
+    seed is enqueued); then K6 traced in a process of its own
     (`trace_index`)."""
     t0 = time.time()
     codes, _starts, _lengths = sa_mod.concat_reads(seqs)
@@ -803,14 +809,48 @@ def time_index_layers(dev, seqs):
           f"suffix_array_device {sort_s:.3f} s, bwt_perm_device (sort + BWT + perm to the host) "
           f"{bwt_perm_s:.3f} s; K6 loose bound {bytes_ms(k6_bytes):.4f} ms ({k6_bytes} B, bytes)")
     kernels.reset_launches()
-    sites, _out = sync_sites(lambda: sa_mod.index_arrays_device(codes, dev))
+    plans = dict(sa_mod.plan_stats)
+    waits, (sites, _out) = event_waits(lambda: sync_sites(
+        lambda: sa_mod.index_arrays_device(codes, dev)))
     del _out
     ran = {name: n for name, n in kernels.launches.items() if n}
     print(f"K6 index_arrays_device, one direction: launches {ran}; host synchronisations "
-          f"(torch.cuda.set_sync_debug_mode) {len(sites)} {sites} [{card_line()}]")
-    assert not sites, "K6 waits on the card between the text's copy and the outputs'"
+          f"(torch.cuda.set_sync_debug_mode) {len(sites)} {sites}; event waits {waits} "
+          f"[{card_line()}]")
+    assert not sites, "K6 waits on the card for its stream between the text's copy and the outputs'"
+    assert [(site.split(":")[0], fn) for site, fn, _seeded in waits] == [
+        (PLAN_WAIT_SITE, "_plan_wait")], waits
+    assert waits[0][2], "K6 waits for its plan before the seed is enqueued"
     assert set(ran) == set(SA_TIMED), ran
+    print(f"K6 plans (sa.plan_stats) over these builds: "
+          f"{ {k: v - plans[k] for k, v in sa_mod.plan_stats.items()} }; since the start "
+          f"{sa_mod.plan_stats}")
     in_child("trace_index")
+
+
+# where K6's one host wait before the outputs' lies: the plan's event
+PLAN_WAIT_SITE = "siga_tpu_torch/index/sa.py"
+
+
+def event_waits(fn):
+    """([(file:line, function, seed enqueued)] of each
+    `torch.cuda.Event.synchronize` that fn() called, by its caller's frame,
+    with whether the seed's last kernel (`sa_seed_ranks`) had been launched
+    by then; fn's result).  torch's sync debug mode (`sync_sites`) does not
+    see an event's wait."""
+    waits, inner = [], torch.cuda.Event.synchronize
+
+    def watched(event):
+        caller = sys._getframe(1)
+        waits.append((f"{os.path.relpath(caller.f_code.co_filename, REPO)}:{caller.f_lineno}",
+                      caller.f_code.co_name, kernels.launches["sa_seed_ranks"] > 0))
+        return inner(event)
+
+    torch.cuda.Event.synchronize = watched
+    try:
+        return waits, fn()
+    finally:
+        torch.cuda.Event.synchronize = inner
 
 
 def k6_route_bytes(n: int, plan, passes) -> tuple:
@@ -898,6 +938,55 @@ def sa_edge_reads(seed: int = 0) -> dict:
     }
 
 
+PLAN_TILE = 65536  # codes a block of `sa_plan` summarises (kPlanTile in csrc/suffix_sort.cu)
+
+
+def sa_plan_texts(seed: int = 0) -> dict:
+    """{label: rank text} on which `sa_plan` is held to the host's
+    `sort_plan`: every text of `sa_edge_reads`, and reads of one symbol, one
+    read of 10,000 symbols (the text's one '$' its last code), reads longer
+    than the kernel's tile beside short ones, and one read that is the whole
+    text across several tiles."""
+    rng = np.random.default_rng(seed)
+
+    def read(length):
+        return "".join("ACGT"[c] for c in rng.integers(0, 4, length))
+
+    texts = {label: sa_mod.concat_reads(reads)[0] for label, reads in sa_edge_reads(seed).items()}
+    texts.update({
+        "reads of one symbol": sa_mod.concat_reads(["A"] * 300)[0],
+        "one read of 10,000": sa_mod.concat_reads([read(10_000)])[0],
+        "reads longer than a tile": sa_mod.concat_reads(
+            [read(50), read(PLAN_TILE + 1_000), read(100), read(2 * PLAN_TILE + 7)])[0],
+        "one read, the whole text across tiles": sa_mod.concat_reads(
+            [read(3 * PLAN_TILE + 31)])[0],
+    })
+    return texts
+
+
+def check_sa_plan(dev, texts: dict, timed: bool = False) -> None:
+    """`sa_plan` (`sa.plan_text`) on the card against the host's `sort_plan`
+    on each text, also from an address off the 16-byte boundary (its bytes
+    read one by one); with `timed` each timed by CUDA events (SA_REPS calls)
+    beside its bytes bound (the text read once, three int64 written)."""
+    for label, codes in texts.items():
+        want = tuple(sa_mod.sort_plan(codes))
+        c = torch.from_numpy(codes).to(dev)
+        off = torch.cat([torch.ones(1, dtype=torch.uint8, device=dev), c])[1:]
+        for name, text in (("aligned", c), ("off the boundary", off)):
+            got = sa_mod.plan_text(text).tolist()
+            plan = (sa_mod._sa_rounds_v3(got[0]), got[1], got[2])
+            assert plan == want, f"sa_plan on {label} ({name}): {got} gives {plan}, not {want}"
+        line = f"sa_plan on {label} ({codes.size} chars): plan {want} equal to sort_plan's"
+        if timed:
+            bound = bytes_ms(codes.size + 24)
+            ms = cuda_ms(lambda: sa_mod.plan_text(c), SA_REPS)
+            line += (f"; {ms:.4f} ms by CUDA events, {bound / ms:.1%} of its {bound:.4f} ms bytes "
+                     f"bound [{card_line()}]")
+        print(line)
+        del c, off
+
+
 def _copies(args) -> tuple:
     return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
 
@@ -909,6 +998,8 @@ def _outputs(out) -> list:
 def sa_step_bytes(name: str, args) -> int:
     """The bytes a K6 step must move with `args`: each input read once (a
     gathered array at most whole), each output written once."""
+    if name == "sa_plan":
+        return args[0].numel() + 24
     if name == "sa_seed_keys":
         c, n, ucap = args
         return min(c.numel(), n + sa_mod.SEED_READ) + 17 * n + 4 * (ucap or 0)
@@ -959,8 +1050,9 @@ def check_sa_kernels(dev, seqs) -> dict:
     forward text and on every text of `sa_edge_reads`, its SA equal to
     `suffix_array_plain`'s and its BWT and permutation to `bwt_perm_plain`'s
     bit for bit, and each step it ran against its plain version on the same
-    inputs (timed at the main path's shape, `check_sa_steps`).  Returns each
-    K6 kernel's JSON row."""
+    inputs (timed at the main path's shape, `check_sa_steps`); then
+    `sa_plan` against `sort_plan` on every text of `sa_plan_texts`.  Returns
+    each K6 kernel's JSON row."""
     rows, seen = {}, set()
     for text, reads in {"the main path's forward text": seqs, **sa_edge_reads()}.items():
         codes = sa_mod.concat_reads(reads)[0]
@@ -980,6 +1072,7 @@ def check_sa_kernels(dev, seqs) -> dict:
         del record
         torch.cuda.empty_cache()
     assert seen == set(SA_TIMED) and set(rows) == set(SA_TIMED), (seen, rows)
+    check_sa_plan(dev, sa_plan_texts())
     return rows
 
 
@@ -2565,7 +2658,13 @@ def _run_ecoli(dev) -> dict:
               f"{bytes_ms(k6_bytes):.4f} ms ({k6_bytes} B, bytes) [{card}]")
         assert peak <= sa_mod.SORT_BYTES_PER_CHAR * n, "the sort's memory estimate is too low"
     assert all(ran[name] >= 2 for name in SA_TIMED), ran  # K6, both directions
-    print(f"index_s {index_s:.3f}; launches {ran}", flush=True)
+    print(f"index_s {index_s:.3f}; launches {ran}; K6 plans (sa.plan_stats) {sa_mod.plan_stats}",
+          flush=True)
+    codes = sa_mod.concat_reads(seqs)[0]
+    check_sa_plan(dev, {"E. coli size forward": codes,
+                        "E. coli size reverse": sa_mod.concat_reads([q[::-1] for q in seqs])[0]},
+                  timed=True)
+    del codes
     fmi, rfmi = FMIndex.load("reads.bwt"), FMIndex.load("reads.rbwt")
     check_plane_kernel(dev, {"E. coli size": (fmi, rfmi)})
     codes = torch.from_numpy(np.ascontiguousarray(fmi.codes)).to(dev)
@@ -3244,7 +3343,8 @@ def main(argv=None) -> int:
         ("kmer_count", "siga_tpu_torch/csrc/kmer_count.cu", "siga_tpu/ops/kmer_count.py:23", k7),
     ] + [
         (name, "siga_tpu_torch/csrc/suffix_sort.cu",
-         "siga_tpu/index/sa.py:" + ("361" if name == "sa_bwt_perm" else "221"), row)
+         "siga_tpu/index/sa.py:" + {"sa_bwt_perm": "361", "sa_plan": "337"}.get(name, "221"),
+         row)
         for name, row in k6.items()
     ] + [
         (name, "siga_tpu_torch/csrc/dist_sort.cu", "siga_tpu/parallel/dist_build.py:123", row)

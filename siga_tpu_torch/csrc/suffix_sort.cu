@@ -29,15 +29,18 @@
 //     read ids of the rows whose BWT symbol is '$' compacted in SA order.  A
 //     read that starts at p > 0 follows the '$' at p - 1, and the first R
 //     rows of the SA are the R sentinels in text order, so its id is one more
-//     than that sentinel's row (a binary search over them).
+//     than that sentinel's row (a binary search over them);
+// and before the seed, sa_plan: what the host needs of the text to run the
+// rounds (the longest read plus its '$', which gives their number; the
+// positions whose sentpos is 64; the reads), in one pass over the text.
 // The compactions and the head ranks are one-pass scans: a block takes a
 // tile ticket, scans its tile by warp ballots, and a decoupled look-back (as
 // K2's, csrc/pair_plane.cu) over one 64-bit word a tile (two flags, a 31-bit
 // count and a 31-bit largest head) gives the tile's prefix.  Heads grow with
 // the slot, so the largest head at or before a row is its own.  No step
 // waits on the host: the seed's compactions are sized n (their arrays
-// zeroed first), and the host works out the rounds, the upos count and the
-// reads from the text while the card sorts the seed.
+// zeroed first), and sa_plan's three numbers are copied back to the host
+// while the card sorts the seed.
 //
 // What bounds it on an H100: bytes.  Each kernel reads its inputs and writes
 // its outputs once, a gather by a permutation as 32-byte sectors; the
@@ -505,6 +508,141 @@ bwt_perm_kernel(const long long* __restrict__ sa, const unsigned char* __restric
   }
 }
 
+// The plan of a rank text: a part of it summarised so that parts join in
+// text order (plan_join), whatever number of tiles a read crosses.  The
+// reads a part closes inside are those between two of its '$'s; a read's
+// span is its length plus its '$'.
+struct PlanPart {
+  long long len;    // codes
+  long long zeros;  // '$'s
+  long long lead;   // codes before the first '$' (len where there is none)
+  long long trail;  // codes after the last '$' (len where there is none)
+  long long tied;   // over the reads closed inside, the sum of max(0, span - 64)
+  long long span;   // over the reads closed inside, the largest span (0 where none)
+};
+
+constexpr int kPlanCodes = 64;                         // a lane's consecutive codes a step
+constexpr int kPlanSteps = 4;                          // a warp's steps over its part of a tile
+constexpr int kPlanWarp = 32 * kPlanCodes * kPlanSteps;
+constexpr long long kPlanTile = static_cast<long long>(kWarps) * kPlanWarp;
+
+// a then b: the read that crosses from a into b closes in b.
+__device__ __forceinline__ PlanPart plan_join(const PlanPart& a, const PlanPart& b) {
+  const long long len = a.len + b.len;
+  if (!a.zeros) return {len, b.zeros, a.len + b.lead, b.zeros ? b.trail : len, b.tied, b.span};
+  if (!b.zeros) return {len, a.zeros, a.lead, a.trail + b.len, a.tied, a.span};
+  const long long mid = a.trail + b.lead + 1;
+  return {len, a.zeros + b.zeros, a.lead, b.trail, a.tied + b.tied + max(mid - kGram, 0ll),
+          max(max(a.span, b.span), mid)};
+}
+
+__device__ __forceinline__ PlanPart plan_shfl_down(const PlanPart& p, int d) {
+  return {__shfl_down_sync(kFull, p.len, d), __shfl_down_sync(kFull, p.zeros, d),
+          __shfl_down_sync(kFull, p.lead, d), __shfl_down_sync(kFull, p.trail, d),
+          __shfl_down_sync(kFull, p.tied, d), __shfl_down_sync(kFull, p.span, d)};
+}
+
+// Lane 0 gets the lanes' parts joined in lane order.
+__device__ __forceinline__ PlanPart plan_warp_join(PlanPart p) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) p = plan_join(p, plan_shfl_down(p, d));
+  return p;
+}
+
+// Bit k set where byte k of w is 0.
+__device__ __forceinline__ unsigned zero_bytes(unsigned w) {
+  return ((__vcmpeq4(w, 0u) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+// The part of the len (<= 64) codes whose '$'s are the bits of z: its
+// inner reads are shorter than 64, so tie nothing.
+__device__ __forceinline__ PlanPart plan_piece(unsigned long long z, long long len) {
+  PlanPart p = {len, __popcll(z), len, len, 0, 0};
+  if (z) {
+    int prev = __ffsll(static_cast<long long>(z)) - 1;
+    p.lead = prev;
+    p.trail = len - 64 + __clzll(static_cast<long long>(z));
+    for (unsigned long long m = z & (z - 1); m; m &= m - 1) {
+      const int at = __ffsll(static_cast<long long>(m)) - 1;
+      p.span = max(p.span, static_cast<long long>(at - prev));
+      prev = at;
+    }
+  }
+  return p;
+}
+
+// The plan of the n codes c: each block summarises a tile of kPlanTile
+// codes (a warp kPlanWarp consecutive codes, a lane 64 of them a step as
+// four 16-byte loads where c is 16-byte aligned), writes it to parts[tile]
+// and takes a ticket; the last block joins the tiles' parts in order and
+// writes out = (the largest span, the positions whose sentpos is 64, the
+// reads).  The text must end in '$'.
+__global__ void __launch_bounds__(kThreads)
+plan_kernel(const unsigned char* __restrict__ c, long long n, long long* __restrict__ out,
+            PlanPart* __restrict__ parts, unsigned* __restrict__ ticket, int tiles) {
+  __shared__ PlanPart warp_part[kWarps];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool aligned = (reinterpret_cast<unsigned long long>(c) & 15u) == 0;
+  const long long first = blockIdx.x * kPlanTile + static_cast<long long>(warp) * kPlanWarp;
+  PlanPart mine = {0, 0, 0, 0, 0, 0};
+  for (int s = 0; s < kPlanSteps; ++s) {
+    const long long at = first + (s * 32 + lane) * kPlanCodes;
+    const long long len = min(max(n - at, 0ll), static_cast<long long>(kPlanCodes));
+    unsigned long long z = 0;
+    if (aligned && len == kPlanCodes) {
+      const uint4* v = reinterpret_cast<const uint4*>(c + at);
+      uint4 q[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) q[k] = __ldg(v + k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        z |= static_cast<unsigned long long>(zero_bytes(q[k].x) | zero_bytes(q[k].y) << 4 |
+                                             zero_bytes(q[k].z) << 8 | zero_bytes(q[k].w) << 12)
+             << (16 * k);
+      }
+    } else {
+      for (int k = 0; k < len; ++k) z |= static_cast<unsigned long long>(c[at + k] == 0) << k;
+    }
+    const PlanPart step = plan_warp_join(plan_piece(z, len));
+    mine = plan_join(mine, step);  // right in lane 0
+  }
+  if (lane == 0) warp_part[warp] = mine;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    PlanPart tile = warp_part[0];
+    for (int w = 1; w < kWarps; ++w) tile = plan_join(tile, warp_part[w]);
+    parts[blockIdx.x] = tile;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == static_cast<unsigned>(tiles - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: a thread joins a run of consecutive tiles, then the
+  // runs join in order as the steps did
+  const int per = (tiles + kThreads - 1) / kThreads;
+  PlanPart run = {0, 0, 0, 0, 0, 0};
+  for (int t = threadIdx.x * per, end = min(t + per, tiles); t < end; ++t) {
+    const long long* w = reinterpret_cast<const long long*>(parts + t);
+    run = plan_join(run, {__ldcg(w), __ldcg(w + 1), __ldcg(w + 2), __ldcg(w + 3), __ldcg(w + 4),
+                          __ldcg(w + 5)});
+  }
+  run = plan_warp_join(run);
+  if (lane == 0) warp_part[warp] = run;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    PlanPart all = warp_part[0];
+    for (int w = 1; w < kWarps; ++w) all = plan_join(all, warp_part[w]);
+    const long long head = all.lead + 1;  // the first read's span: the text starts it
+    out[0] = max(all.span, head);
+    out[1] = all.tied + max(head - kGram, 0ll);
+    out[2] = all.zeros;
+  }
+}
+
+int plan_tiles(long long n) { return static_cast<int>((n + kPlanTile - 1) / kPlanTile); }
+
 int tiles_of(long long items) { return static_cast<int>((items + kTile - 1) / kTile); }
 
 int grid_of(long long items) { return static_cast<int>((items + kThreads - 1) / kThreads); }
@@ -521,6 +659,28 @@ bool bad_size(long long n) { return n < 0 || n >= (1ll << 31) - kTile; }
 // 64-bit words of scratch a scan over `items` items needs: one a tile, then
 // the ticket.
 extern "C" int siga_sa_scan_scratch(long long items) { return tiles_of(items) + 1; }
+
+// 64-bit words of scratch siga_sa_plan needs for n codes: a tile's part,
+// then the ticket.
+extern "C" int siga_sa_plan_scratch(long long n) {
+  return plan_tiles(n) * static_cast<int>(sizeof(PlanPart) / 8) + 1;
+}
+
+// The plan of the rank text c (uint8 [n], 0 < n, ending in '$'): out (int64
+// [3]) = (the longest read plus its '$', the positions whose next 64 codes
+// hold no '$', the '$'s); scratch of siga_sa_plan_scratch(n) words.
+extern "C" int siga_sa_plan(const void* c, long long n, void* out, void* scratch, void* stream) {
+  if (bad_size(n) || n < 1 || !out || !scratch) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int tiles = plan_tiles(n);
+  auto* parts = static_cast<PlanPart*>(scratch);
+  auto* ticket = reinterpret_cast<unsigned*>(parts + tiles);
+  const cudaError_t rc = cudaMemsetAsync(ticket, 0, sizeof(unsigned long long), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  plan_kernel<<<tiles, kThreads, 0, s>>>(static_cast<const unsigned char*>(c), n,
+                                         static_cast<long long*>(out), parts, ticket, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // sentpos (uint8 [n]), key_a and key_b (int64 [n]) of the positions [0, n)
 // of the codes c (uint8, `limit` of them readable, limit <= n + 80); with

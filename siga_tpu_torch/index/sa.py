@@ -31,13 +31,16 @@ tensor, counted in `kernels.launches`, and runs its plain PyTorch version,
      first slot as its rank (the tied groups are whole, contiguous and in
      rank order among both);
   5. `bwt_perm`: the BWT and the read ids of its '$' rows, in SA order.
-No step waits on the card: the seed's compactions are sized n, and the
-host works out the rounds and the tied count (`sort_plan`) while the card
-sorts the seed.  The text goes to the card once (pinned) and the BWT and
-permutation come back once.  `suffix_array_plain` / `bwt_perm_plain` keep the all-torch
-route that preceded the kernels (a multi-key sort as stable passes over
-packed int64 keys, least significant first, full doubling sorts); the card
-route is held to them bit for bit.  The 2-bit words work in int64 with
+Before the seed, `plan_text` (kernel `sa_plan`) reads the text once for
+the three numbers of its `SortPlan`, which are copied to the host behind
+an event; the seed's compactions are sized n, so the seed is enqueued
+before the host waits on that event, its one wait before the outputs'.  On
+the CPU the host makes the plan (`sort_plan`).  The text goes to the card
+once (pinned) and the BWT and permutation come back once.
+`suffix_array_plain` / `bwt_perm_plain` keep the all-torch route that
+preceded the kernels (a multi-key sort as stable passes over packed int64
+keys, least significant first, full doubling sorts); the card route is held
+to them bit for bit.  The 2-bit words work in int64 with
 explicit 32-bit masks (torch on the CPU has no shifts on uint32).
 """
 from __future__ import annotations
@@ -114,23 +117,33 @@ def _sa_rounds_v3(max_span: int) -> int:
 
 
 class SortPlan(NamedTuple):
-    """What the host knows of a rank text's sort before it starts."""
+    """What the host needs of a rank text to run its doubling rounds."""
 
     rounds: int  # prefix-doubling rounds after the seed
     tied: int  # positions whose sentpos is 64: the only ones a round sorts
     reads: int  # sentinels: the reads, and the BWT's '$' rows
 
 
-def sort_plan(codes: np.ndarray) -> SortPlan:
-    """The plan of a rank text that ends in '$'.  A read of L symbols has
-    max(0, L - 63) positions with no '$' among their next 64 codes."""
+def _check_end(codes: np.ndarray) -> None:
     if codes.size == 0 or codes[-1] != 0:
         raise ValueError("the rank text must end in '$' (rank 0)")
+
+
+def sort_plan(codes: np.ndarray) -> SortPlan:
+    """The plan of a rank text that ends in '$', by a scan on the host.  A
+    read of L symbols has max(0, L - 63) positions with no '$' among their
+    next 64 codes."""
+    _check_end(codes)
     with span("siga.sa.sort_plan"):
         sent = np.flatnonzero(codes == 0)
         lengths = np.diff(sent, prepend=-1)  # each read plus its sentinel
         return SortPlan(_sa_rounds_v3(int(lengths.max())),
                         int(np.maximum(lengths - GRAM3, 0).sum()), int(sent.size))
+
+
+# Plans of the route: made on a card, made on the host, and card plans whose
+# event had not fired when the host came to wait on it.
+plan_stats = {"card": 0, "host": 0, "unready": 0}
 
 
 def pack64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -196,6 +209,32 @@ def _scratch(items: int, device) -> torch.Tensor:
 
 
 # --- the steps: a wrapper (the kernel on a CUDA tensor) and its plain version
+
+
+def plan_text(c: torch.Tensor) -> torch.Tensor:
+    """(largest span, tied, reads) int64 [3] of the rank text `c` (uint8
+    [>= 1], on its device, ending in '$'): `SortPlan`'s numbers, with the
+    longest read plus its '$' in place of the rounds it gives.  Kernel
+    `sa_plan` on a CUDA tensor, `sort_plan_plain` on a CPU one."""
+    if c.dtype != torch.uint8 or c.dim() != 1 or not c.is_contiguous() or c.numel() == 0:
+        raise ValueError("plan_text: want a contiguous 1-d uint8 text of at least one code")
+    if c.device.type == "cpu":
+        return sort_plan_plain(c)
+    dev = _on_card(c, "plan_text")
+    lib = kernels.lib()
+    out = torch.empty(3, dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.siga_sa_plan_scratch(c.numel()), dtype=torch.int64, device=dev)
+    kernels.launch("sa_plan", dev, lib.siga_sa_plan, c.data_ptr(), c.numel(), out.data_ptr(),
+                   scratch.data_ptr())
+    return out
+
+
+def sort_plan_plain(c: torch.Tensor) -> torch.Tensor:
+    """`plan_text` in torch ops."""
+    sent = torch.nonzero(c == 0).flatten()
+    spans = torch.diff(sent, prepend=sent.new_tensor([-1]))  # each read plus its sentinel
+    return torch.stack([spans.max(), (spans - GRAM3).clamp_(min=0).sum(),
+                        sent.new_tensor(sent.numel())])
 
 
 def seed_keys(c: torch.Tensor, n: int, ucap: int | None = None):
@@ -418,6 +457,7 @@ def bwt_perm_plain_step(sa, c, reads: int):
 
 # Each step's kernel name (its launch count's), wrapper and plain version.
 STEPS = {
+    "sa_plan": (plan_text, sort_plan_plain),
     "sa_seed_keys": (seed_keys, seed_keys_plain),
     "sa_gather": (gather_keys, gather_keys_plain),
     "sa_seed_ranks": (seed_ranks, seed_ranks_plain),
@@ -439,13 +479,41 @@ def _step(record, label: str, name: str, *args):
 # --- the route
 
 
-def _seed(codes: np.ndarray, c: torch.Tensor, n: int, record=None) -> tuple:
-    """(order, rank, uslot, upos) after the seed of the rank text `codes` (n
-    > 1 characters), `c` its copy on the device: enqueued with its
-    compactions sized n, so that the host works out `sort_plan` while the
-    card sorts it; `record` as `_step`'s."""
-    if codes[-1] != 0:
-        raise ValueError("the rank text must end in '$' (rank 0)")
+def _plan_start(codes: np.ndarray, c: torch.Tensor, record=None):
+    """On a card, the plan of the rank text `codes` (`c` its copy there)
+    enqueued: `plan_text`, a copy of its numbers into pinned memory and an
+    event after the copy, (event, numbers); on the CPU None, the host plans
+    (`_plan_wait`).  `record` as `_step`'s."""
+    _check_end(codes)
+    if c.device.type != "cuda":
+        return None
+    out = _step(record, "sa_plan", "sa_plan", c)
+    numbers = torch.empty(3, dtype=torch.int64, pin_memory=True)
+    numbers.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(c.device))
+    return done, numbers
+
+
+def _plan_wait(codes: np.ndarray, started) -> SortPlan:
+    """The plan `_plan_start` started, waited for on its event alone; where
+    it started none, the host's `sort_plan` of `codes`."""
+    if started is None:
+        plan_stats["host"] += 1
+        return sort_plan(codes)
+    done, numbers = started
+    with span("siga.sa.sort_plan"):
+        plan_stats["card"] += 1
+        plan_stats["unready"] += not done.query()
+        done.synchronize()
+        max_span, tied, reads = numbers.tolist()
+        return SortPlan(_sa_rounds_v3(max_span), tied, reads)
+
+
+def _seed(c: torch.Tensor, n: int, record=None) -> tuple:
+    """(order, rank, uslot, upos) after the seed of the rank text `c` (n > 1
+    characters, on the device): enqueued with its compactions sized n, so
+    that nothing waits on the card before the plan; `record` as `_step`'s."""
     with span("siga.sa.seed"):
         sentpos, key_a, key_b, upos = _step(record, "sa_seed_keys", "sa_seed_keys", c, n, n)
         idx = torch.sort(sentpos, stable=True).indices  # one byte; ties stay in text order
@@ -493,8 +561,10 @@ def suffix_array_device(codes: np.ndarray, device) -> torch.Tensor:
     if n <= 1:
         return torch.arange(n, device=device)
     _check_fits(n, device)
-    seeded = _seed(codes, text_to_device(codes, device), n)
-    plan = sort_plan(codes)
+    c = text_to_device(codes, device)
+    started = _plan_start(codes, c)
+    seeded = _seed(c, n)
+    plan = _plan_wait(codes, started)
     with span("siga.sa.rounds"):
         return _rounds(seeded, plan, n)
 
@@ -502,7 +572,8 @@ def suffix_array_device(codes: np.ndarray, device) -> torch.Tensor:
 def index_arrays_device(codes: np.ndarray, device, record=None):
     """(bwt uint8 [n], .sai permutation int64 [reads]) of the rank text
     `codes`, on `device`: port of `siga_tpu/index/sa.py::_sa_bwt_perm_v3`.
-    The text goes to the device once; nothing waits on the device."""
+    The text goes to the device once; on a card the host waits once, for
+    the plan, after the seed is enqueued."""
     device = resolve_device(device)
     n = int(codes.size)
     if n == 0:
@@ -510,8 +581,9 @@ def index_arrays_device(codes: np.ndarray, device, record=None):
                 torch.zeros(0, dtype=torch.int64, device=device))
     _check_fits(n, device)
     c = text_to_device(codes, device)
-    seeded = _seed(codes, c, n, record) if n > 1 else None
-    plan = sort_plan(codes)
+    started = _plan_start(codes, c, record)
+    seeded = _seed(c, n, record) if n > 1 else None
+    plan = _plan_wait(codes, started)
     with span("siga.sa.rounds"):
         sa = torch.arange(n, device=device) if seeded is None else _rounds(seeded, plan, n, record)
         del seeded  # the seed's ranks and slots are freed before the outputs are made

@@ -37,7 +37,7 @@ launches = {
     "pair_plane": 0, "scan_pair": 0, "scan_single": 0, "scan_single_sharded": 0,
     "scan_stage_a": 0, "sw_wavefront": 0, "kmer_count": 0, "gather_rows": 0, "take_along": 0,
     "gather_chain": 0, "scale2": 0, "sa_seed_keys": 0, "sa_gather": 0, "sa_seed_ranks": 0,
-    "sa_round_keys": 0, "sa_round_scatter": 0, "sa_bwt_perm": 0, "launch_floor": 0,
+    "sa_round_keys": 0, "sa_round_scatter": 0, "sa_bwt_perm": 0, "sa_plan": 0, "launch_floor": 0,
     "dist_levels": 0, "dist_bounds": 0, "dist_merge": 0, "dist_number": 0,
 }
 
@@ -100,6 +100,10 @@ _SIGNATURES = {
     "siga_sa_round_scatter": [_P] * 4 + [_I] + [_P] * 4,
     # sa, c, n, reads, bwt, perm, scratch, stream
     "siga_sa_bwt_perm": [_P, _P, _I, _I, _P, _P, _P, _P],
+    # n -> 64-bit words of scratch siga_sa_plan needs
+    "siga_sa_plan_scratch": [_L],
+    # c, n, out, scratch, stream
+    "siga_sa_plan": [_P, _L, _P, _P, _P],
     # idx, order, key, sentpos, codes, sents, n_sents, rid_base, m, then
     # out_pos, out_key, out_sp, out_pay, stream
     "siga_dist_levels": [_P] * 6 + [_I, _L, _L] + [_P] * 4 + [_P],

@@ -1,9 +1,10 @@
 """The program's spans (`siga_tpu_torch/spans.py`) in the device index build
 (`index/sa.py`) on the CPU: nothing recorded and nothing changed without a
 profiler; under a CPU `torch.profiler` one span a direction with its
-children nested in the build's order; the off path's cost.  The wait for the
-card (`siga.sa.wait`) exists only on a card: `portbench/tests` checks it
-there."""
+children nested in the build's order (the plan, `siga.sa.sort_plan`,
+after the seed); the card's plan waited for inside that span; the off
+path's cost.  The wait for the card's outputs (`siga.sa.wait`) exists only
+on a card: `portbench/tests` checks it there."""
 import time
 import timeit
 
@@ -85,6 +86,38 @@ def test_the_route_outside_a_build_keeps_its_spans_and_its_order():
     names = [name for _s, _e, name in _program_events(prof)]
     assert names == CHILDREN[:-1]
     np.testing.assert_array_equal(order.numpy(), sa.suffix_array_plain(codes, "cpu").numpy())
+
+
+class _PlanEvent:
+    """A card plan's event as `_plan_wait` uses it: fired or not when
+    queried; its wait recorded."""
+
+    def __init__(self, fired: bool):
+        self.fired, self.waited = fired, False
+
+    def query(self) -> bool:
+        return self.fired
+
+    def synchronize(self) -> None:
+        self.waited = True
+
+
+@pytest.mark.parametrize("fired", [True, False])
+def test_a_card_plan_is_waited_for_inside_the_plan_span(fired):
+    """The card's half of the plan on the CPU: `_plan_wait` given an event
+    and the plan's numbers waits on that event inside `siga.sa.sort_plan`,
+    reads the numbers as the host's `sort_plan` gives them, and counts a
+    card plan, unready where its event had not fired."""
+    codes = _codes("rounds 3 (300 and 50)", False)
+    numbers = sa.plan_text(torch.from_numpy(codes))
+    event = _PlanEvent(fired)
+    before = dict(sa.plan_stats)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        plan = sa._plan_wait(codes, (event, numbers))
+    assert plan == sa.sort_plan(codes) and event.waited
+    assert sa.plan_stats == {**before, "card": before["card"] + 1,
+                             "unready": before["unready"] + (not fired)}
+    assert [name for _s, _e, name in _program_events(prof)] == ["siga.sa.sort_plan"]
 
 
 @pytest.mark.parametrize("codes", [np.array([0], dtype=np.uint8),

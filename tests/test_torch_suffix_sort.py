@@ -4,15 +4,18 @@ the CPU, where each step runs its plain version: held to the JAX package's
 device and numpy builders and to the all-torch route it replaced
 (`suffix_array_plain`, `bwt_perm_plain`), and each step to the code it
 replaces.  Suffix orders and permutations are integers: equality is exact."""
+import ctypes
 import json
+import re
 import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import sa_edge_reads
+from chip_smoke import PLAN_TILE, sa_edge_reads, sa_plan_texts
 from siga_tpu.index import sa as jax_sa
+from siga_tpu_torch import kernels
 from siga_tpu_torch.index import sa
 from siga_tpu_torch.probes import kernel_ab, sa_parts
 from test_torch_index import CASES
@@ -74,6 +77,70 @@ def test_sort_plan_counts_what_the_steps_find(label):
 def test_sort_plan_needs_a_final_sentinel():
     with pytest.raises(ValueError, match="must end in"):
         sa.sort_plan(np.array([1, 2, 0, 3], dtype=np.uint8))
+
+
+PLAN_TEXTS = sa_plan_texts()
+
+
+@pytest.mark.parametrize("label", sorted(PLAN_TEXTS))
+def test_plan_step_equals_the_host_scan(label):
+    """`sa_plan`'s plain version (what `plan_text` runs on a CPU tensor)
+    gives the host's `sort_plan`: the longest span gives its rounds."""
+    codes = PLAN_TEXTS[label]
+    got = sa.plan_text(torch.from_numpy(codes))
+    assert got.dtype == torch.int64 and got.shape == (3,)
+    assert torch.equal(got, sa.sort_plan_plain(torch.from_numpy(codes)))
+    max_span, tied, reads = got.tolist()
+    assert max_span == sa._max_span(codes)
+    assert (sa._sa_rounds_v3(max_span), tied, reads) == tuple(sa.sort_plan(codes))
+
+
+def test_plan_texts_cross_the_kernels_tiles():
+    """The plan's texts hold every edge text, a text whose one '$' is its
+    last code, reads longer than the kernel's tile and a single read across
+    tiles; PLAN_TILE is the tile `csrc/suffix_sort.cu` builds."""
+    with open(f"{kernels.CSRC}/suffix_sort.cu") as f:
+        source = f.read()
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", source).group(1))
+             for name in ("kThreads", "kPlanCodes", "kPlanSteps")}
+    assert PLAN_TILE == const["kThreads"] * const["kPlanCodes"] * const["kPlanSteps"]
+    assert set(sa_edge_reads()) < set(PLAN_TEXTS)
+    one = PLAN_TEXTS["one read of 10,000"]
+    assert np.flatnonzero(one == 0).tolist() == [one.size - 1]
+    whole = PLAN_TEXTS["one read, the whole text across tiles"]
+    assert np.flatnonzero(whole == 0).tolist() == [whole.size - 1] and whole.size > 3 * PLAN_TILE
+    assert sa._max_span(PLAN_TEXTS["reads longer than a tile"]) > 2 * PLAN_TILE
+    assert sa.sort_plan(PLAN_TEXTS["reads of one symbol"]) == (0, 0, 300)
+
+
+def test_plan_is_a_step_with_its_kernel_and_c_entries():
+    assert sa.STEPS["sa_plan"] == (sa.plan_text, sa.sort_plan_plain)
+    P, L = ctypes.c_void_p, ctypes.c_longlong
+    assert kernels._SIGNATURES["siga_sa_plan"] == [P, L, P, P, P]  # c, n, out, scratch, stream
+    assert kernels._SIGNATURES["siga_sa_plan_scratch"] == [L]
+    assert "sa_plan" in kernels.launches
+
+
+@pytest.mark.parametrize("text", [torch.zeros((2, 3), dtype=torch.uint8),
+                                  torch.zeros(4, dtype=torch.int64),
+                                  torch.zeros(0, dtype=torch.uint8),
+                                  torch.zeros(8, dtype=torch.uint8)[::2]])
+def test_plan_refuses_what_is_no_text(text):
+    with pytest.raises(ValueError, match="want a contiguous 1-d uint8 text"):
+        sa.plan_text(text)
+
+
+def test_the_cpu_route_plans_on_the_host_and_counts_it():
+    """On the CPU both routes take the host's `sort_plan`; `plan_stats`
+    counts the plans, none of them on a card."""
+    codes = _codes("edge rounds 2 (37 and 200)")
+    before = dict(sa.plan_stats)
+    sa.index_arrays_device(codes, "cpu")
+    sa.suffix_array_device(codes, "cpu")
+    assert sa.plan_stats == {**before, "host": before["host"] + 2}
+    assert sa._plan_start(codes, torch.from_numpy(codes)) is None
+    with pytest.raises(ValueError, match="must end in"):
+        sa.index_arrays_device(np.array([1], dtype=np.uint8), "cpu")
 
 
 def _seed(codes, plan):
@@ -185,18 +252,20 @@ def test_route_records_each_step_once():
     assert list(record) == ["sa_seed_keys", "sa_gather, key_b", "sa_gather, key_a",
                             "sa_seed_ranks", "sa_round_keys", "sa_round_scatter",
                             "sa_round_scatter, last round", "sa_bwt_perm"]
-    assert {name for name, _args in record.values()} == set(sa.STEPS)
+    # the plan is a step of the card's route alone: on the CPU the host plans
+    assert {name for name, _args in record.values()} == set(sa.STEPS) - {"sa_plan"}
     name, args = record["sa_bwt_perm"]
     got = sa.STEPS[name][1](*args)
     assert torch.equal(got[0], bwt) and torch.equal(got[1], perm)
 
 
-@pytest.mark.parametrize("step", ["gather", "round_keys", "bwt_perm"])
+@pytest.mark.parametrize("step", ["plan", "gather", "round_keys", "bwt_perm"])
 def test_steps_raise_off_cpu_and_cuda(step):
     """A wrapper runs its plain version only for a CPU tensor: on any other
     device but CUDA it raises."""
     meta = torch.zeros(4, dtype=torch.int64, device="meta")
     call = {
+        "plan": lambda: sa.plan_text(meta.to(torch.uint8)),
         "gather": lambda: sa.gather_keys(None, meta, meta),
         "round_keys": lambda: sa.round_keys(meta.to(torch.int32), meta.to(torch.int32), 64, 8),
         "bwt_perm": lambda: sa.bwt_perm(meta, meta.to(torch.uint8), 1),
