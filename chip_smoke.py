@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--keep-pipeline DIR]
     python3 chip_smoke.py --pipeline-mb MB [--keep-pipeline DIR [--from-stage NAME]]
+    python3 chip_smoke.py --dist    (K8 alone; on four cards the C. elegans index)
 
 Every `DualScanner.dispatch` of this process (the engine's, rmdup's, the
 sharded scan's) runs under torch.cuda.set_sync_debug_mode("error"): a
@@ -89,7 +90,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      operations, torch.sort's share and full-length digit passes, the bound
      of this design (passes, kernels, bytes moved between entries), its host
      synchronisations (`sync_sites`, equal to the build's own count) and
-     its peak memory against the memory check's estimate;
+     its peak memory against the memory check's estimate; then K8 with its
+     global slots moved past 2**31 against slot 0 and each step against its
+     plain version (`check_wide_ranks`);
  10. `rmdup` on the card, counts reset just before it: K1 must launch (and
      K2 once a direction), the
      hits of 256 sampled reads equal the host engine's
@@ -144,6 +147,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      calls in turn with the others), and K3's device time as a share of its
      chain bound (151 dependent row reads at G3's step), and in that
      process K9's kernel device time at its 60,608 lanes by torch.profiler;
+     then, on a host of four cards or more, the C. elegans N2 whole-genome
+     index over the cards (`run_celegans`, as `--dist` runs it): K8's peak
+     a card against DIST_BYTES_PER_CHAR, a build with its launches counted
+     and every step held to its plain version at those shapes, the
+     `index --device cuda` command against it and the blocked reference,
+     `--device cuda:0` refused, `probes/dist_cards.py` beside them;
  13. the main path at E. coli size, error-free (`run_ecoli`): the reads of
      phase 3 at a 4.6 Mb genome (766,667 reads, 115,766,717 chars a
      direction, 47 chunks of 16,313 reads), counts reset just before each
@@ -1107,7 +1116,8 @@ def dist_step_bytes(name: str, args) -> int:
 
 
 def check_dist_steps(record, text: str, timed: bool) -> dict:
-    """Each K8 step `record` holds (`parallel/dist_build.py::_step`): its
+    """Each K8 step `record` holds (`parallel/dist_build.py::_step`, K6's
+    kernels that the route runs among them): its
     kernel against its plain version on copies of the same inputs, bit for
     bit; with `timed` each also timed by CUDA events (SA_REPS calls; the
     plain version SA_PLAIN_REPS) beside its bytes bound.  Returns {kernel:
@@ -1121,12 +1131,13 @@ def check_dist_steps(record, text: str, timed: bool) -> dict:
         assert err == 0, f"K8 {label} on {text}: the kernel differs from its plain version ({err})"
         line = f"K8 {label} on {text}: equal to its plain version"
         if timed:
-            bound = bytes_ms(dist_step_bytes(name, args))
+            bound = bytes_ms((sa_step_bytes if name in sa_mod.STEPS else dist_step_bytes)(name,
+                                                                                       args))
             ms = cuda_ms(lambda: wrapper(*got), SA_REPS)
             plain_ms = cuda_ms(lambda: plain(*want), SA_PLAIN_REPS)
             line += (f"; {ms:.4f} ms by CUDA events, {bound / ms:.1%} of its {bound:.4f} ms bytes "
                      f"bound; plain {plain_ms:.4f} ms [{card_line()}]")
-            if DIST_TIMED[name] == label:
+            if DIST_TIMED.get(name) == label:
                 rows[name] = kernel_row(err, ms, plain_ms, bound, "bytes", None)
         print(line)
         del got, want
@@ -1240,7 +1251,7 @@ def trace_dist(dev):
     (warm walls, device time and operations, torch.sort's share and its
     digit passes, peak bytes a character) beside K6's device time in the
     same process, the host synchronisations (`sync_sites`, equal to the
-    build's own count) and the bound of this design's passes, kernels and
+    build's own counts) and the bound of this design's passes, kernels and
     exchanges (`k8_route_bytes`).  Returns {D: device ms}."""
     seqs = [r.seq for r in fastx.read_sequences("reads.fa")]
     codes = sa_mod.concat_reads(seqs)[0]
@@ -1255,7 +1266,8 @@ def trace_dist(dev):
         sites, (_outs, stats) = sync_sites(
             functools.partial(dist_build.run_distributed, codes, [dev] * d, emit_bwt=True))
         del _outs
-        assert len(sites) == stats["host_syncs"], (sites, stats["host_syncs"])
+        # a global sort's sizes, and each segment's sentinels: their count, then their copy
+        assert len(sites) == stats["host_syncs"] + 2 * stats["plan_waits"], (sites, stats)
         full = [p[0] for p in counts["sort passes"] if p[0]]
         moved = sum(p["moved_bytes"] for p in stats["phases"])
         sort_bytes, kernel_bytes, moved = k8_route_bytes(codes.size, stats["segment"], d,
@@ -1278,20 +1290,288 @@ def trace_dist(dev):
                   + f" [{card}]")
         else:
             print(f"K8 D = {d} device time: not measured (the trace holds no device operation)")
-        held = d * (2 * stats["segment"] + dist_build.SEED_HALO)
+        held = d * stats["segment"]
         peak = counts["peak bytes a char"]
         print(f"K8 D = {d} bound of this design {bound:.4f} ms (bytes: the digit passes "
               f"{sort_bytes} B, the hand kernels {kernel_bytes} B, moved between entries {moved} "
               f"B); host synchronisations {len(sites)} by torch.cuda.set_sync_debug_mode {sites}, "
-              f"{stats['host_syncs']} by the build's count (one a global sort's sizes); peak "
+              f"{stats['host_syncs']} + 2 x {stats['plan_waits']} by the build's count (one a "
+              f"global sort's sizes, two a segment's sentinels); peak "
               f"device memory {peak:.1f} B a char (the memory check's estimate "
-              f"{sa_mod.SORT_BYTES_PER_CHAR * held / codes.size:.1f}); per global sort: "
+              f"{dist_build.DIST_BYTES_PER_CHAR * held / codes.size:.1f}); per global sort: "
               + ", ".join(f"{p['phase']} moved {p['moved_bytes']} B (largest bucket "
                           f"{max(p['buckets'])})" for p in stats["phases"]) + f" [{card}]")
-        assert peak * codes.size <= sa_mod.SORT_BYTES_PER_CHAR * held, \
+        assert peak * codes.size <= dist_build.DIST_BYTES_PER_CHAR * held, \
             "the build's memory estimate is too low"
         out[str(d)] = dev_ms if n_ops else None
     return out
+
+
+WIDE_RANKS = 1 << 20  # K6's round keys held to their plain version at ranks past 2**31
+
+
+def wide_bases(d: int, s_len: int) -> tuple:
+    """The first global slots of `check_wide_ranks`: ranks from just past
+    2**31, and ranks that end at 2**32 - 1."""
+    return 2**31 + 5, 2**32 - d * s_len
+
+
+def check_wide_ranks(dev, texts: dict) -> None:
+    """K8 on [dev] * D (D in SEGMENTS) with its global slots moved past
+    2**31 (`run_distributed(..., slot_base)`, `wide_bases`): the rank tables
+    hold words past the int32 range, which the numbering writes and K6's
+    round keys, the bounds and the merges read unsigned.  On every text, in
+    both output modes, the outputs must equal those from slot 0 and each
+    recorded step's kernel its plain version bit for bit.  Then K6's
+    `round_keys` against its plain version at WIDE_RANKS positions of ranks
+    drawn from [2**31, 2**32), every 97th all ones (its rank + 1 wraps to
+    0)."""
+    cases = 0
+    for label, codes in texts.items():
+        for d in SEGMENTS:
+            devs = [dev] * d
+            s_len = dist_build.segment_length(codes.size, d)
+            for emit in (True, False):
+                want, _stats = dist_build.run_distributed(codes, devs, emit)
+                for base in wide_bases(d, s_len):
+                    record = {}
+                    got, stats = dist_build.run_distributed(codes, devs, emit, record, base)
+                    assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True)), \
+                        f"K8 from slot {base} on {label} at D = {d} differs from slot 0"
+                    for step, (name, args) in record.items():
+                        wrapper, plain = dist_build.STEPS[name]
+                        a, b = dist_build._copy(args), dist_build._copy(args)
+                        err = max_abs_err(dist_build.step_outputs(name, a, wrapper(*a)),
+                                          dist_build.step_outputs(name, b, plain(*b)))
+                        assert err == 0, f"K8 {step} on {label} at D = {d} from slot {base}: " \
+                                         f"the kernel differs from its plain version ({err})"
+                    cases += 1
+    gen = torch.Generator().manual_seed(SEED)
+    n = WIDE_RANKS
+    words = torch.randint(2**31, 2**32, (n,), generator=gen, dtype=torch.int64)
+    words[::97] = 2**32 - 1
+    rank = (words - 2**32).to(torch.int32)
+    upos = torch.randint(0, n, (n,), generator=gen, dtype=torch.int32)
+    for h in (1, 64, 4096):
+        got = sa_mod.round_keys(upos.to(dev), rank.to(dev), h, n).cpu()
+        want = sa_mod.round_keys_plain(upos, rank, h, n)
+        assert torch.equal(got, want), f"K6 round_keys at ranks past 2**31 (h = {h}) differs"
+    print(f"K8 with ranks past 2**31: {cases} builds from slots {wide_bases(2, 128)[0]} and "
+          f"ending at 2**32 - 1 equal to those from slot 0 on {len(texts)} texts at D = "
+          f"{SEGMENTS} ([cuda:0] x D), every recorded step equal to its plain version; K6 "
+          f"round_keys equal to its plain version at {n} positions of ranks in [2**31, 2**32)")
+
+
+class Held:
+    """A tensor kept in host memory, with the device it came from."""
+
+    def __init__(self, t: torch.Tensor):
+        self.host, self.device = t.cpu(), t.device
+
+
+def _tree(x, fn, leaf):
+    """x with fn applied to each `leaf` in its lists and tuples."""
+    if isinstance(x, leaf):
+        return fn(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree(y, fn, leaf) for y in x)
+    return x
+
+
+class HostRecord(dict):
+    """A `record` for `dist_build.run_distributed` at a size whose step
+    copies the cards have no room to keep: each step's copies (which
+    `_step` makes on its card) go to host memory as they come, so the build
+    holds one copy at a time; `args(label)` puts the step's inputs back on
+    their devices."""
+
+    def __setitem__(self, label, step):
+        name, args = step
+        super().__setitem__(label, (name, _tree(args, Held, torch.Tensor)))
+
+    def args(self, label):
+        return _tree(self[label][1], lambda h: h.host.to(h.device), Held)
+
+
+def check_held_steps(record: HostRecord, text: str) -> dict:
+    """Each step of a K8 build that `record` holds, its kernel against its
+    plain version on the same inputs, each run on a fresh copy put back on
+    its cards, bit for bit, one step at a time.  Returns {label: (kernel,
+    largest |difference|)} (all 0)."""
+    errs = {}
+    for label, (name, _held) in list(record.items()):
+        outs = []
+        for fn in dist_build.STEPS[name]:  # the kernel, then its plain version
+            args = record.args(label)
+            outs.append(dist_build.step_outputs(name, args, fn(*args)))
+            del args  # only the outputs stay on the cards
+        same = all(torch.equal(a, b) for a, b in zip(*outs, strict=True))
+        err = 0 if same else max_abs_err(*([t.cpu() for t in o] for o in outs))
+        del outs
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        assert err == 0, f"K8 {label} on {text}: the kernel differs from its plain version ({err})"
+        errs[label] = (name, err)
+    return errs
+
+
+CELEGANS = os.path.join(REPO, "portbench", "configs", "celegans-n2-sga.json")
+
+
+def write_fasta(path: str, config: dict, seed: int, dev) -> np.ndarray:
+    """The configuration's reads (`portbench/entries/index4.py::read_chunks`:
+    `generate.reads`' reads, gathered on `dev`) written to `path` as FASTA
+    (`>r%09d` names); returns their forward rank text."""
+    from portbench import generate
+    from portbench.entries import index4
+
+    n, length = generate.read_count(config), int(config["read_length"])
+    text = np.zeros(n * (length + 1), dtype=np.uint8)
+    rows_of = torch.from_numpy(text).view(n, length + 1)
+    letters = torch.tensor(list(b"NACGT"), dtype=torch.uint8, device=dev)
+    digits = 10 ** torch.arange(8, -1, -1, device=dev)
+    at = 0
+    with open(path, "wb") as f:
+        for rows in index4.read_chunks(config, seed, dev):
+            m = rows.shape[0]
+            rows_of[at : at + m, :length] = rows.cpu()
+            rec = torch.empty((m, 12 + length + 1), dtype=torch.uint8, device=dev)
+            rec[:, 0], rec[:, 1], rec[:, 11], rec[:, -1] = ord(">"), ord("r"), 10, 10
+            ids = torch.arange(at, at + m, device=dev)
+            rec[:, 2:11] = (ids[:, None] // digits % 10 + ord("0")).to(torch.uint8)
+            rec[:, 12:-1] = letters[rows.long()]
+            f.write(rec.cpu().numpy().tobytes())
+            at += m
+    return text
+
+
+def run_celegans(seed: int = SEED) -> dict:
+    """The C. elegans N2 whole-genome index (`portbench/configs/
+    celegans-n2-sga.json`: 25,071,600 reads of 100 bp, 2,532,231,600
+    characters a direction) over every local card: K8 of the forward text in
+    this process (`distributed_bwt_perm`), each card's peak device memory
+    against DIST_BYTES_PER_CHAR a character of its segment; then the same
+    build with the launch counts reset just before it and its steps recorded
+    (`HostRecord`): every K8 and K6 kernel of the route must launch, each
+    recorded step (K8's four kernels and K6's seed keys, gathers and round
+    keys, at these shapes, ranks past 2**31) must equal its plain version
+    (`check_held_steps`), and the largest bucket of each global sort is
+    printed over S; then `index -a sais2 --device cuda --no-reverse` on the
+    reads' FASTA, whose launches must be the recorded build's and whose
+    .bwt/.sai must equal the build's in this process and the blocked plain
+    reference's order, while `index --device cuda:0` on the same file must
+    refuse with K6's message.  The commands spend minutes reading the FASTA
+    and writing the files on the host, so `probes/dist_cards.py` runs beside
+    them (its walls then share the cards).  Returns the recorded build's
+    launches."""
+    from portbench import generate
+    from portbench.entries import index4
+    from siga_tpu_torch.probes import dist_cards
+
+    with open(CELEGANS) as f:
+        config = json.load(f)
+    cards = dist.data_devices()
+    d = 1 << (len(cards).bit_length() - 1)
+    workdir = tempfile.mkdtemp(prefix="siga_chip_celegans_")
+    try:
+        t0 = time.time()
+        fasta = os.path.join(workdir, "reads.fa")
+        text = write_fasta(fasta, config, seed, cards[0])
+        n = text.size
+        s_len = dist_build.segment_length(n, d)
+        print(f"C. elegans reads: {n} chars a direction, S = {s_len} on {d} cards, FASTA "
+              f"{os.path.getsize(fasta)} B in {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        t0 = time.time()
+        bwt, perm = dist_build.distributed_bwt_perm(text, cards[:d])
+        wall = time.time() - t0
+        peaks = [torch.cuda.max_memory_allocated(c) for c in cards[:d]]
+        print(f"K8 of the forward text over {d} cards: first build {wall:.3f} s; peak device "
+              f"memory a card {peaks} B = {[round(p / s_len, 2) for p in peaks]} B a segment "
+              f"character (DIST_BYTES_PER_CHAR {dist_build.DIST_BYTES_PER_CHAR}) "
+              f"[{card_line()}]", flush=True)
+        assert max(peaks) <= dist_build.DIST_BYTES_PER_CHAR * s_len, \
+            "K8's memory estimate is too low"
+        torch.cuda.empty_cache()
+        record = HostRecord()
+        t0 = time.time()
+        kernels.reset_launches()
+        outs, stats = dist_build.run_distributed(text, cards[:d], True, record)
+        launches = {name: c for name, c in kernels.launches.items() if c}
+        del outs
+        torch.cuda.empty_cache()
+        print(f"K8 of the forward text over {d} cards, its steps recorded to the host: "
+              f"{time.time() - t0:.1f} s; largest bucket over S by global sort: "
+              + ", ".join(f"{p['phase']} {max(p['buckets']) / s_len:.6f}"
+                          for p in stats["phases"]), flush=True)
+        assert set(launches) == set(DIST_TIMED) | set(DIST_K6), launches
+        t0 = time.time()
+        errs = check_held_steps(record, f"the C. elegans forward text over {d} cards")
+        record.clear()
+        print(f"K8 steps of that build against their plain versions at its shapes, largest "
+              f"|difference| ({time.time() - t0:.1f} s): "
+              + ", ".join(f"{label} {e}" for label, (_name, e) in errs.items()), flush=True)
+        print(json.dumps({"kernels": [
+            {"name": name, "route": "cuda", "path": f"index --device cuda, one direction over {d} "
+             f"cards, {n} chars", "launches": c,
+             "max_abs_err": max((e for nm, e in errs.values() if nm == name), default=None)}
+            for name, c in sorted(launches.items())]}), flush=True)
+        torch.cuda.empty_cache()  # the commands' memory checks see the cards free
+        procs = {}
+        t0 = time.time()
+        for name, device in (("k8", "cuda"), ("k6", "cuda:0")):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "siga_tpu_torch", "index", "-a", "sais2", "--device",
+                 device, "--no-reverse", "-p", os.path.join(workdir, name), fasta],
+                cwd=workdir, env=CHILD_ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+        phase("probes/dist_cards.py beside the commands: K8 over distinct cards against K6")
+        dist_cards.main([])
+        outs = {name: p.communicate(timeout=2400) for name, p in procs.items()}
+        print(f"index --device cuda and --device cuda:0 in {time.time() - t0:.1f} s: "
+              f"{outs['k8'][1].strip().splitlines()[-1:]}", flush=True)
+        assert procs["k8"].returncode == 0, outs["k8"][1][-3000:]
+        ran = json.loads(outs["k8"][1].split("[index] kernel launches: ")[-1].splitlines()[0])
+        assert {k: v for k, v in ran.items() if v} == launches, (ran, launches)
+        assert procs["k6"].returncode != 0, "index --device cuda:0 took a text past 2**31"
+        assert f"text of {n} characters: the device sort takes below 2**31" in outs["k6"][1], \
+            outs["k6"][1][-3000:]
+        got_bwt, ns, _ = load_bwt(os.path.join(workdir, "k8.bwt"))
+        got_perm, _ = load_sai(os.path.join(workdir, "k8.sai"))
+        assert ns == generate.read_count(config), (ns, config)
+        assert np.array_equal(got_bwt, bwt) and np.array_equal(got_perm, perm), \
+            "the command's index differs from the build in this process"
+        del bwt, perm
+        t0 = time.time()
+        compared = index4.judge([text], [(got_bwt, got_perm)], cards[:d])
+        print(f"index --device cuda of the C. elegans reads against the blocked reference "
+              f"({time.time() - t0:.1f} s): {compared}; index --device cuda:0 refused: "
+              f"{outs['k6'][1].strip().splitlines()[-1]}", flush=True)
+        assert all(v == 0 for _n, v, _l in compared), compared
+    finally:
+        shutil.rmtree(workdir)
+    return launches
+
+
+def dist_only(t_start: float) -> int:
+    """`--dist`: the K8 checks alone.  On the first card, K8 with ranks past
+    2**31 (`check_wide_ranks`); on a host of four cards or more, then the
+    C. elegans index with `probes/dist_cards.py` (`run_celegans`)."""
+    dev = start_card()
+    phase("K8 with its ranks past 2**31 on [cuda:0] x D against its plain steps")
+    texts = {label: sa_mod.concat_reads(reads)[0] for label, reads in sa_edge_reads().items()}
+    texts["1 Mb x 25x genome reads"] = sa_mod.concat_reads(
+        simulate_reads(np.random.default_rng(SEED), GENOME))[0]
+    check_wide_ranks(dev, texts)
+    if torch.cuda.device_count() >= 4:
+        phase("the C. elegans N2 index over the cards: K8's peak, its steps, the command, "
+              "the reference")
+        run_celegans()
+    print(f"chip_smoke_s {time.time() - t_start:.3f} (the kernels' build included)")
+    print(device_line())
+    return 0
 
 
 def sync_sites(fn):
@@ -3213,6 +3493,9 @@ def main(argv=None) -> int:
     parser.add_argument("--pipeline-mb", type=float, metavar="MB",
                         help="run only the pipeline, at a genome of MB Mb (its facts are "
                              f"checked at {' and '.join(map(str, PIPE_FACTS))})")
+    parser.add_argument("--dist", action="store_true",
+                        help="run only K8's checks: ranks past 2**31 on the first card, and on "
+                             "four cards the distinct-card probe and the C. elegans index")
     parser.add_argument("--from-stage", metavar="NAME", choices=[n for n, _a in PIPE_STAGES],
                         help="with --pipeline-mb and --keep-pipeline DIR: resume the run kept "
                              "in DIR from stage NAME")
@@ -3221,6 +3504,8 @@ def main(argv=None) -> int:
     if args.from_stage and (args.pipeline_mb is None or keep is None):
         parser.error("--from-stage needs --pipeline-mb and --keep-pipeline")
     t_start = time.time()
+    if args.dist:
+        return dist_only(t_start)
     if args.pipeline_mb is not None:
         return pipeline_only(args.pipeline_mb, keep, args.from_stage, t_start)
     dev = start_card()
@@ -3270,6 +3555,9 @@ def main(argv=None) -> int:
         time_index_layers(dev, seqs)
         phase("the distributed index build (K8) on [cuda:0] x D against K6 and the index files")
         k8_launches, k8 = time_dist_build(dev, seqs)
+        phase("K8 with its ranks past 2**31 on [cuda:0] x D against its plain steps")
+        check_wide_ranks(dev, {label: sa_mod.concat_reads(reads)[0]
+                               for label, reads in sa_edge_reads().items()})
         launches.update(k8_launches)
         phase("rmdup on the card, then with SIGA_PAIR_STEP=0 (K3)")
         launches["scan_single"] += run_rmdup(builder, seqs, rng)["scan_single"]
@@ -3304,6 +3592,12 @@ def main(argv=None) -> int:
                   f"{step_ns:.1f} ns) [{card_line()}]")
         del builder, hits
         torch.cuda.empty_cache()
+        if torch.cuda.device_count() >= 4:
+            phase("the C. elegans N2 index over the cards: K8's peak, its steps, the command, "
+                  "the reference")
+            for name, n in run_celegans().items():
+                launches[name] += n
+            torch.cuda.empty_cache()
         phase("E. coli size, error-free: 4.6 Mb x 25x through index, overlap and rmdup")
         for name, n in run_ecoli(dev).items():
             launches[name] += n

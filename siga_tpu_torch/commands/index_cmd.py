@@ -3,7 +3,9 @@
 Port of `siga_tpu/commands/index_cmd.py`: reads stripped of quality and
 comment, the forward index -> .sai/.bwt, then each read reversed (plain
 reversal, not rc) -> .rsai/.rbwt.  `-a sais2` (the default) runs the suffix
-sort on `--device` (default cuda); `-a host` runs the shared C++ seed-sort.
+sort on `--device` (default cuda: every local card, K6 on the first where it
+takes the text alone, else K8 over them; `sa.bwt_perm_route`); `-a host`
+runs the shared C++ seed-sort.
 """
 from __future__ import annotations
 
@@ -15,7 +17,6 @@ from typing import List
 from ..constants import BWT_EXT, RBWT_EXT, RSAI_EXT, SAI_EXT
 from ..io import bwtio, fastx, sai as sai_mod
 
-from ..device import resolve_device
 from ..index import sa as sa_mod
 
 ALGORITHMS = ("sais2", "host")
@@ -36,7 +37,7 @@ def run(opts: dict, arguments: List[str]) -> int:
             f"index: unknown algorithm {algorithm!r} (sais2 or host)", file=sys.stderr
         )
         return 1
-    device = resolve_device(opts.get("device", "cuda")) if algorithm == "sais2" else None
+    devices = sa_mod.index_devices(opts.get("device", "cuda")) if algorithm == "sais2" else None
     input_path = arguments[0]
     output = opts.get("prefix") or fastx.stem(input_path)
     records = fastx.read_sequences(input_path, with_quality=False, with_comment=False)
@@ -44,13 +45,13 @@ def run(opts: dict, arguments: List[str]) -> int:
 
     t0 = time.time()
     if not opts.get("no-forward"):
-        bwt, perm, ns = sa_mod.build_index_arrays(seqs, algorithm, device)
+        bwt, perm, ns = sa_mod.build_index_arrays(seqs, algorithm, devices)
         _save(output + SAI_EXT, output + BWT_EXT, bwt, perm, ns)
     if not opts.get("no-reverse"):
-        bwt, perm, ns = sa_mod.build_index_arrays([s[::-1] for s in seqs], algorithm, device)
+        bwt, perm, ns = sa_mod.build_index_arrays([s[::-1] for s in seqs], algorithm, devices)
         _save(output + RSAI_EXT, output + RBWT_EXT, bwt, perm, ns)
     maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1073741824.0
-    where = f"-a {algorithm}" + (f" on {device}" if device is not None else "")
+    where = f"-a {algorithm}" + (f" on {', '.join(map(str, devices))}" if devices else "")
     print(
         f"[index] wall: {time.time()-t0:.3f} sec, max rss: {maxrss:.3f} GB ({where})",
         file=sys.stderr,

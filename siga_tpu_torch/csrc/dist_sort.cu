@@ -25,10 +25,12 @@
 //     merged from its own split in shared memory, and every column written
 //     in coalesced order through the merged rows' sources;
 //  4. number: each row of a bucket ranked by the global slot of its run's
-//     first row (a max scan over the bucket: warp ballots inside a tile, a
-//     decoupled look-back across tiles as K6's, and the previous bucket's
-//     last rank for a run that starts before the bucket), stored straight
-//     into its segment's rank table at its text position.
+//     first row, an unsigned 32-bit word (a text of up to 2**32 - 2
+//     characters; K6's round keys read the tables as unsigned): a max scan
+//     over the bucket (warp ballots inside a tile, a decoupled look-back
+//     across tiles as K6's, and the previous bucket's last rank for a run
+//     that starts before the bucket), stored straight into its segment's
+//     rank table at its text position.
 // What bounds them on an H100: bytes.  Each reads its inputs and writes its
 // outputs once: a gather through a permutation reads 32-byte sectors
 // (levels), the merge reads each run's columns once and writes the
@@ -507,14 +509,15 @@ extern "C" int siga_dist_merge(const void* a_k1, const void* a_k2, const void* a
 // null; pos global) ranked into the rank tables (tabs: a host array of ntabs
 // int32 tables of seg rows, rank of position p at tabs[p / seg][p % seg]):
 // the slot off + i of its run's first row, prev (the previous non-empty
-// bucket's last row, the same columns, or all null) ranked before.  scratch:
-// siga_sa_scan_scratch(m) words.
+// bucket's last row, the same columns, or all null) ranked before.  Slots
+// and ranks are unsigned 32-bit words (off + m up to 2**32), stored in the
+// int32 tables bit for bit.  scratch: siga_sa_scan_scratch(m) words.
 extern "C" int siga_dist_number(const void* k1, const void* k2, const void* sp, const void* pos,
                                 long long m, const void* p_k1, const void* p_k2, const void* p_sp,
                                 const void* p_pos, long long off, const void* tabs, int ntabs,
                                 long long seg, void* scratch, void* stream) {
   const bool seed = k2 != nullptr;
-  if (bad_size(m) || off < 0 || off + m >= (1ll << 31) || ntabs < 1 || ntabs > kMaxSegments ||
+  if (bad_size(m) || off < 0 || off + m > (1ll << 32) || ntabs < 1 || ntabs > kMaxSegments ||
       seg < 1 || seg >= (1ll << 31) || !k1 || !pos || !tabs || !scratch || !sp != !seed ||
       !p_k1 != !p_pos || (p_k1 && (!p_k2 != !seed || !p_sp != !seed))) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -163,6 +163,16 @@ def _sort_by(keys) -> torch.Tensor:
     return order
 
 
+def _free_bytes(device: torch.device) -> tuple | None:
+    """(free, total) bytes of a card, the caching allocator's unused blocks
+    counted free; None for the CPU."""
+    if device.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(device)
+    # blocks the caching allocator holds but no tensor uses are free too
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device), total
+
+
 def _check_fits(n: int, device: torch.device, held: int | None = None) -> None:
     """Raises unless a text of n characters is below 2**31 and `device` has
     room for the sort state of `held` characters (default n) at once."""
@@ -171,9 +181,7 @@ def _check_fits(n: int, device: torch.device, held: int | None = None) -> None:
     with span("siga.sa.check_fits"):
         if device.type == "cuda":
             held = n if held is None else held
-            free, total = torch.cuda.mem_get_info(device)
-            # blocks the caching allocator holds but no tensor uses are free too
-            free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+            free, total = _free_bytes(device)
             need = SORT_BYTES_PER_CHAR * held
             if need > free:
                 raise RuntimeError(
@@ -375,8 +383,10 @@ def seed_ranks_plain(order2, idx3, ka_s, key_b, sentpos, ucap: int):
 
 def round_keys(upos, rank, h: int, n: int):
     """pack64(rank[p], rank[p + h] + 1, or 0 past the end) of each upos
-    position p: a doubling round's keys (int64 [m]).  Kernel `sa_round_keys`
-    on a CUDA tensor, `round_keys_plain` on a CPU one."""
+    position p: a doubling round's keys (int64 [m]).  The ranks are read as
+    unsigned 32-bit words and the sum wraps (a rank of -1, all ones, gives
+    0), so that K8's ranks run up to 2**32 - 1.  Kernel `sa_round_keys` on a
+    CUDA tensor, `round_keys_plain` on a CPU one."""
     if upos.device.type == "cpu" or upos.numel() == 0:
         return round_keys_plain(upos, rank, h, n)
     dev = _on_card(upos, "round_keys")
@@ -391,8 +401,8 @@ def round_keys_plain(upos, rank, h: int, n: int):
     p = upos.to(torch.int64)
     ahead = p + h
     inside = ahead < n
-    lo = torch.where(inside, rank[ahead.clamp_(max=n - 1)].to(torch.int64) + 1, 0)
-    return pack64(rank[p].to(torch.int64), lo)
+    lo = torch.where(inside, (rank[ahead.clamp_(max=n - 1)].to(torch.int64) + 1) & _U32, 0)
+    return pack64(rank[p].to(torch.int64) & _U32, lo)
 
 
 def round_scatter(idx, skey, upos, uslot, order, rank=None):
@@ -682,14 +692,52 @@ def bwt_perm_plain(codes: np.ndarray, device) -> Tuple[np.ndarray, np.ndarray]:
     return bwt.to(torch.uint8).cpu().numpy(), perm.cpu().numpy()
 
 
+def fits_one_device(n: int, device) -> bool:
+    """Whether `device` takes the sort state of an n-character text alone:
+    below 2**31 characters, and on a card SORT_BYTES_PER_CHAR a character
+    free (`_check_fits`'s rule, without raising)."""
+    if n >= 2**31:
+        return False
+    room = _free_bytes(resolve_device(device))
+    return room is None or SORT_BYTES_PER_CHAR * n <= room[0]
+
+
+def index_devices(name) -> list:
+    """The devices of `index --device NAME`: "cuda" is every local card
+    (`parallel/dist.py::command_devices`), "cuda:N" that card and "cpu" the
+    CPU."""
+    from ..parallel import dist
+
+    return dist.command_devices(name)
+
+
+def bwt_perm_route(codes: np.ndarray, devices) -> Tuple[np.ndarray, np.ndarray]:
+    """(bwt codes uint8 [n], .sai permutation int64 [reads]) of the rank text
+    `codes` on a device list (one device, or a sequence of them): K6
+    (`bwt_perm_device`) on the first where it takes the text alone
+    (`fits_one_device`) or is the only one; else K8
+    (`parallel/dist_build.py::distributed_bwt_perm`) over the first 2**k
+    of the list, the most that is a power of two.  The one choice of
+    `index -a sais2`."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = list(devices)
+    if len(devices) == 1 or fits_one_device(int(codes.size), devices[0]):
+        return bwt_perm_device(codes, devices[0])
+    from ..parallel import dist_build
+
+    return dist_build.distributed_bwt_perm(codes, devices[: 1 << (len(devices).bit_length() - 1)])
+
+
 def build_index_arrays(
     seqs: Sequence[str], algorithm: str, device=None
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """(bwt_codes, sai_perm, num_strings) for one read set: `sais2` sorts on
-    `device`, `host` with the C++ seed-sort (and ignores `device`)."""
+    `device`, one device or a list of them (`bwt_perm_route`), `host` with
+    the C++ seed-sort (and ignores `device`)."""
     codes, starts, _lengths = concat_reads(seqs)
     if algorithm == "sais2":
-        bwt, perm = bwt_perm_device(codes, device)
+        bwt, perm = bwt_perm_route(codes, device)
         return bwt, perm, len(seqs)
     if algorithm == "host":
         sa = suffix_array_host(codes)

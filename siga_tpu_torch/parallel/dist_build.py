@@ -10,18 +10,26 @@ asserts.  The suffix order is `index/sa.py::suffix_array_device`'s.
 
 Segment k of the rank text lives on devices[k]: S characters, S the JAX
 package's (ceil(n / D) rounded up to a multiple of 128), the text padded at
-its end with suffixes that sort after every real one.  The radix passes are
+its end with suffixes that sort after every real one.  The text may pass
+2**31 characters, up to MAX_CHARS = 2**32 - 2: a segment's own positions
+stay below S, and the global slots and ranks are unsigned 32-bit words.
+Each card must have DIST_BYTES_PER_CHAR free a character of the segments it
+holds (`check_fits`), and room for what each exchange brings it once the
+bucket sizes are known (`check_room`).  The radix passes are
 stable `torch.sort`s; every step around them is a hand-written CUDA kernel
 on a card (K6's `seed_keys`, `gather_keys` and `round_keys` of
 `index/sa.py`, and the four of `csrc/dist_sort.cu`, each wrapper here
 launching it on a CUDA tensor, counted in `kernels.launches`, and running
 its plain PyTorch version, `<step>_plain`, on a CPU tensor):
-  1. Seed, K6's way: each segment builds K6's seed keys from its own codes
-     and the next 80 (copied from pinned host memory with the segment,
-     without a wait), sorts them by sentpos (one byte: the sort's stability
-     keeps text order), key_b and key_a, with K6's `gather_keys` between
-     the passes, and `levels` gathers the sorted key_b, sentpos and the
-     local order (and, where the seed is the last sort, the output).
+  1. Seed, K6's way: each segment goes to its device with the next 80
+     codes (written into pinned host memory and copied on the card's side
+     stream, where a compaction of its sentinels runs: the host waits for
+     its size, not for the card's sorts), then builds K6's seed keys, sorts
+     them by sentpos (one byte: the sort's stability keeps text order),
+     key_b and key_a, with K6's `gather_keys` between the passes.  From the
+     sentinels the host works out the doubling rounds, and `levels` gathers
+     the sorted key_b, sentpos and the local order (and, where the seed is
+     the last sort, the output).
   2. A global sort is one PSRS exchange (parallel sorting by regular
      sampling) of segments already sorted: each gives D - 1 evenly spaced
      samples, the D (D - 1) samples sorted on devices[0] give D - 1
@@ -54,6 +62,15 @@ its plain PyTorch version, `<step>_plain`, on a CPU tensor):
      concatenates the buckets in order.
 On a list of several cards a numbering writes the rank tables of the other
 cards through peer access, which each pair must have.
+Spans (`spans.py`): `siga.dist.build` around a build and its fetch;
+inside it `siga.dist.seed` (with `siga.dist.pin`, each segment staged and
+sent, and `siga.dist.plan`, the wait for its sentinels), each global sort's
+`siga.dist.exchange` (splitters, bounds, the wait for the D x D piece sizes,
+the pieces' copies) and `siga.dist.merge`, each numbering's
+`siga.dist.number`, each doubling round's `siga.dist.round`, and
+`siga.dist.fetch` (the outputs' compaction and copy to the host, its waits
+in `siga.dist.wait`).  `build_stats` counts builds, bytes moved between
+cards and host waits.
 """
 from __future__ import annotations
 
@@ -67,7 +84,7 @@ from .. import kernels
 from ..device import resolve_device
 from ..index.sa import (
     GRAM3,
-    _check_fits,
+    _free_bytes,
     _on_card,
     _ptr,
     _sa_rounds_v3,
@@ -75,17 +92,31 @@ from ..index.sa import (
     _sort_by,
     concat_reads,
     gather_keys,
+    gather_keys_plain,
     pack64,
     round_keys,
+    round_keys_plain,
     seed_keys,
-    text_to_device,
+    seed_keys_plain,
 )
 from ..ops.fm_device import _enable_peers
+from ..spans import span
 from . import dist
 
 __all__ = ["distributed_sa", "distributed_index_arrays", "distributed_bwt_perm"]
 
 SEED_HALO = GRAM3 + 16  # codes of the next segment that a segment's seed keys read
+# Upper bound of the build's peak allocation on an entry, in bytes a character
+# of the segments it holds: the seed's exchange holds a segment's sorted
+# columns (26 B a row with its codes), the pieces other entries send it and
+# both levels of its merge tree (25 B a row each).  94.8 measured on each of
+# four H100s at S = 633,057,920 (PERF.md), with a margin of about 10%;
+# chip_smoke.py checks it against the measured peak on each card.  It holds
+# for buckets of about S rows; a bucket's size depends on the text (regular
+# sampling bounds it by about 2 S), so `check_room` checks each card again
+# once an exchange's sizes are known.  K6's SORT_BYTES_PER_CHAR is its own.
+DIST_BYTES_PER_CHAR = 104
+MAX_CHARS = 2**32 - 2  # slots and ranks are read as unsigned 32-bit words
 MAX_SEGMENTS = 16  # rank tables a numbering launch takes (csrc/dist_sort.cu)
 _TILE = 128  # a segment is a multiple of this many characters, as in the JAX package
 _PAD = 4  # the pads' code: any but '$' (their keys are set apart below)
@@ -124,14 +155,17 @@ def segment_sizes(n: int, d: int) -> list:
     return [min(s, max(0, n - k * s)) for k in range(d)]
 
 
-def _segment_codes(codes: np.ndarray, k: int, s: int) -> np.ndarray:
+def _segment_codes(codes: np.ndarray, k: int, s: int, out=None) -> np.ndarray:
     """codes[k s - 1 : (k + 1) s + SEED_HALO] with 0 before the text and pads
-    after it, then one sentinel: the previous code, the segment, its halo."""
+    after it, then one sentinel: the previous code, the segment, its halo;
+    written into `out` (uint8 [s + SEED_HALO + 2]) where given."""
     lo, hi = k * s - 1, (k + 1) * s + SEED_HALO
-    out = np.full(hi - lo + 1, _PAD, dtype=np.uint8)
+    if out is None:
+        out = np.empty(hi - lo + 1, dtype=np.uint8)
     a, b = max(lo, 0), min(hi, codes.size)
     if b > a:
         out[a - lo : b - lo] = codes[a:b]
+    out[max(b - lo, 0) :] = _PAD
     if lo < 0:
         out[0] = 0
     out[-1] = 0  # more than 64 past the segment: caps no sentpos
@@ -263,7 +297,8 @@ def number_runs(cols, prev, off: int, tabs, seg: int) -> None:
     where a key differs from the row before it, or where its sentpos is
     not 64; its rank, the slot of its run's first row (the rank of prev
     where the run starts before the bucket), goes to tabs[p // seg][p %
-    seg], p its position (tabs: int32, one a segment; a table on another
+    seg], p its position (tabs: int32, one a segment, holding each rank as
+    an unsigned 32-bit word, so off + m may reach 2**32; a table on another
     card is written through peer access, which the pair must have).
     Kernel `dist_number` on a CUDA tensor, `number_runs_plain` on a CPU
     one."""
@@ -298,11 +333,12 @@ def number_runs_plain(cols, prev, off: int, tabs, seg: int) -> None:
         for x, p in zip(keys, _present(prev[:3])):
             new[:1] |= x[:1] != p
         p = int(prev[POS])
-        carry = int(tabs[p // seg][p % seg])
+        carry = int(tabs[p // seg][p % seg]) & 0xFFFFFFFF
     if cols[SP] is not None:
         new |= cols[SP] != GRAM3
     slot = torch.arange(off, off + m, device=pos.device)
-    rank = torch.cummax(torch.where(new, slot, 0), 0).values.clamp_(min=carry).to(torch.int32)
+    rank = torch.cummax(torch.where(new, slot, 0), 0).values.clamp_(min=carry)
+    rank = torch.where(rank >= 2**31, rank - 2**32, rank).to(torch.int32)  # the word's bits
     at = pos // seg
     for k, tab in enumerate(tabs):
         mine = at == k
@@ -310,12 +346,16 @@ def number_runs_plain(cols, prev, off: int, tabs, seg: int) -> None:
     return None
 
 
-# Each step's kernel name (its launch count's), wrapper and plain version.
+# Each step's kernel name (its launch count's), wrapper and plain version:
+# this file's, then K6's that the route runs.
 STEPS = {
     "dist_levels": (levels, levels_plain),
     "dist_bounds": (bucket_bounds, bucket_bounds_plain),
     "dist_merge": (merge_runs, merge_runs_plain),
     "dist_number": (number_runs, number_runs_plain),
+    "sa_seed_keys": (seed_keys, seed_keys_plain),
+    "sa_gather": (gather_keys, gather_keys_plain),
+    "sa_round_keys": (round_keys, round_keys_plain),
 }
 
 
@@ -396,58 +436,69 @@ def _merge_bucket(runs, keep, dev, record) -> list:
     return runs[0][0]
 
 
-def _exchange(devices, segs, bases, keep, stats, phase, record) -> tuple:
+def _exchange(devices, segs, bases, keep, stats, phase, record, rooms) -> tuple:
     """One PSRS exchange of the sorted segments segs[k] (their columns; the
     positions local, bases[k] added).  Returns (buckets, sizes): buckets[b],
     on devices[b], holds the columns `keep` of the rows of bucket b in
-    order; sizes[s][b] is the rows source s sent to bucket b."""
+    order; sizes[s][b] is the rows source s sent to bucket b.  Raises before
+    any piece moves where a card has no room for them (`check_room`)."""
     d = len(devices)
     if d == 1:
-        stats["phases"].append({"phase": phase, "moved_bytes": 0, "buckets": [segs[0][K1].numel()]})
+        stats["phases"].append({"phase": phase, "moved_bytes": 0, "peer_bytes": 0,
+                                "buckets": [segs[0][K1].numel()]})
         return [[x if i in keep else None for i, x in enumerate(segs[0])]], [[segs[0][K1].numel()]]
-    split = _splitters(devices, segs, bases)
-    below = []
-    for dev, col, base in zip(devices, segs, bases):
-        sp = [None if x is None else x.to(dev) for x in split]
-        below.append(_step(record, "dist_bounds", "dist_bounds", col[:4], base, sp))
-    sizes = [np.diff([0, *row, col[K1].numel()]).tolist()
-             for row, col in zip(_to_host(below, stats), segs)]
-    sent = [i for i in range(5) if i in KEYS or i in keep]
-    row_bytes = sum(segs[0][i].element_size() for i in sent if segs[0][i] is not None)
-    buckets, moved = [], 0
-    for b, dev in enumerate(devices):
-        runs = []
-        for s in range(d):
-            lo, m = sum(sizes[s][:b]), sizes[s][b]
-            piece = [x[lo : lo + m] if x is not None and i in sent else None
-                     for i, x in enumerate(segs[s])]
-            if devices[s] != dev:
-                piece = [None if x is None else x.to(dev) for x in piece]
-            moved += row_bytes * m if s != b else 0
-            runs.append((piece, bases[s]))
-        buckets.append(_merge_bucket(runs, keep, dev, record))
-    stats["phases"].append({"phase": phase, "moved_bytes": moved,
+    with span("siga.dist.exchange"):
+        split = _splitters(devices, segs, bases)
+        below = []
+        for dev, col, base in zip(devices, segs, bases):
+            sp = [None if x is None else x.to(dev) for x in split]
+            below.append(_step(record, "dist_bounds", "dist_bounds", col[:4], base, sp))
+        sizes = [np.diff([0, *row, col[K1].numel()]).tolist()
+                 for row, col in zip(_to_host(below, stats), segs)]
+        sent = [i for i in range(5) if i in KEYS or i in keep]
+        row_bytes = sum(segs[0][i].element_size() for i in sent if segs[0][i] is not None)
+        check_room(devices, sizes, row_bytes, rooms)
+        pieces, moved, peer = [], 0, 0
+        for b, dev in enumerate(devices):
+            runs = []
+            for s in range(d):
+                lo, m = sum(sizes[s][:b]), sizes[s][b]
+                piece = [x[lo : lo + m] if x is not None and i in sent else None
+                         for i, x in enumerate(segs[s])]
+                if devices[s] != dev:
+                    piece = [None if x is None else x.to(dev) for x in piece]
+                    peer += row_bytes * m
+                moved += row_bytes * m if s != b else 0
+                runs.append((piece, bases[s]))
+            pieces.append(runs)
+    with span("siga.dist.merge"):
+        buckets = [_merge_bucket(runs, keep, dev, record) for runs, dev in zip(pieces, devices)]
+    stats["phases"].append({"phase": phase, "moved_bytes": moved, "peer_bytes": peer,
                             "buckets": [sum(col) for col in zip(*sizes)]})
     return buckets, sizes
 
 
-def _number(devices, buckets, sizes, tabs, s_len, stats, record) -> None:
+def _number(devices, buckets, sizes, tabs, s_len, stats, record, slot_base: int = 0) -> None:
     """Each bucket's rows ranked into the segments' rank tables, in bucket
     order (a bucket's first row is compared with the last row of the
-    previous non-empty bucket)."""
-    _join(devices)
-    prev, off = None, 0
-    for b, (dev, cols) in enumerate(zip(devices, buckets)):
-        m = cols[K1].numel()
-        if m:
-            p = None if prev is None else [None if x is None else x.to(dev) for x in prev]
-            _step(record, "dist_number", "dist_number", cols[:4], p, off, tabs, s_len)
-            prev = [None if x is None else x[m - 1 :] for x in cols[:4]]
-        off += m
-    _join(devices)
+    previous non-empty bucket); the global order's first slot is
+    `slot_base`."""
+    with span("siga.dist.number"):
+        _join(devices)
+        prev, off = None, slot_base
+        for b, (dev, cols) in enumerate(zip(devices, buckets)):
+            m = cols[K1].numel()
+            if m:
+                p = None if prev is None else [None if x is None else x.to(dev) for x in prev]
+                _step(record, "dist_number", "dist_number", cols[:4], p, off, tabs, s_len)
+                prev = [None if x is None else x[m - 1 :] for x in cols[:4]]
+            off += m
+        _join(devices)
     d = len(devices)
-    stats["phases"][-1]["moved_bytes"] += 4 * sum(
-        sizes[s][b] for s in range(d) for b in range(d) if s != b)
+    phase = stats["phases"][-1]
+    phase["moved_bytes"] += 4 * sum(sizes[s][b] for s in range(d) for b in range(d) if s != b)
+    phase["peer_bytes"] = phase.get("peer_bytes", 0) + 4 * sum(
+        sizes[s][b] for s in range(d) for b in range(d) if devices[s] != devices[b])
 
 
 def _halo(tabs, s_len: int, h: int) -> None:
@@ -457,107 +508,219 @@ def _halo(tabs, s_len: int, h: int) -> None:
         here[s_len : s_len + h].copy_(after[:h])
 
 
-def _plan(codes: np.ndarray, s_len: int, emit_bwt: bool, devices) -> tuple:
-    """(rounds, sents): the doubling rounds after the seed and, with
-    emit_bwt, each segment's (local sentinel positions on its device, int32;
-    the sentinels before it).  Raises where the JAX package asserts: a
+def _allocated(dev) -> int:
+    return torch.cuda.memory_allocated(dev)
+
+
+def check_fits(n: int, devices, s_len: int, free=_free_bytes) -> dict:
+    """Raises unless a text of n characters is at most MAX_CHARS and each
+    card of `devices` has room for the sort state of the segments of s_len
+    characters it holds (DIST_BYTES_PER_CHAR a character).  free(device):
+    the bytes free on a card (None for the CPU, which is not checked).
+    Returns {card: (its free bytes, the bytes allocated on it then)} for
+    `check_room`."""
+    if n > MAX_CHARS:
+        raise ValueError(f"text of {n} characters: the distributed sort takes at most "
+                         f"{MAX_CHARS}")
+    rooms = {}
+    with span("siga.dist.check_fits"):
+        for dev, count in Counter(devices).items():
+            room = free(dev)
+            if room is None:
+                continue
+            need = DIST_BYTES_PER_CHAR * count * s_len
+            if need > room[0]:
+                raise RuntimeError(
+                    f"distributed sort of {count} segment(s) of {s_len} characters needs about "
+                    f"{need} bytes on {dev}; {room[0]} of {room[1]} are free")
+            rooms[dev] = (room[0], _allocated(dev))
+    return rooms
+
+
+def check_room(devices, sizes, row_bytes: int, rooms) -> None:
+    """Raises unless each card of `rooms` (`check_fits`' reading, less what
+    was allocated on it since) has room for what an exchange brings it, now
+    that its D x D piece sizes are known: the pieces other cards send to
+    its buckets and two levels of their merge trees at once, row_bytes a
+    row.  check_fits assumed buckets of about S rows; a skewed text makes
+    larger ones."""
+    need = Counter()
+    for b, dev in enumerate(devices):
+        rows = [row[b] for row in sizes]
+        sent = sum(m for s, m in enumerate(rows) if devices[s] != dev)
+        need[dev] += row_bytes * (sent + 2 * sum(rows))
+    for dev, (free, then) in rooms.items():
+        left = free - (_allocated(dev) - then)
+        if need[dev] > left:
+            largest = max(sum(row[b] for row in sizes) for b, d in enumerate(devices) if d == dev)
+            raise RuntimeError(
+                f"distributed sort: an exchange brings about {need[dev]} bytes to {dev} (its "
+                f"largest bucket {largest} rows); {left} are free")
+
+
+_SIDE = {}  # a card's side stream: its segments' copies in and sentinel compactions
+
+
+def _send_segment(codes: np.ndarray, k: int, s: int, size: int, dev) -> tuple:
+    """(segment k's codes `_segment_codes(codes, k, s)` on `dev`, the local
+    positions of its `size` text characters' sentinels there (int32), the
+    same on the host (int64)).  To a card the codes are written straight
+    into pinned host memory and copied on the card's side stream, where the
+    compaction of its sentinels runs: its size is the host's one wait, which
+    the sorts of the card's other segments do not hold up; the current
+    stream then waits for the side stream."""
+    with span("siga.dist.pin"):
+        if dev.type != "cuda":
+            ext = torch.from_numpy(_segment_codes(codes, k, s))
+        else:
+            host = torch.empty(s + SEED_HALO + 2, dtype=torch.uint8, pin_memory=True)
+            _segment_codes(codes, k, s, host.numpy())
+            side = _SIDE.setdefault(dev, torch.cuda.Stream(dev))
+            with torch.cuda.stream(side):
+                ext = host.to(dev, non_blocking=True)
+    with span("siga.dist.plan"):
+        if dev.type != "cuda":
+            local = torch.nonzero(ext[1 : 1 + size] == 0).flatten()
+            return ext, local.to(torch.int32), local.numpy()
+        with torch.cuda.stream(side):
+            local = torch.nonzero(ext[1 : 1 + size] == 0).flatten()
+            found = local.cpu().numpy()
+            local = local.to(torch.int32)
+        main = torch.cuda.current_stream(dev)
+        main.wait_stream(side)
+        ext.record_stream(main)
+        local.record_stream(main)
+        return ext, local, found
+
+
+def _plan(sent: np.ndarray, s_len: int) -> int:
+    """The doubling rounds after the seed of a text whose sentinels are at
+    `sent` (global, ascending).  Raises where the JAX package asserts: a
     segment shorter than the last doubling halo."""
-    sent = np.flatnonzero(codes == 0)
     rounds = _sa_rounds_v3(int(np.diff(sent, prepend=-1).max()))
     if s_len < GRAM3 << max(rounds - 1, 0):
         raise ValueError(f"segments of {s_len} characters are shorter than the doubling halo "
                          f"of {GRAM3 << (rounds - 1)}; use fewer devices")
-    sents = []
-    if emit_bwt:
-        for k, dev in enumerate(devices):
-            lo, hi = np.searchsorted(sent, [k * s_len, (k + 1) * s_len])
-            sents.append((text_to_device((sent[lo:hi] - k * s_len).astype(np.int32), dev),
-                          int(lo)))
-    return rounds, sents
+    return rounds
 
 
-def run_distributed(codes: np.ndarray, devices, emit_bwt: bool, record=None) -> tuple:
+# Counts of the builds run in this process: builds, bytes moved between
+# cards (pieces and rank-table writes) and host waits on a card (piece sizes,
+# sentinel compactions, output compactions and copies).
+build_stats = {"builds": 0, "peer_bytes": 0, "host_waits": 0}
+
+
+def _count(stats) -> None:
+    build_stats["builds"] += 1
+    build_stats["peer_bytes"] += sum(p.get("peer_bytes", 0) for p in stats["phases"])
+    build_stats["host_waits"] += (stats["host_syncs"] + stats["plan_waits"]
+                                  + stats.get("fetch_waits", 0))
+
+
+def run_distributed(codes: np.ndarray, devices, emit_bwt: bool, record=None,
+                    slot_base: int = 0) -> tuple:
     """(outs, stats): outs[b] (int64, on devices[b]) is bucket b's part of the
     suffix array of the rank text `codes` (uint8 [n] ending in '$'), or with
     `emit_bwt` of each suffix's BWT symbol with, on a '$' row, its read id
     (`(rid << 3) | symbol`), in suffix order; the parts in order are the
-    whole.  stats holds the segment length, each global sort's bucket sizes
-    and bytes moved between entries, and the host synchronisations before
-    the output's copy to the host.  `record` as `_step`'s.  Raises where the
-    JAX package asserts: n >= 2**31, or a segment shorter than the last
-    doubling halo."""
+    whole.  stats holds the segment length, the rounds, each global sort's
+    bucket sizes and bytes moved between entries and between cards, and the
+    host's waits before the output's copy to the host (a global sort's
+    piece sizes: `host_syncs`; a segment's sentinels: `plan_waits`).
+    `record` as `_step`'s.  The global order's slots, and so the ranks,
+    start at `slot_base` (0; a test sets it near 2**31 to run the ranks
+    past it): they are read as unsigned 32-bit words, up to 2**32 - 1.
+    Raises for n above MAX_CHARS, for a card without room (`check_fits`;
+    `check_room` at each exchange),
+    and where the JAX package asserts: a segment shorter than
+    the last doubling halo."""
     devices = build_devices(devices)
     d, n = len(devices), int(codes.size)
     s_len = segment_length(n, d)
-    for dev, count in Counter(devices).items():
-        _check_fits(n, dev, held=count * (2 * s_len + SEED_HALO))
-    stats = {"segment": s_len, "sizes": segment_sizes(n, d), "phases": [], "host_syncs": 0}
+    rooms = check_fits(n, devices, s_len)
+    if slot_base < 0 or slot_base + d * s_len > 2**32:
+        raise ValueError(f"slots from {slot_base} to {slot_base + d * s_len} pass 2**32")
+    stats = {"segment": s_len, "sizes": segment_sizes(n, d), "phases": [], "host_syncs": 0,
+             "plan_waits": 0}
     bases = [k * s_len for k in range(d)]
 
-    # 1. each segment's seed keys and local sort; the host works out the
-    # plan while the card sorts the first segment
-    segs, exts = [], []
-    for k, dev in enumerate(devices):
-        ext = text_to_device(_segment_codes(codes, k, s_len), dev)
-        sentpos, key_a, key_b, _ = seed_keys(ext[1:], s_len)
-        if (k + 1) * s_len > n:
-            pad = max(n - k * s_len, 0)
-            key_a[pad:] = _PAD_KEY
-            key_b[pad:] = _PAD_KEY
-            sentpos[pad:] = _PAD_SENTPOS
-        idx = torch.sort(sentpos, stable=True).indices  # one byte; ties stay in text order
-        order, key = gather_keys(None, idx, key_b)
-        idx = torch.sort(key, stable=True).indices
-        order, key = gather_keys(order, idx, key_a)
-        del key_a, idx
-        key_s, idx = torch.sort(key, stable=True)
-        del key
-        if k == 0:
-            rounds, sents = _plan(codes, s_len, emit_bwt, devices)
-            stats["rounds"] = rounds
+    # 1. each segment sent, its sentinels counted, its seed keys and local
+    # sort enqueued; the host sends the next segment while the card sorts
+    segs, exts, sents, found = [], [], [], []
+    with span("siga.dist.seed"):
+        for k, dev in enumerate(devices):
+            ext, local, host = _send_segment(codes, k, s_len, stats["sizes"][k], dev)
+            stats["plan_waits"] += dev.type == "cuda"
+            sents.append((local, sum(x.size for x in found)))
+            found.append(host + k * s_len)
+            sentpos, key_a, key_b, _ = _step(record, "sa_seed_keys", "sa_seed_keys", ext[1:],
+                                             s_len, None)
+            if (k + 1) * s_len > n:
+                pad = max(n - k * s_len, 0)
+                key_a[pad:] = _PAD_KEY
+                key_b[pad:] = _PAD_KEY
+                sentpos[pad:] = _PAD_SENTPOS
+            idx = torch.sort(sentpos, stable=True).indices  # one byte; ties stay in text order
+            order, key = _step(record, "sa_gather, key_b", "sa_gather", None, idx, key_b)
+            idx = torch.sort(key, stable=True).indices
+            order, key = _step(record, "sa_gather, key_a", "sa_gather", order, idx, key_a)
+            del key_a, idx
+            key_s, idx = torch.sort(key, stable=True)
+            del key
+            segs.append([key_s, idx, order, key_b, sentpos])
+            exts.append(ext)
+            del sentpos, key_b, order, idx
+        rounds = stats["rounds"] = _plan(np.concatenate(found), s_len)
+        del found
         out = emit_bwt and rounds == 0
-        pay_args = (ext, *sents[k]) if out else ()
-        pos, kb_s, sp_s, pay = _step(record, "dist_levels, seed", "dist_levels", idx, order,
-                                     key_b, sentpos, *pay_args)
-        segs.append([key_s, kb_s, sp_s, pos, pay])
-        exts.append(ext if emit_bwt else None)
-        del sentpos, key_b, order, idx
+        for k, (key_s, idx, order, key_b, sentpos) in enumerate(segs):
+            pay_args = (exts[k], *sents[k]) if out else ()
+            pos, kb_s, sp_s, pay = _step(record, "dist_levels, seed", "dist_levels", idx, order,
+                                         key_b, sentpos, *pay_args)
+            segs[k] = [key_s, kb_s, sp_s, pos, pay]
+            del key_s, idx, order, key_b, sentpos
+        if not emit_bwt:
+            exts = sents = None
     if rounds == 0:
         buckets, _sizes = _exchange(devices, segs, bases, (PAY if emit_bwt else POS,), stats,
-                                    "seed", record)
+                                    "seed", record, rooms)
         return _drop_pads([c[PAY if emit_bwt else POS] for c in buckets], n), stats
-    buckets, sizes = _exchange(devices, segs, bases, (K1, K2, SP, POS), stats, "seed", record)
+    buckets, sizes = _exchange(devices, segs, bases, (K1, K2, SP, POS), stats, "seed", record,
+                               rooms)
     del segs
     halo = GRAM3 << (rounds - 1)
     tabs = [torch.empty(s_len + halo, dtype=torch.int32, device=dev) for dev in devices]
     tabs[-1][s_len:] = -1  # rank + 1 = 0 past the text's last segment
-    _number(devices, buckets, sizes, tabs, s_len, stats, record)
+    _number(devices, buckets, sizes, tabs, s_len, stats, record, slot_base)
     del buckets
     upos = {dev: torch.arange(s_len, dtype=torch.int32, device=dev) for dev in set(devices)}
 
     # 5. doubling rounds; the last one carries the output
     for r in range(rounds):
-        h, final = GRAM3 << r, r == rounds - 1
-        _halo(tabs, s_len, h)
-        segs = []
-        for k, dev in enumerate(devices):
-            key = round_keys(upos[dev], tabs[k], h, s_len + h)
-            key_s, perm = torch.sort(key, stable=True)
-            del key
-            pay = None
-            if final and emit_bwt:
-                *_, pay = _step(record, "dist_levels, payload", "dist_levels", perm, None, None,
-                                None, exts[k], *sents[k])
-            segs.append([key_s, None, None, perm, pay])
-        if final:
-            del tabs, upos, exts
-        keep = (PAY if emit_bwt else POS,) if final else (K1, POS)
-        buckets, sizes = _exchange(devices, segs, bases, keep, stats, f"round {r}", record)
-        del segs
-        if final:
-            return _drop_pads([c[keep[0]] for c in buckets], n), stats
-        _number(devices, buckets, sizes, tabs, s_len, stats, record)
-        del buckets
+        with span("siga.dist.round"):
+            h, final = GRAM3 << r, r == rounds - 1
+            _halo(tabs, s_len, h)
+            segs = []
+            for k, dev in enumerate(devices):
+                key = _step(record, "sa_round_keys", "sa_round_keys", upos[dev], tabs[k], h,
+                            s_len + h)
+                key_s, perm = torch.sort(key, stable=True)
+                del key
+                pay = None
+                if final and emit_bwt:
+                    *_, pay = _step(record, "dist_levels, payload", "dist_levels", perm, None,
+                                    None, None, exts[k], *sents[k])
+                segs.append([key_s, None, None, perm, pay])
+            if final:
+                del tabs, upos, exts
+            keep = (PAY if emit_bwt else POS,) if final else (K1, POS)
+            buckets, sizes = _exchange(devices, segs, bases, keep, stats, f"round {r}", record,
+                                       rooms)
+            del segs
+            if final:
+                return _drop_pads([c[keep[0]] for c in buckets], n), stats
+            _number(devices, buckets, sizes, tabs, s_len, stats, record, slot_base)
+            del buckets
     raise AssertionError("unreachable")
 
 
@@ -570,17 +733,24 @@ def _drop_pads(outs, n: int) -> list:
     return kept
 
 
-def _fetch(tensors) -> list:
-    """The tensors as numpy arrays: from the cards through pinned memory,
-    one wait a card."""
+def _fetch(tensors, stats=None) -> np.ndarray:
+    """The tensors concatenated in one numpy array: from the cards straight
+    into one pinned buffer, one wait a card (counted in stats["fetch_waits"]
+    where given)."""
     if tensors[0].device.type != "cuda":
-        return [t.numpy() for t in tensors]
-    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for o, t in zip(out, tensors):
-        o.copy_(t, non_blocking=True)
-    for dev in dict.fromkeys(t.device for t in tensors):
-        torch.cuda.current_stream(dev).synchronize()
-    return [o.numpy() for o in out]
+        return torch.cat(tensors).numpy()
+    out = torch.empty(sum(t.numel() for t in tensors), dtype=tensors[0].dtype, pin_memory=True)
+    at = 0
+    for t in tensors:
+        out[at : at + t.numel()].copy_(t, non_blocking=True)
+        at += t.numel()
+    with span("siga.dist.wait"):
+        cards = dict.fromkeys(t.device for t in tensors)
+        for dev in cards:
+            torch.cuda.current_stream(dev).synchronize()
+    if stats is not None:
+        stats["fetch_waits"] = stats.get("fetch_waits", 0) + len(cards)
+    return out.numpy()
 
 
 def distributed_sa(codes: np.ndarray, devices="cuda") -> np.ndarray:
@@ -590,26 +760,38 @@ def distributed_sa(codes: np.ndarray, devices="cuda") -> np.ndarray:
     devices = build_devices(devices)
     if codes.size <= 1:
         return np.arange(codes.size, dtype=np.int64)
-    outs, _stats = run_distributed(codes, devices, emit_bwt=False)
-    return np.concatenate(_fetch(outs))
+    with span("siga.dist.build"):
+        outs, stats = run_distributed(codes, devices, emit_bwt=False)
+        with span("siga.dist.fetch"):
+            sa = _fetch(outs, stats)
+        _count(stats)
+        return sa
 
 
 def distributed_bwt_perm(codes: np.ndarray, devices="cuda"):
     """(bwt codes uint8 [n], .sai permutation int64 [reads]), derived on the
     devices: the last sort carries each suffix's BWT symbol and, on a '$'
-    row, its read id; each bucket unpacks its rows, and the host copies
-    them through pinned memory and concatenates them.  A whole-read suffix is one whose BWT symbol is '$',
-    so the permutation is the read ids of those rows."""
+    row, its read id; each bucket unpacks its rows (a compaction, whose size
+    the host waits for), and the host copies them straight into one pinned
+    buffer each.  A whole-read suffix is one whose BWT symbol is '$', so the
+    permutation is the read ids of those rows."""
     devices = build_devices(devices)
     if codes.size == 0:
         return np.zeros(0, dtype=np.uint8), np.zeros(0, dtype=np.int64)
-    bwt, perm = [], []
-    for packed in run_distributed(codes, devices, emit_bwt=True)[0]:
-        sym = (packed & 7).to(torch.uint8)
-        perm.append(packed[sym == 0] >> 3)
-        bwt.append(sym)
-    host = _fetch(bwt + perm)
-    return np.concatenate(host[: len(bwt)]), np.concatenate(host[len(bwt) :])
+    with span("siga.dist.build"):
+        outs, stats = run_distributed(codes, devices, emit_bwt=True)
+        with span("siga.dist.fetch"):
+            bwt, perm = [], []
+            for packed in outs:
+                sym = (packed & 7).to(torch.uint8)
+                with span("siga.dist.wait"):
+                    perm.append(packed[sym == 0] >> 3)
+                bwt.append(sym)
+            del outs
+            stats["fetch_waits"] = sum(p.device.type == "cuda" for p in perm)
+            out = _fetch(bwt, stats), _fetch(perm, stats)
+        _count(stats)
+        return out
 
 
 def distributed_index_arrays(seqs, devices="cuda"):
